@@ -1,0 +1,209 @@
+"""Block assembly: pattern-cycled layer stacks.
+
+The twin of ``src/repro/models/transformer.py``.  A config's ``block_pattern``
+(e.g. ``("local", "global")``) is cycled over ``num_layers``.  Parameters for
+each pattern position are *stacked* along a leading repeat axis, as in the
+reference (so its parameter tree converts leaf for leaf); where the reference
+runs the stack under ``lax.scan``, this runs a Python loop over that axis and
+hands each repeat a VIEW of the stacked leaves (no copy).  The non-divisible
+remainder runs as a tail.
+
+Ported block types: ``global`` and ``local`` with a dense MLP.  ``rglru``,
+``mamba2``, ``enc``, ``xdec`` and MoE raise ``NotImplementedError`` (ROADMAP.md
+queue 1 names the slice each belongs to).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import attention as attn
+from .layers import apply_mlp, apply_rmsnorm, init_mlp, init_rmsnorm
+from .params import ParamStore, tree_map
+
+_LATER = {
+    "rglru": "models/griffin.py with the rg_lru kernel (K5)",
+    "mamba2": "models/ssm.py with the ssd_scan kernel (K4)",
+    "enc": "cross_attention / encoder-decoder stacks",
+    "xdec": "cross_attention / encoder-decoder stacks",
+}
+
+
+def _check_block(cfg: ModelConfig, btype: str):
+    if btype in _LATER:
+        raise NotImplementedError(
+            f"block type {btype!r} is not ported yet: it comes with "
+            f"{_LATER[btype]} (ROADMAP.md queue 1)")
+    if btype not in ("global", "local"):
+        raise ValueError(f"unknown block type {btype!r}")
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "mixture-of-experts blocks are not ported yet: they come with "
+            "models/moe.py (ROADMAP.md queue 1)")
+
+
+def pattern_of(cfg: ModelConfig, encoder: bool = False) -> Tuple[str, ...]:
+    if encoder:
+        return ("enc",)
+    if cfg.is_encoder_decoder:
+        return ("xdec",)
+    return cfg.block_pattern
+
+
+def stack_layout(cfg: ModelConfig, encoder: bool = False
+                 ) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(pattern, repeats, tail_block_types)."""
+    pat = pattern_of(cfg, encoder)
+    n = cfg.num_encoder_layers if encoder else cfg.num_layers
+    reps = n // len(pat)
+    tail = pat[: n % len(pat)]
+    return pat, reps, tail
+
+
+def _window(cfg: ModelConfig, btype: str) -> Optional[int]:
+    return cfg.window_size if btype == "local" else None
+
+
+# ---------------------------------------------------------------- block init
+
+def init_block(ps: ParamStore, path: str, cfg: ModelConfig, btype: str,
+               stacked: Optional[int]):
+    _check_block(cfg, btype)
+    D = cfg.d_model
+    init_rmsnorm(ps, f"{path}/norm1", D, stacked)
+    attn.init_attention(ps, f"{path}/attn", cfg, stacked)
+    init_rmsnorm(ps, f"{path}/norm2", D, stacked)
+    init_mlp(ps, f"{path}/mlp", cfg, cfg.d_ff, stacked)
+
+
+def init_stack(ps: ParamStore, path: str, cfg: ModelConfig,
+               encoder: bool = False):
+    pat, reps, tail = stack_layout(cfg, encoder)
+    for i, bt in enumerate(pat):
+        init_block(ps, f"{path}/stack/p{i}", cfg, bt, stacked=reps)
+    for j, bt in enumerate(tail):
+        init_block(ps, f"{path}/tail/t{j}", cfg, bt, stacked=None)
+
+
+# ---------------------------------------------------------------- block apply
+
+def _ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], cfg, h)
+
+
+def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Training forward for one block."""
+    _check_block(cfg, btype)
+    h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + attn.self_attention(p["attn"], cfg, h, positions,
+                                _window(cfg, btype), causal=True)
+    return _ffn(p, cfg, x)
+
+
+# ---------------------------------------------------------------- cache
+
+def init_block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
+                     device="cuda") -> Dict:
+    _check_block(cfg, btype)
+    return {"kv": attn.init_cache(cfg, batch, max_len, _window(cfg, btype),
+                                  device)}
+
+
+def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
+                  positions: torch.Tensor, max_len: int):
+    """Forward + cache construction (serving prefill)."""
+    _check_block(cfg, btype)
+    h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
+    window = _window(cfg, btype)
+    y, (k, v) = attn.self_attention(p["attn"], cfg, h, positions, window,
+                                    causal=True, return_kv=True)
+    x = x + y
+    cache = {"kv": attn.build_cache_from_prefill(cfg, k, v, max_len, window)}
+    return _ffn(p, cfg, x), cache
+
+
+def decode_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor, cache: Dict,
+                 pos, plan: Optional[attn.DecodePlan] = None):
+    _check_block(cfg, btype)
+    h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
+    y, kv = attn.decode_self_attention(p["attn"], cfg, h, cache["kv"], pos,
+                                       _window(cfg, btype), plan)
+    x = x + y
+    return _ffn(p, cfg, x), {"kv": kv}
+
+
+# ---------------------------------------------------------------- stacks
+
+def _repeat(tree, r: int):
+    """Repeat ``r`` of a stacked tree: views of the leaves, no copy."""
+    return tree_map(lambda a: a[r], tree)
+
+
+def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, encoder: bool = False):
+    """Training forward through the whole stack."""
+    pat, reps, tail = stack_layout(cfg, encoder)
+    for r in range(reps):
+        psl = _repeat(params["stack"], r)
+        for i, bt in enumerate(pat):
+            x = apply_block(psl[f"p{i}"], cfg, bt, x, positions)
+    for j, bt in enumerate(tail):
+        x = apply_block(params["tail"][f"t{j}"], cfg, bt, x, positions)
+    return x
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     device="cuda") -> Dict:
+    pat, reps, tail = stack_layout(cfg)
+    out: Dict[str, Any] = {"stack": {}, "tail": {}}
+    for i, bt in enumerate(pat):
+        one = init_block_cache(cfg, bt, batch, max_len, device)
+        out["stack"][f"p{i}"] = tree_map(
+            lambda a: a.new_zeros((reps,) + a.shape), one)
+    for j, bt in enumerate(tail):
+        out["tail"][f"t{j}"] = init_block_cache(cfg, bt, batch, max_len, device)
+    return out
+
+
+def prefill_stack(params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, max_len: int):
+    pat, reps, tail = stack_layout(cfg)
+    cache: Dict[str, Any] = {"stack": {}, "tail": {}}
+    slices = []
+    for r in range(reps):
+        psl = _repeat(params["stack"], r)
+        caches = {}
+        for i, bt in enumerate(pat):
+            x, caches[f"p{i}"] = prefill_block(psl[f"p{i}"], cfg, bt, x,
+                                               positions, max_len)
+        slices.append(caches)
+    if slices:
+        cache["stack"] = tree_map(lambda *xs: torch.stack(xs), *slices)
+    for j, bt in enumerate(tail):
+        x, cache["tail"][f"t{j}"] = prefill_block(
+            params["tail"][f"t{j}"], cfg, bt, x, positions, max_len)
+    return x, cache
+
+
+def decode_stack(params, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos):
+    """One decode step through the stack.
+
+    Each block gets a view of its repeat of the stacked cache and writes its
+    new K/V row into it in place, so ``cache`` itself is updated and returned
+    (the reference threads the cache through its scan carry to the same end)."""
+    pat, reps, tail = stack_layout(cfg)
+    # positions, RoPE tables and valid masks are the same for every layer
+    plan = attn.DecodePlan(cfg, pos, x.shape[0], x.device)
+    for r in range(reps):
+        psl = _repeat(params["stack"], r)
+        for i, bt in enumerate(pat):
+            x, _ = decode_block(psl[f"p{i}"], cfg, bt, x,
+                                _repeat(cache["stack"][f"p{i}"], r), pos, plan)
+    for j, bt in enumerate(tail):
+        x, _ = decode_block(params["tail"][f"t{j}"], cfg, bt, x,
+                            cache["tail"][f"t{j}"], pos, plan)
+    return x, cache

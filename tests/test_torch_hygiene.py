@@ -1,0 +1,136 @@
+"""The port stands alone: it imports torch and numpy, never jax and nothing of
+the ``repro`` package; its entry points refuse to run without a CUDA device
+unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.\S*)?\s+import)",
+    re.MULTILINE)
+
+CPU_SERVE = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises ImportError
+import numpy as np, torch
+torch.set_num_threads(1)
+import repro_torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import poisson_trace
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServeEngine
+from repro_torch.kernels import ops, ref
+cfg = reduced(get_config("gemma2-2b")).replace(window_size=32)
+model = build_model(cfg, device="cpu")
+params = model.init_params(torch.Generator().manual_seed(0))
+eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
+trace = poisson_trace(0.5, 3, ["chat"], seed=0)
+reqs = [Request(rid=i, prompt=np.arange(1, 6 + i, dtype=np.int32),
+                max_new_tokens=3, arrival_s=float(t) * 1e-6)
+        for i, t in enumerate(trace.arrival_us)]
+eng.run(reqs)
+assert all(len(r.output) == 3 for r in reqs)
+bad = sorted(m for m in sys.modules
+             if sys.modules[m] is not None
+             and (m == "jax" or m.startswith(("jax.", "jaxlib"))
+                  or m == "repro" or m.startswith("repro.")))
+print("LOADED", bad)
+"""
+
+
+def _run(args, **kw):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, env=env, timeout=300, **kw)
+
+
+def test_port_imports_and_serves_without_jax_or_repro():
+    proc = _run(["-c", CPU_SERVE])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-500:]
+
+
+def test_importing_the_port_builds_nothing(tmp_path):
+    """Import every module with the build directory pointed at an empty
+    place: nothing may appear there (kernels build at the first CUDA launch)."""
+    code = ("import importlib, pkgutil, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    if not m.name.endswith('__main__'):\n"
+            "        importlib.import_module(m.name)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_port_sources(path):
+    found = FORBIDDEN.findall(path.read_text())
+    assert not found, f"{path}: {found}"
+
+
+def test_source_scan_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.configs import base", "    import repro",
+                 "from repro import core", "import jax, numpy"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.configs import base",
+                 "from .. import resolve_device", "# import jax would break"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_chip_smoke_refuses_to_run_without_a_cuda_device():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device; the refusal cannot be shown")
+    proc = _run([str(ROOT / "chip_smoke.py")], cwd=str(ROOT))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout and '"ok"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device; the refusal cannot be shown")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention, build_model, transformer
+    from repro_torch.serving import ServeEngine
+    cfg = reduced(get_config("gemma2-2b"))
+    assert resolve_device("cpu") == torch.device("cpu")
+    for call in (lambda: resolve_device(), lambda: build_model(cfg),
+                 lambda: attention.init_cache(cfg, 1, 8, None),
+                 lambda: transformer.init_stack_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    model = build_model(cfg, device="cpu")
+    params = model.init_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model, params, num_slots=1, max_len=8)
+    proc = _run(["-m", "repro_torch.serving", "--reduced"])
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+
+
+def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
+    from repro_torch.kernels import _build
+    names = [p.name for p in _build.sources()]
+    assert names == ["decode_attention.cu", "flash_attention.cu"]
+    for src in _build.sources():
+        text = src.read_text()
+        assert "torch/extension.h" not in text and 'extern "C"' in text
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "-use_fast_math" not in _build.NVCC_FLAGS

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Time the decode-attention kernel over split sizes, on one CUDA device.
+
+    python3 tools/tune_decode_split.py [--chunks 512 256 128 64]
+
+For the three cache states of gemma2-2b's decode path (B=4, H=8, KV=4, Dh=256,
+bf16, softcap 50) — a full cache at mixed positions, a full cache at the brim,
+a ring buffer — sets ``decode_attention.CHUNK`` (keys per split), checks the
+kernel against its plain version, and prints the device time per call
+(CUDA-graph replay over six copies of K/V, so the L2 is cold) beside the
+bound, then ``torch.profiler``'s time of the split pass and the merge pass.
+Uses the timing helpers of ``chip_smoke.py``; run it from the repo root.
+"""
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (exits if there is no CUDA device)
+from repro_torch.kernels import decode_attention as k3  # noqa: E402
+
+B, H, KV, DH = 4, 8, 4, 256
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--chunks", type=int, nargs="+", default=[512, 256, 128, 64])
+    args = ap.parse_args()
+    from torch.profiler import ProfilerActivity, profile
+
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device=cs.DEV).manual_seed(0)
+    kw = dict(softcap=50.0, scale=DH ** -0.5)
+    cases = [("full, mixed positions", 8192,
+              cs.full_valid(8192, [5015, 2063, 1015, 315])),
+             ("full, at the brim", 8192,
+              cs.full_valid(8192, [8190, 8191, 8000, 8100])),
+             ("ring", 4096, cs.ring_valid(4096, 4096, [5015, 9000, 4096, 315]))]
+    for label, L, valid in cases:
+        q = cs.randn(gen, (B, 1, H, DH), torch.bfloat16)
+        sets = [(cs.randn(gen, (B, L, KV, DH), torch.bfloat16),
+                 cs.randn(gen, (B, L, KV, DH), torch.bfloat16)) for _ in range(6)]
+        want = k3.decode_attention_plain(q, *sets[0], valid, **kw)
+        bound, by = cs.decode_bound_ms(B, H, KV, L, DH, valid, torch.bfloat16)
+        for chunk in args.chunks:
+            k3.CHUNK = chunk
+            err = cs.compare(k3.decode_attention(q, *sets[0], valid, **kw),
+                             want, 2e-2, f"{label} chunk {chunk}")
+            calls = [lambda kk=kk, vv=vv: k3.decode_attention(q, kk, vv, valid, **kw)
+                     for kk, vv in sets]
+            ms = cs.device_ms(calls)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    for fn in calls:
+                        fn()
+                torch.cuda.synchronize()
+            passes = {("split" if "split" in e.key else "merge"):
+                      e.self_device_time_total / e.count
+                      for e in prof.key_averages()
+                      if "decode_" in e.key and e.self_device_time_total > 0}
+            print(f"{label}: L={L} valid keys={int(valid.sum())} "
+                  f"chunk={chunk} splits={k3.split_plan(L)[1]}: {ms:.4f} ms "
+                  f"(split pass {passes.get('split', 0):.1f} us, merge pass "
+                  f"{passes.get('merge', 0):.1f} us), bound {bound:.4f} ms "
+                  f"({by}), max_abs_err {err:.2e}  [{name}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()
