@@ -3,31 +3,43 @@
 
     python3 chip_smoke.py [--verbose] [--profile]
 
-Drives the port's main path — ``ServeEngine`` -> prefill -> decode for
-gemma2-2b — through the entry points a user would call, and holds every CUDA
-kernel of that path against its plain PyTorch version.  Needs one CUDA device;
-without one it exits non-zero at once.  Imports ``repro_torch`` only (from
-``src/`` beside this file), never ``jax`` or ``repro``.  Phases:
+Drives the port's main paths — ``ServeEngine`` -> prefill -> decode for
+gemma2-2b, recurrentgemma-2b and mamba2-130m — through the entry points a user
+would call, and holds every CUDA kernel of those paths against its plain
+PyTorch version.  Needs one CUDA device; without one it exits non-zero at
+once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
+``jax`` or ``repro``.  Phases:
 
 1. card    the ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build   the kernels, from the sources in this checkout (seconds printed);
 3. kernels each wrapper vs its plain version on the card, at the shapes the
-           main path gives it and at one small shape, bf16 (2e-2) and f32
-           (2e-5); device times from CUDA-graph replays timed by CUDA events
-           (and the time of one eager call from Python beside them); one
-           library call (``scaled_dot_product_attention``, softcap and window
-           off, used nowhere in the port) timed beside each as a yardstick;
-4. reduced the reduced gemma2-2b in f32: engine output equals teacher-forced
-           greedy decoding; first-step logits of the kernel path and the
-           einsum path agree within 3e-2;
-5. full    gemma2-2b at full width, all 26 layers, bf16, seeded random weights:
-           8 requests with Poisson arrivals, 16 new tokens each, through a
-           4-slot engine with an 8192-token cache.  The kernels' launch counts
-           are set to 0 just before and read just after.
+           main paths give it and at small shapes: K2 flash attention and K3
+           flash decode (gemma2-2b's and recurrentgemma-2b's geometries) bf16
+           2e-2 / f32 2e-5, K4 ssd_scan (mamba2-130m's) bf16 2e-2 / f32 2e-3,
+           K5 rg_lru (recurrentgemma-2b's; f32 only, its gates are f32) 1e-5;
+           device times from CUDA-graph replays timed by CUDA events (and the
+           time of one eager call from Python beside them); for K2/K3 one
+           library call (``scaled_dot_product_attention``, softcap off, a
+           window as a boolean band mask; used nowhere in the port) timed
+           beside each as a yardstick.  K4 and K5 have none: no single
+           PyTorch call computes either function;
+4. reduced the reduced gemma2-2b, mamba2-130m and recurrentgemma-2b in f32,
+           with the embedding scaled by 0.1 so the greedy token is not the
+           input echoed (asserted: under half of the positions): engine output
+           equals teacher-forced greedy decoding; the logits of every prefill
+           and decode step equal ``forward_logits`` at that position (1e-3);
+           logits of the kernel path and the einsum path agree within 3e-2;
+5. full    each of the three at full width (gemma2-2b 26 layers, recurrentgemma-
+           2b 26, mamba2-130m 24), bf16, seeded random weights: 8 requests with
+           Poisson arrivals, 16 new tokens each, through a 4-slot engine with
+           an 8192-token cache.  Every kernel's launch count is set to 0 just
+           before each serve and read just after, and must equal what the
+           model's layers imply (e.g. recurrentgemma-2b: K5 18 and K2 8 per
+           request, K3 8 per tick).
 
-``--profile`` adds a second, instrumented pass of phase 5 after the measured
-one: prefill and tick times by a host clock with a synchronise after each, and
-``torch.profiler``'s device time by kernel.
+``--profile`` adds a second, instrumented pass of each phase-5 serve after the
+measured one: prefill and tick times by a host clock with a synchronise after
+each, and ``torch.profiler``'s device time by kernel.
 
 A failure in any phase raises: the run exits non-zero and prints no result
 line.  The last line of standard output is the result object; the line before
@@ -61,7 +73,10 @@ from repro_torch.core.jobgen import poisson_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
+from repro_torch.kernels import rg_lru as k5  # noqa: E402
+from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -70,7 +85,18 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-PROMPT_LENS = [37, 128, 512, 1000, 2048, 5000, 64, 300]
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+LRU_TOL = 1e-5
+KERNELS = {"flash_attention": k2, "decode_attention": k3, "ssd_scan": k4,
+           "rg_lru": k5}
+# the serves of phase 5: prompt lengths (mamba2's inside the reference's
+# chunk rule, a multiple of min(256, length); recurrentgemma's 5000 wraps
+# its 2048-slot ring)
+PROMPT_LENS = {
+    "gemma2-2b": [37, 128, 512, 1000, 2048, 5000, 64, 300],
+    "recurrentgemma-2b": [37, 128, 512, 1000, 2048, 5000, 64, 300],
+    "mamba2-130m": [37, 64, 128, 256, 512, 1024, 2048, 4096],
+}
 NEW_TOKENS = 16
 
 
@@ -207,10 +233,25 @@ def decode_bound_ms(B, H, KV, L, Dh, valid, dtype):
 
 def sdpa_causal(q, k, v, scale):
     """The library yardstick for K2: (B,S,H,Dh) in and out, GQA, causal; no
-    softcap and no window (the library call has neither)."""
+    softcap (the library call has none)."""
     o = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True, scale=scale, enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def band_mask(S, window):
+    """(S,S) bool: causal and inside the sliding window."""
+    r = torch.arange(S, device=DEV)[:, None]
+    c = torch.arange(S, device=DEV)[None, :]
+    return (c <= r) & (c > r - window)
+
+
+def sdpa_band(q, k, v, mask, scale):
+    """The library yardstick for K2 with a window: a boolean band mask."""
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, scale=scale, enable_gqa=True)
     return o.transpose(1, 2)
 
 
@@ -223,12 +264,14 @@ def sdpa_decode(q, k, v, valid, scale):
 
 
 def phase_flash(gen):
-    """K2 vs plain.  Returns the `kernels` entry, timed at the path's heaviest
-    prefill (S=5000, bf16, global layer)."""
-    B, H, KV, Dh = 1, 8, 4, 256
-    scale = Dh ** -0.5
-    cases = [(B, S, H, KV, Dh, w, 50.0) for S in (37, 1000, 5000)
+    """K2 vs plain.  Returns the `kernels` entry, timed at the paths' heaviest
+    prefill (gemma2-2b, S=5000, bf16, global layer)."""
+    Dh = 256
+    # gemma2-2b: 8 heads on 4 KV heads, softcap 50, global or window 4096
+    cases = [(1, S, 8, 4, Dh, w, 50.0) for S in (37, 1000, 5000)
              for w in (None, 4096)]
+    # recurrentgemma-2b's local layers: 10 heads on 1 KV head, window 2048
+    cases += [(1, S, 10, 1, Dh, 2048, None) for S in (37, 1000, 5000)]
     cases.append((2, 100, 4, 2, 16, 32, 50.0))      # the reduced config's shape
     cases.append((2, 100, 4, 2, 16, None, None))
     # the other head dims and head groupings the supported configs use
@@ -259,11 +302,16 @@ def phase_flash(gen):
                 plain = device_ms(
                     [lambda: k2.flash_attention_plain(q, k, v, **kw)], rounds=2)
                 bound, by = flash_bound_ms(b, h, kv, S, dh, window, dtype)
+                if window is None:
+                    lib = device_ms([lambda: sdpa_causal(q, k, v, dh ** -0.5)])
+                else:
+                    mask = band_mask(S, window)
+                    lib = device_ms(
+                        [lambda: sdpa_band(q, k, v, mask, dh ** -0.5)])
                 line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
-                if S == 5000 and window is None and dtype == torch.bfloat16:
-                    lib = device_ms([lambda: sdpa_causal(q, k, v, scale)])
-                    line += f", library {lib:.4f} ms"
+                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                         f"library {lib:.4f} ms")
+                if (S, h, window, dtype) == (5000, 8, None, torch.bfloat16):
                     entry = {"shape": f"B={b} S={S} H={h} KV={kv} Dh={dh} bf16 "
                                       "causal softcap=50 window=None",
                              "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
@@ -291,12 +339,14 @@ def ring_valid(L, window, pos):
 def phase_decode(gen):
     """K3 vs plain.  Returns the `kernels` entry, timed at a global layer's
     decode tick (B=4, L=8192, bf16, four different positions)."""
-    B, H, KV, Dh = 4, 8, 4, 256
-    scale = Dh ** -0.5
+    B, Dh = 4, 256
+    pos = [5015, 2063, 1015, 315]
     cases = [
-        ("full L=8192", B, 8192, H, KV, Dh, full_valid(8192, [5015, 2063, 1015, 315]), 50.0),
-        ("full L=8192 at the brim", B, 8192, H, KV, Dh, full_valid(8192, [8190, 8191, 0, 4096]), 50.0),
-        ("ring L=4096", B, 4096, H, KV, Dh, ring_valid(4096, 4096, [5015, 9000, 4096, 315]), 50.0),
+        ("full L=8192", B, 8192, 8, 4, Dh, full_valid(8192, pos), 50.0),
+        ("full L=8192 at the brim", B, 8192, 8, 4, Dh, full_valid(8192, [8190, 8191, 0, 4096]), 50.0),
+        ("ring L=4096", B, 4096, 8, 4, Dh, ring_valid(4096, 4096, [5015, 9000, 4096, 315]), 50.0),
+        # recurrentgemma-2b's local layers: ring of 2048, 10 heads on 1 KV head
+        ("recurrentgemma ring L=2048", B, 2048, 10, 1, Dh, ring_valid(2048, 2048, pos), None),
         ("small full", 2, 64, 4, 2, 16, full_valid(64, [10, 63]), 50.0),
         ("small ring, one slot empty", 2, 32, 4, 2, 16,
          ring_valid(32, 32, [40, 7]) & torch.tensor([[True], [False]], device=DEV), None),
@@ -334,13 +384,13 @@ def phase_decode(gen):
                 eager = eager_ms(lambda: k3.decode_attention(q, k, v, valid, **kw))
                 plain = device_ms(calls(k3.decode_attention_plain), rounds=1)
                 bound, by = decode_bound_ms(b, h, kv, L, dh, valid, dtype)
+                lib = device_ms(calls(
+                    lambda q, kk, vv, valid, **kw:
+                    sdpa_decode(q, kk, vv, valid, dh ** -0.5)))
                 line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
+                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                         f"library {lib:.4f} ms")
                 if name == "full L=8192" and dtype == torch.bfloat16:
-                    lib = device_ms(calls(
-                        lambda q, kk, vv, valid, **kw:
-                        sdpa_decode(q, kk, vv, valid, scale)))
-                    line += f", library {lib:.4f} ms"
                     entry = {"shape": f"B={b} L={L} H={h} KV={kv} Dh={dh} bf16 "
                                       f"softcap=50 valid keys={int(valid.sum())}",
                              "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
@@ -350,6 +400,133 @@ def phase_decode(gen):
             log(line)
     entry["max_abs_err_f32_all_cases"] = errs[torch.float32]
     entry["max_abs_err_bf16_all_cases"] = errs[torch.bfloat16]
+    return entry
+
+
+def ssd_bound_ms(B, S, H, P, N, c, dtype):
+    """(ms, 'bytes'|'operations') for one ssd_scan call.  Bytes: x, B, C read
+    once in their type, dt and cs in f32, y written in x's type, the final
+    state in f32.  Operations, the least this run needs: C·Bᵀ over the lower
+    triangle of each chunk ONCE per (batch, chunk) (it is the same for every
+    head), and per (batch, head, chunk) the lower-triangle product with x,
+    the chunk state, and the inter-chunk term for every chunk but the first
+    (whose entering state is zero); 2 FLOP per multiply-add, over the peak
+    of the input type (bf16: tensor cores; f32: CUDA cores)."""
+    item = torch.finfo(dtype).bits // 8
+    nc = S // c
+    tri = c * (c + 1) // 2
+    nbytes = (B * S * (H * P + 2 * N) + B * S * H * P) * item \
+        + 2 * B * S * H * 4 + B * H * P * N * 4
+    macs = B * nc * tri * N + B * H * nc * (tri * P + c * P * N) \
+        + B * H * (nc - 1) * c * N * P
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_b, t_o = nbytes / PEAK_BYTES_S, 2 * macs / peak
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def ssd_case(gen, B, S, H, P, N, c, dtype):
+    """Inputs laid out as apply_mamba hands them over: x, B and C are views
+    of one (B,S,H·P+2N) projection; dt = softplus(·), A < 0, cs the cumsum of
+    A·dt inside each chunk."""
+    nc = S // c
+    xbc = (randn(gen, (B, S, H * P + 2 * N), torch.float32) * 0.5).to(dtype)
+    x = xbc[..., :H * P].reshape(B, nc, c, H, P)
+    bm = xbc[..., H * P:H * P + N].reshape(B, nc, c, N)
+    cm = xbc[..., H * P + N:].reshape(B, nc, c, N)
+    dt = F.softplus(randn(gen, (B, S, H), torch.float32)).reshape(B, nc, c, H)
+    A = -torch.exp(randn(gen, (H,), torch.float32) * 0.3)
+    return x, dt, torch.cumsum(dt * A, dim=2), bm, cm
+
+
+def phase_ssd(gen):
+    """K4 vs plain.  Returns the `kernels` entry, timed at mamba2-130m's
+    heaviest prefill on the path (S=4096, bf16)."""
+    cases = [(1, S, 24, 64, 128, 256) for S in (256, 1024, 4096)]
+    cases += [(2, 64, 4, 16, 16, 32),       # the reduced config's geometry
+              (1, 37, 3, 16, 16, 37),       # a chunk no multiple of the tile
+              (1, 128, 2, 32, 64, 64)]
+    entry = {}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for (b, S, h, P, N, c) in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_case(gen, b, S, h, P, N, c, dtype)
+            y, hl = k4.ssd_scan(*args)
+            wy, wh = k4.ssd_scan_plain(*args)
+            what = (f"ssd_scan B={b} S={S} H={h} P={P} N={N} chunk={c} "
+                    f"{str(dtype).split('.')[-1]}")
+            err = max(compare(y, wy, SSD_TOL[dtype], what + " y"),
+                      compare(hl, wh, SSD_TOL[dtype], what + " state"))
+            errs[dtype] = max(errs[dtype], err)
+            line = f"[kernels] {what}: max_abs_err {err:.3e}"
+            if (h, P, N) == (24, 64, 128):
+                ms = device_ms([lambda: k4.ssd_scan(*args)])
+                eager = eager_ms(lambda: k4.ssd_scan(*args))
+                plain = device_ms([lambda: k4.ssd_scan_plain(*args)], rounds=1)
+                bound, by = ssd_bound_ms(b, S, h, P, N, c, dtype)
+                line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
+                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                         "library n/a")
+                if S == 4096 and dtype == torch.bfloat16:
+                    entry = {"shape": f"B={b} S={S} H={h} P={P} N={N} "
+                                      f"chunk={c} bf16",
+                             "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": None,
+                             "library_note": "no single PyTorch call computes "
+                                             "the chunked SSD scan"}
+            log(line)
+    entry["max_abs_err_f32_all_cases"] = errs[torch.float32]
+    entry["max_abs_err_bf16_all_cases"] = errs[torch.bfloat16]
+    return entry
+
+
+def rglru_bound_ms(B, S, W):
+    """(ms, 'bytes'|'operations'): a and x read, h written once, f32; one
+    multiply and one add per element over the f32 CUDA-core rate."""
+    nbytes = 3 * B * S * W * 4
+    t_b, t_o = nbytes / PEAK_BYTES_S, 2 * B * S * W / PEAK_F32_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def phase_rglru(gen):
+    """K5 vs plain (f32: the only input type, the gates are f32).  Returns the
+    `kernels` entry, timed at recurrentgemma-2b's heaviest prefill on the path
+    (B=1, S=5000, W=2560)."""
+    cases = [(1, S, 2560, "sigmoid") for S in (37, 1000, 5000)]
+    cases += [(1, 5000, 2560, "near 1"),    # long memory, gated as the model
+              (2, 77, 100, "sigmoid"),      # ragged W and S
+              (3, 1, 33, "sigmoid")]
+    entry = {}
+    worst = 0.0
+    for (b, S, W, kind) in cases:
+        r = randn(gen, (b, S, W), torch.float32)
+        x = randn(gen, (b, S, W), torch.float32)
+        if kind == "sigmoid":
+            a, x = torch.sigmoid(r), x * 0.5
+        else:     # a in (0.99, 1); x scaled by sqrt(1 - a²) as the RG-LRU does
+            a = 1.0 - 0.01 * torch.sigmoid(r)
+            x = x * torch.sqrt(1.0 - a * a)
+        what = f"rg_lru B={b} S={S} W={W} a {kind} f32"
+        err = compare(k5.rg_lru(a, x), k5.rg_lru_plain(a, x), LRU_TOL, what)
+        worst = max(worst, err)
+        line = f"[kernels] {what}: max_abs_err {err:.3e}"
+        if W == 2560:
+            ms = device_ms([lambda: k5.rg_lru(a, x)])
+            eager = eager_ms(lambda: k5.rg_lru(a, x))
+            plain = device_ms([lambda: k5.rg_lru_plain(a, x)], rounds=1, reps=2)
+            bound, by = rglru_bound_ms(b, S, W)
+            line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
+                     f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                     "library n/a")
+            if S == 5000 and kind == "sigmoid":
+                entry = {"shape": f"B={b} S={S} W={W} f32",
+                         "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                         "library_ms": None,
+                         "library_note": "no single PyTorch call computes a "
+                                         "linear recurrence"}
+        log(line)
+    entry["max_abs_err_f32_all_cases"] = worst
     return entry
 
 
@@ -365,50 +542,118 @@ def greedy_reference(model, params, prompt, n_new):
     return toks[len(prompt):]
 
 
+def record_logits(eng):
+    """rid -> the logits row of every token ``eng`` emits (the prefill's last
+    row, then the request's slot row of each decode tick), recorded by
+    wrapping the engine's model calls on the instance."""
+    rows, admitting = {}, []
+    model, admit = eng.model, eng._admit
+    prefill, decode = model.prefill, model.decode_step
+
+    def _admit(req, slot):
+        admitting[:] = [req.rid]
+        return admit(req, slot)
+
+    def _prefill(*args, **kw):
+        out = prefill(*args, **kw)
+        rows.setdefault(admitting[0], []).append(out[0][0, -1].float())
+        return out
+
+    def _decode(*args, **kw):
+        active = [(i, r.rid) for i, r in enumerate(eng.active) if r is not None]
+        out = decode(*args, **kw)
+        for i, rid in active:
+            rows[rid].append(out[0][i, -1].float())
+        return out
+
+    eng._admit, model.prefill, model.decode_step = _admit, _prefill, _decode
+    return rows
+
+
 @torch.no_grad()
-def phase_reduced():
-    cfg = reduced(get_config("gemma2-2b")).replace(window_size=32)
+def phase_reduced(arch):
+    cfg = reduced(get_config(arch)).replace(window_size=32)
     assert cfg.attn_impl == "cuda" and cfg.dtype == "float32"
     model = build_model(cfg, device=DEV)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
+    # the tied, sqrt(d_model)-scaled embedding of random weights makes the
+    # greedy token the input token; scaled down, it no longer does
+    params["embed"]["tok"].mul_(0.1)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in (5, 9)]
-    before = (k2.launches, k3.launches)
-    eng = ServeEngine(model, params, num_slots=2, max_len=64, device=DEV)
+               for n in (5, 9, 40)]       # 40 > window 32 wraps the rings
+    before = {n: KERNELS[n].launches
+              for n, k in expected_launches(cfg, 1, 1).items() if k}
+    eng = ServeEngine(build_model(cfg, device=DEV), params, num_slots=2,
+                      max_len=64, device=DEV)
+    rows = record_logits(eng)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
     eng.run(reqs)
-    if k2.launches == before[0] or k3.launches == before[1]:
-        raise AssertionError("reduced engine did not go through the kernels")
+    idle = [n for n in before if KERNELS[n].launches == before[n]]
+    if idle:
+        raise AssertionError(f"reduced {arch}: engine did not launch {idle}")
+    V, err = cfg.vocab_size, 0.0
     for r in reqs:
         want = greedy_reference(model, params, r.prompt, 6)
         if r.output != want:
-            raise AssertionError(f"reduced engine req {r.rid}: {r.output} != "
+            raise AssertionError(f"reduced {arch} req {r.rid}: {r.output} != "
                                  f"teacher-forced greedy {want}")
+        toks = torch.tensor([list(r.prompt) + r.output[:-1]], device=DEV)
+        full = model.forward_logits(params, {"tokens": toks})[0]
+        got = torch.stack(rows[r.rid])
+        # f32; prefill/decode and the forward take different algorithms
+        # (chunked vs recurrent scans, flash vs decode kernel) and the card
+        # sums in its own order: 10x the CPU tests' 1e-4
+        err = max(err, compare(got[:, :V], full[len(r.prompt) - 1:, :V], 1e-3,
+                               f"reduced {arch} req {r.rid} engine logits vs "
+                               "forward_logits"))
+    def echo(prompt):
+        """Teacher-forced share of positions whose greedy token is the input."""
+        t = torch.from_numpy(prompt.astype(np.int64)).to(DEV)
+        logits = model.forward_logits(params, {"tokens": t[None]})[0, :, :V]
+        return float((logits.argmax(-1) == t).float().mean())
+    share = float(np.mean([echo(p) for p in prompts]))
+    if not share < 0.5:
+        raise AssertionError(f"reduced {arch}: greedy token echoes the input "
+                             f"at {share:.0%} of positions")
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))).to(DEV)
     a = model.forward_logits(params, {"tokens": tokens})
     b = build_model(cfg.replace(attn_impl="einsum"), device=DEV) \
         .forward_logits(params, {"tokens": tokens})
-    err = compare(a, b, 3e-2, "reduced forward_logits cuda vs einsum")
-    log(f"[reduced] engine == teacher-forced greedy for {len(reqs)} requests "
-        f"({eng.ticks} ticks); logits cuda vs einsum max_abs_err {err:.3e}")
+    kerr = compare(a, b, 3e-2, f"reduced {arch} forward_logits cuda vs einsum")
+    log(f"[reduced] {arch}: engine == teacher-forced greedy for {len(reqs)} "
+        f"requests ({eng.ticks} ticks); logits of every step vs forward_logits "
+        f"max_abs_err {err:.3e}; echo share {share:.3f}; logits cuda vs einsum "
+        f"max_abs_err {kerr:.3e}")
 
 
 # ------------------------------------------------------------------ phase 5
 
-def make_requests(cfg):
-    trace = poisson_trace(rate_jobs_per_ms=0.5, num_jobs=len(PROMPT_LENS),
+def make_requests(cfg, prompt_lens):
+    trace = poisson_trace(rate_jobs_per_ms=0.5, num_jobs=len(prompt_lens),
                           app_names=["chat"], seed=0)
     rng = np.random.default_rng(0)
     return [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab_size, size=n,
                                         dtype=np.int64).astype(np.int32),
                     max_new_tokens=NEW_TOKENS, arrival_s=float(t) * 1e-6)
-            for i, (n, t) in enumerate(zip(PROMPT_LENS, trace.arrival_us))]
+            for i, (n, t) in enumerate(zip(prompt_lens, trace.arrival_us))]
 
 
-def profile_serve(model, params, cfg, smi: str):
+def expected_launches(cfg, requests: int, ticks: int):
+    """Launches of each kernel a serve must make: one per request for each
+    prefill kernel of each layer, one per tick for decode attention."""
+    pat, reps, tail = stack_layout(cfg)
+    kinds = list(pat) * reps + list(tail)
+    attn_layers = sum(k in ("global", "local") for k in kinds)
+    return {"flash_attention": attn_layers * requests,
+            "decode_attention": attn_layers * ticks,
+            "ssd_scan": kinds.count("mamba2") * requests,
+            "rg_lru": kinds.count("rglru") * requests}
+
+
+def profile_serve(model, params, cfg, prompt_lens, smi: str):
     """The serve of phase 5 twice more, instrumented (not the measured run):
     once with a host clock and a synchronise around every prefill and tick,
     once under ``torch.profiler`` for the device time by kernel."""
@@ -429,18 +674,19 @@ def profile_serve(model, params, cfg, smi: str):
     eng._admit = timed("prefill", eng._admit, lambda req, slot: len(req.prompt))
     eng.step = timed("tick", eng.step, lambda: None)
     t0 = time.perf_counter()
-    eng.run(make_requests(cfg))
+    eng.run(make_requests(cfg, prompt_lens))
     wall = time.perf_counter() - t0
     pre = ", ".join(f"{n}: {1e3 * t:.1f}" for n, t in sorted(spans["prefill"]))
     ticks = [t for _, t in spans["tick"]]
-    log(f"[profile] synchronised serve {wall:.3f} s; prefill ms by prompt "
-        f"length {{{pre}}} (sum {1e3 * sum(t for _, t in spans['prefill']):.1f}); "
-        f"{len(ticks)} ticks, median {1e3 * statistics.median(ticks):.2f} ms, "
-        f"sum {1e3 * sum(ticks):.1f} ms  [{smi}]")
+    log(f"[profile] {cfg.name}: synchronised serve {wall:.3f} s; prefill ms by "
+        f"prompt length {{{pre}}} (sum "
+        f"{1e3 * sum(t for _, t in spans['prefill']):.1f}); {len(ticks)} ticks, "
+        f"median {1e3 * statistics.median(ticks):.2f} ms, sum "
+        f"{1e3 * sum(ticks):.1f} ms  [{smi}]")
 
     eng = ServeEngine(model, params, num_slots=4, max_len=8192, device=DEV)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run(make_requests(cfg))
+        eng.run(make_requests(cfg, prompt_lens))
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -448,7 +694,7 @@ def profile_serve(model, params, cfg, smi: str):
                        getattr(e, "self_cuda_time_total", 0))
     rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
-    log(f"[profile] device time by kernel under torch.profiler, "
+    log(f"[profile] {cfg.name}: device time by kernel under torch.profiler, "
         f"total {busy / 1e3:.1f} ms")
     for e in rows[:14]:
         if dev_us(e) > 0:
@@ -456,17 +702,19 @@ def profile_serve(model, params, cfg, smi: str):
 
 
 @torch.no_grad()
-def phase_full(smi: str, with_profile: bool = False):
-    cfg = get_config("gemma2-2b")
-    assert (cfg.num_layers, cfg.d_model, cfg.dtype, cfg.attn_impl) == \
-        (26, 2304, "bfloat16", "cuda")
+def phase_full(arch: str, smi: str, with_profile: bool = False):
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16" and cfg.attn_impl == "cuda"
+    prompt_lens = PROMPT_LENS[arch]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEV)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[full] gemma2-2b: {model.param_count() / 1e9:.3f} G parameters, "
-        f"{cfg.num_layers} layers, bf16, init {time.perf_counter() - t0:.1f} s")
+    log(f"[full] {arch}: {model.param_count() / 1e9:.3f} G parameters, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(model, params, num_slots=4, max_len=8192, device=DEV)
 
     # warm-up outside the measured run: library handles, allocator pools
@@ -476,23 +724,25 @@ def phase_full(smi: str, with_profile: bool = False):
     del wcache
     torch.cuda.synchronize()
 
-    reqs = make_requests(cfg)
+    reqs = make_requests(cfg, prompt_lens)
 
-    k2.launches = k3.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": k2.launches, "decode_attention": k3.launches}
+    launches = {name: mod.launches for name, mod in KERNELS.items()}
 
     for r in reqs:
         if r.finish_s is None or len(r.output) != NEW_TOKENS or \
                 not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"full-width req {r.rid}: output {r.output}")
-    want = {"flash_attention": len(reqs) * cfg.num_layers,
-            "decode_attention": eng.ticks * cfg.num_layers}
+            raise AssertionError(f"full-width {arch} req {r.rid}: output "
+                                 f"{r.output}")
+    want = expected_launches(cfg, len(reqs), eng.ticks)
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{arch}: kernel launches {launches}, expected "
+                             f"{want}")
 
     # logits of the path are finite (after the counts are read)
     toks = torch.from_numpy(reqs[0].prompt.astype(np.int64))[None].to(DEV)
@@ -500,18 +750,19 @@ def phase_full(smi: str, with_profile: bool = False):
     step, _ = model.decode_step(params, cache, toks[:, :1], toks.shape[1])
     if logits.shape != (1, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all() & torch.isfinite(step).all()):
-        raise AssertionError("full-width logits: wrong shape or not finite")
+        raise AssertionError(f"full-width {arch} logits: wrong shape or not "
+                             "finite")
 
     toks_out = sum(len(r.output) for r in reqs)
     lats = [r.latency_s for r in reqs]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[full] {len(reqs)} requests (prompts {PROMPT_LENS}), {toks_out} new "
-        f"tokens in {wall:.3f} s = {toks_out / wall:.2f} tok/s, "
+    log(f"[full] {arch}: {len(reqs)} requests (prompts {prompt_lens}), "
+        f"{toks_out} new tokens in {wall:.3f} s = {toks_out / wall:.2f} tok/s, "
         f"{eng.ticks} decode ticks, latency p50 {np.percentile(lats, 50):.3f} s "
         f"p95 {np.percentile(lats, 95):.3f} s, peak memory {peak:.2f} GiB, "
         f"launches {launches}  [{smi}]")
     if with_profile:
-        profile_serve(model, params, cfg, smi)
+        profile_serve(model, params, cfg, prompt_lens, smi)
     return launches
 
 
@@ -522,30 +773,36 @@ def main():
     ap.add_argument("--verbose", action="store_true",
                     help="print the compiler's per-kernel resource usage")
     ap.add_argument("--profile", action="store_true",
-                    help="add an instrumented second pass of the full serve")
+                    help="add an instrumented second pass of each full serve")
     args = ap.parse_args()
     t_start = time.perf_counter()
     torch.cuda.set_device(DEV)
+    # full-precision f32 products everywhere (the tolerances assume them)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_card()
     phase_build(args.verbose)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    flash = phase_flash(gen)
-    decode = phase_decode(gen)
+    measured = {"flash_attention": phase_flash(gen),
+                "decode_attention": phase_decode(gen),
+                "ssd_scan": phase_ssd(gen), "rg_lru": phase_rglru(gen)}
     torch.cuda.empty_cache()
-    phase_reduced()
-    launches = phase_full(smi, args.profile)
+    for arch in PROMPT_LENS:
+        phase_reduced(arch)
+    launches = {name: 0 for name in KERNELS}
+    for arch in PROMPT_LENS:
+        for name, n in phase_full(arch, smi, args.profile).items():
+            launches[name] += n
 
-    kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:82",
-         "launches": launches["flash_attention"], **flash},
-        {"name": "decode_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-         "replaces": "src/repro/kernels/decode_attention.py:62",
-         "launches": launches["decode_attention"], **decode},
-    ]
+    sources = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
+               "decode_attention": "src/repro/kernels/decode_attention.py:62",
+               "ssd_scan": "src/repro/kernels/ssd_scan.py:66",
+               "rg_lru": "src/repro/kernels/rg_lru.py:42"}
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": sources[name], "launches": launches[name],
+                **measured[name]} for name in KERNELS]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Public wrappers of the kernels, in the reference's layouts.
 
 The twin of ``src/repro/kernels/ops.py``; model code calls these when
-``cfg.attn_impl == "cuda"``.  The reference transposes to (B,H,S,Dh) for its
-kernels; the CUDA kernels read the (B,S,H,Dh) / (B,L,KV,Dh) layout through
-strides, so nothing is transposed or copied here.
+``cfg.attn_impl == "cuda"``.  The reference transposes to (B,H,S,Dh) and
+(B,H,nc,c,P) for its kernels; the CUDA kernels read the model's (B,S,H,Dh),
+(B,L,KV,Dh) and (B,nc,c,H,P) layouts through strides, so nothing is
+transposed or copied here.
 
 For a CUDA tensor a wrapper launches its kernel or raises; only a CPU tensor
 goes to the kernel's plain PyTorch version.
@@ -14,6 +15,8 @@ from typing import Optional
 
 from . import decode_attention as _dec
 from . import flash_attention as _fa
+from . import rg_lru as _lru
+from . import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -29,3 +32,26 @@ def decode_attention(q, k, v, valid, *, softcap: Optional[float] = None,
     """q: (B,1,H,Dh); k,v: (B,L,KV,Dh); valid: (L,) or (B,L) -> (B,1,H,Dh).
     A (L,) mask is broadcast over the batch by the wrapper."""
     return _dec.decode_attention(q, k, v, valid, softcap=softcap, scale=scale)
+
+
+def ssd_scan(xc, dtc, dA, cs, Bc, Cc, h0=None):
+    """Adapter matching ``repro_torch.models.ssm.ssd_chunked``'s kernel call.
+
+    xc: (B,nc,c,H,P); dtc/cs: (B,nc,c,H) f32; Bc,Cc: (B,nc,c,N); ``dA`` is
+    not read (``cs`` carries it), as in the reference.
+    Returns (y: (B, L, H, P), h_last: (B,H,P,N) f32)."""
+    if h0 is not None:
+        raise ValueError("ssd_scan: the kernel starts from a zero state; "
+                         "prefill state chaining uses the einsum path")
+    B, nc, c, H, P = xc.shape
+    y, h_last = _ssd.ssd_scan(xc, dtc, cs, Bc, Cc)
+    return y.reshape(B, nc * c, H, P), h_last
+
+
+def rg_lru(a, x, h0=None):
+    """a, x: (B,S,W) f32 -> hidden trajectory (B,S,W) f32; ``h0`` (B,W) is
+    folded into ``x[:, 0]`` as the reference does."""
+    if h0 is not None:
+        x = x.clone()
+        x[:, 0] += a[:, 0] * h0
+    return _lru.rg_lru(a, x)

@@ -96,6 +96,42 @@ def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_out"].to(x.dtype)
 
 
+# ---------------------------------------------------------------- causal conv
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over seq.  x: (B,S,C); w: (K,C); b: (C,).  The
+    reference's ``_causal_conv`` of ``ssm.py`` and ``griffin.py`` (the same
+    function twice), summed in the same order."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    y = sum(pad[:, k:k + S, :] * w[k].to(x.dtype) for k in range(K))
+    return y + b.to(x.dtype)
+
+
+def conv_taps(u: torch.Tensor, K: int) -> torch.Tensor:
+    """The decode cache of a causal conv after a prefill of u (B,S,C): its last
+    K-1 inputs (B,K-1,C), a new tensor.  A prompt shorter than K-1 is padded
+    on the left with zeros, which is what the prefill's conv saw there.  (The
+    reference slices ``u[:, S-(K-1):]`` and its engine broadcasts the shorter
+    slice over the K-1 slots instead.)"""
+    B, S, C = u.shape
+    taps = u.new_zeros((B, K - 1, C))
+    n = min(S, K - 1)
+    if n:
+        taps[:, K - 1 - n:] = u[:, S - n:]
+    return taps
+
+
+def shift_in(taps: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Decode step of a causal conv's cache, IN PLACE: taps (B,K-1,C) <- the
+    last K-1 of [taps, new (B,C)]; returns the K inputs (B,K,C) the step's
+    conv reads.  The window is shifted through that new tensor: an
+    overlapping ``taps[:, :-1] = taps[:, 1:]`` is not safe."""
+    hist = torch.cat([taps, new[:, None, :].to(taps.dtype)], dim=1)
+    taps.copy_(hist[:, 1:])
+    return hist
+
+
 # ---------------------------------------------------------------- embeddings
 
 def init_embeddings(ps: ParamStore, cfg: ModelConfig):

@@ -6,8 +6,9 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-The twin of ``src/repro/models/model.py`` for decoder-only language models
-(``global`` / ``local`` blocks, dense MLP).  Batches are dicts:
+The twin of ``src/repro/models/model.py`` for decoder-only language models:
+``global`` / ``local`` attention blocks with a dense MLP, Griffin ``rglru``
+blocks (recurrentgemma) and Mamba2 ``mamba2`` blocks.  Batches are dicts:
 ``{"tokens": (B,S) int}``.  Vision/audio front ends and encoder-decoder
 models raise ``NotImplementedError`` (ROADMAP.md queue 1).  Everything runs
 eagerly and without autograd state: call under ``torch.no_grad()`` when
@@ -94,7 +95,8 @@ class Model:
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos):
         """tokens: (B,1) int; pos: position of the new token, an int or a
-        per-slot (B,) tensor.  ``cache`` is updated in place and returned."""
+        per-slot (B,) tensor.  ``cache`` (K/V rows and recurrent states) is
+        updated in place and returned."""
         cfg = self.cfg
         x = embed_tokens(params, cfg, tokens)
         x, cache = tf.decode_stack(params["decoder"], cfg, x, cache, pos)

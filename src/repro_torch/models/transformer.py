@@ -8,9 +8,12 @@ runs the stack under ``lax.scan``, this runs a Python loop over that axis and
 hands each repeat a VIEW of the stacked leaves (no copy).  The non-divisible
 remainder runs as a tail.
 
-Ported block types: ``global`` and ``local`` with a dense MLP.  ``rglru``,
-``mamba2``, ``enc``, ``xdec`` and MoE raise ``NotImplementedError`` (ROADMAP.md
-queue 1 names the slice each belongs to).
+Ported block types: ``global`` and ``local`` with a dense MLP, ``rglru``
+(Griffin recurrence + MLP) and ``mamba2`` (SSD, no MLP).  ``enc``, ``xdec``
+and MoE raise ``NotImplementedError`` (ROADMAP.md queue 1 names the slice each
+belongs to).  Decode updates every cache IN PLACE: each block gets a view of
+its repeat of the stacked cache and writes its new K/V row or its new
+recurrent state into it.
 """
 from __future__ import annotations
 
@@ -20,12 +23,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import griffin, ssm
 from .layers import apply_mlp, apply_rmsnorm, init_mlp, init_rmsnorm
 from .params import ParamStore, tree_map
 
 _LATER = {
-    "rglru": "models/griffin.py with the rg_lru kernel (K5)",
-    "mamba2": "models/ssm.py with the ssd_scan kernel (K4)",
     "enc": "cross_attention / encoder-decoder stacks",
     "xdec": "cross_attention / encoder-decoder stacks",
 }
@@ -36,7 +38,7 @@ def _check_block(cfg: ModelConfig, btype: str):
         raise NotImplementedError(
             f"block type {btype!r} is not ported yet: it comes with "
             f"{_LATER[btype]} (ROADMAP.md queue 1)")
-    if btype not in ("global", "local"):
+    if btype not in ("global", "local", "rglru", "mamba2"):
         raise ValueError(f"unknown block type {btype!r}")
     if cfg.num_experts > 0:
         raise NotImplementedError(
@@ -73,7 +75,13 @@ def init_block(ps: ParamStore, path: str, cfg: ModelConfig, btype: str,
     _check_block(cfg, btype)
     D = cfg.d_model
     init_rmsnorm(ps, f"{path}/norm1", D, stacked)
-    attn.init_attention(ps, f"{path}/attn", cfg, stacked)
+    if btype == "mamba2":                    # no MLP, no norm2
+        ssm.init_mamba(ps, f"{path}/mamba", cfg, stacked)
+        return
+    if btype == "rglru":
+        griffin.init_griffin(ps, f"{path}/rec", cfg, stacked)
+    else:
+        attn.init_attention(ps, f"{path}/attn", cfg, stacked)
     init_rmsnorm(ps, f"{path}/norm2", D, stacked)
     init_mlp(ps, f"{path}/mlp", cfg, cfg.d_ff, stacked)
 
@@ -99,8 +107,13 @@ def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
     """Training forward for one block."""
     _check_block(cfg, btype)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn.self_attention(p["attn"], cfg, h, positions,
-                                _window(cfg, btype), causal=True)
+    if btype == "mamba2":
+        return x + ssm.apply_mamba(p["mamba"], cfg, h)
+    if btype == "rglru":
+        x = x + griffin.apply_griffin(p["rec"], cfg, h)
+    else:
+        x = x + attn.self_attention(p["attn"], cfg, h, positions,
+                                    _window(cfg, btype), causal=True)
     return _ffn(p, cfg, x)
 
 
@@ -109,6 +122,10 @@ def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
 def init_block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
                      device="cuda") -> Dict:
     _check_block(cfg, btype)
+    if btype == "rglru":
+        return {"rec": griffin.init_griffin_cache(cfg, batch, device)}
+    if btype == "mamba2":
+        return {"ssm": ssm.init_mamba_cache(cfg, batch, device)}
     return {"kv": attn.init_cache(cfg, batch, max_len, _window(cfg, btype),
                                   device)}
 
@@ -118,22 +135,35 @@ def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
     """Forward + cache construction (serving prefill)."""
     _check_block(cfg, btype)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = _window(cfg, btype)
-    y, (k, v) = attn.self_attention(p["attn"], cfg, h, positions, window,
-                                    causal=True, return_kv=True)
-    x = x + y
-    cache = {"kv": attn.build_cache_from_prefill(cfg, k, v, max_len, window)}
-    return _ffn(p, cfg, x), cache
+    if btype == "mamba2":
+        y, mcache = ssm.apply_mamba(p["mamba"], cfg, h, return_cache=True)
+        return x + y, {"ssm": mcache}
+    if btype == "rglru":
+        y, rec = griffin.apply_griffin(p["rec"], cfg, h, return_cache=True)
+        cache = {"rec": rec}
+    else:
+        window = _window(cfg, btype)
+        y, (k, v) = attn.self_attention(p["attn"], cfg, h, positions, window,
+                                        causal=True, return_kv=True)
+        cache = {"kv": attn.build_cache_from_prefill(cfg, k, v, max_len,
+                                                     window)}
+    return _ffn(p, cfg, x + y), cache
 
 
 def decode_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor, cache: Dict,
                  pos, plan: Optional[attn.DecodePlan] = None):
+    """One decode step of one block; ``cache`` is updated in place."""
     _check_block(cfg, btype)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, kv = attn.decode_self_attention(p["attn"], cfg, h, cache["kv"], pos,
-                                       _window(cfg, btype), plan)
-    x = x + y
-    return _ffn(p, cfg, x), {"kv": kv}
+    if btype == "mamba2":
+        y, _ = ssm.decode_mamba(p["mamba"], cfg, h, cache["ssm"])
+        return x + y, cache
+    if btype == "rglru":
+        y, _ = griffin.decode_griffin(p["rec"], cfg, h, cache["rec"])
+    else:
+        y, _ = attn.decode_self_attention(p["attn"], cfg, h, cache["kv"], pos,
+                                          _window(cfg, btype), plan)
+    return _ffn(p, cfg, x + y), cache
 
 
 # ---------------------------------------------------------------- stacks
@@ -193,8 +223,9 @@ def decode_stack(params, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos):
     """One decode step through the stack.
 
     Each block gets a view of its repeat of the stacked cache and writes its
-    new K/V row into it in place, so ``cache`` itself is updated and returned
-    (the reference threads the cache through its scan carry to the same end)."""
+    new K/V row or recurrent state into it in place, so ``cache`` itself is
+    updated and returned (the reference threads the cache through its scan
+    carry to the same end)."""
     pat, reps, tail = stack_layout(cfg)
     # positions, RoPE tables and valid masks are the same for every layer
     plan = attn.DecodePlan(cfg, pos, x.shape[0], x.device)

@@ -1,11 +1,17 @@
 """Serving example: continuous batching with DS3 Poisson arrivals.
 
-A gemma2-family model with random weights serves a stream of requests
-generated by the paper's job generator; reports per-request latency and engine
-throughput.  The twin of ``examples/serve_decode.py``.
+A decoder-only model with random weights serves a stream of requests generated
+by the paper's job generator; reports per-request latency and engine
+throughput.  The twin of ``examples/serve_decode.py``.  The families it
+serves: attention (gemma2-2b, granite-3-8b, mistral-nemo-12b, starcoder2-7b),
+Mamba2 (mamba2-130m) and Griffin (recurrentgemma-2b).
 
     python -m repro_torch.serving --arch gemma2-2b                # full width, on the GPU
-    python -m repro_torch.serving --arch gemma2-2b --reduced --device cpu
+    python -m repro_torch.serving --arch mamba2-130m
+    python -m repro_torch.serving --arch recurrentgemma-2b --reduced --device cpu
+
+A mamba2 prompt's length must be a multiple of min(256, length), as in the
+reference.
 """
 import argparse
 import time
@@ -21,7 +27,9 @@ from . import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serving")
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="gemma2-2b, granite-3-8b, mistral-nemo-12b, "
+                         "starcoder2-7b, mamba2-130m or recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (float32, window 32)")
     ap.add_argument("--device", default="cuda")

@@ -8,7 +8,9 @@ positions (the model's decode path takes a per-slot position vector).  A slot
 that holds no request still decodes (token 0 at position 0 before its first
 request, its last token and position after one) and its output is ignored, as
 in the reference.  Request arrivals can be driven by the DS3 job generator
-(``repro_torch.core.jobgen``).
+(``repro_torch.core.jobgen``).  The cache is any tree the model makes (K/V
+caches, ring buffers, recurrent conv and SSM states): admission writes a
+request's prefill cache into its slot leaf by leaf.
 
 Each decode tick takes ONE argmax over the (slots, vocab) logits on the device
 and one transfer of the token ids (the reference syncs once per active slot);

@@ -30,16 +30,17 @@ from repro_torch.core import poisson_trace
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.kernels import ops, ref
-cfg = reduced(get_config("gemma2-2b")).replace(window_size=32)
-model = build_model(cfg, device="cpu")
-params = model.init_params(torch.Generator().manual_seed(0))
-eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
-trace = poisson_trace(0.5, 3, ["chat"], seed=0)
-reqs = [Request(rid=i, prompt=np.arange(1, 6 + i, dtype=np.int32),
-                max_new_tokens=3, arrival_s=float(t) * 1e-6)
-        for i, t in enumerate(trace.arrival_us)]
-eng.run(reqs)
-assert all(len(r.output) == 3 for r in reqs)
+for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b"):
+    cfg = reduced(get_config(arch)).replace(window_size=32)
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
+    trace = poisson_trace(0.5, 3, ["chat"], seed=0)
+    reqs = [Request(rid=i, prompt=np.arange(1, 6 + i, dtype=np.int32),
+                    max_new_tokens=3, arrival_s=float(t) * 1e-6)
+            for i, t in enumerate(trace.arrival_us)]
+    eng.run(reqs)
+    assert all(len(r.output) == 3 for r in reqs)
 bad = sorted(m for m in sys.modules
              if sys.modules[m] is not None
              and (m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -128,7 +129,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "rg_lru.cu",
+                     "ssd_scan.cu"]
     for src in _build.sources():
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text

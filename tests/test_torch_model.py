@@ -20,13 +20,17 @@ torch.set_num_threads(1)
 
 TOL = 1e-4
 B, S, N_PRE = 2, 40, 34              # S > window 32: the ring buffers wrap
-PORTED = ["gemma2-2b", "granite-3-8b", "mistral-nemo-12b", "starcoder2-7b"]
+PORTED = ["gemma2-2b", "granite-3-8b", "mistral-nemo-12b", "starcoder2-7b",
+          "mamba2-130m", "recurrentgemma-2b"]
 NOT_PORTED = sorted(set(ARCHITECTURES) - set(PORTED))
 
 
 @pytest.fixture(scope="module", params=[
     ("gemma2-2b", "einsum", "einsum"), ("gemma2-2b", "pallas", "cuda"),
     ("granite-3-8b", "einsum", "einsum"), ("granite-3-8b", "pallas", "cuda"),
+    ("mamba2-130m", "einsum", "einsum"), ("mamba2-130m", "pallas", "cuda"),
+    ("recurrentgemma-2b", "einsum", "einsum"),
+    ("recurrentgemma-2b", "pallas", "cuda"),
 ], ids=lambda p: "-".join(p))
 def pair(request):
     arch, jax_impl, torch_impl = request.param
@@ -119,6 +123,29 @@ def test_cuda_path_matches_einsum_path():
         out = build_model(cfg.replace(attn_impl="cuda"), device="cpu") \
             .forward_logits(params, {"tokens": tokens})
     assert_close(out, base, 3e-2)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_recurrent_kernel_paths_match_the_einsum_paths(arch):
+    """The twin of tests/test_kernels.py:182 for the recurrent families: the
+    port's forward with attn_impl 'cuda' and 'einsum' against the JAX
+    package's with 'einsum' and 'pallas', all four within 3e-2 of each other
+    (B=2, S=128, window 64, converted weights)."""
+    jcfg, tcfg = config_pair(arch, window_size=64)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    tparams = from_jax_params(numpy_tree(jparams), device="cpu")
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 128))
+    base = jmodel.forward_logits(jparams, {"tokens": jnp.asarray(tokens)})
+    jk = jax_build_model(jcfg.replace(attn_impl="pallas")).forward_logits(
+        jparams, {"tokens": jnp.asarray(tokens)})
+    assert_close(jk, base, 3e-2)
+    for impl in ("cuda", "einsum"):
+        with torch.no_grad():
+            out = build_model(tcfg.replace(attn_impl=impl), device="cpu") \
+                .forward_logits(tparams, {"tokens": torch.from_numpy(tokens)})
+        assert_close(out, base, 3e-2)
+        assert_close(out, jk, 3e-2)
 
 
 def test_loss_matches_jax(pair):

@@ -1,12 +1,24 @@
 """The port's serving engine: the twins of the serving tests of
-tests/test_train_and_serve.py, and the same tokens as the JAX ``ServeEngine``
-on the same prompts from converted weights."""
+tests/test_train_and_serve.py for gemma2-2b, mamba2-130m and
+recurrentgemma-2b, and the JAX ``ServeEngine``'s tokens AND logits on the same
+prompts from converted weights.
+
+With seeded random weights and the tied, sqrt(d_model)-scaled embedding, the
+greedy token of these reduced models is the input token at every position,
+so a token comparison would pass even if every block returned zeros.  The
+weights here have the embedding scaled by 0.1 (the echo share then falls to a
+few per cent, asserted below 50%), and the comparisons are of logits, at
+every prefill and decode step: 1e-4 in float32 (a few dozen matrix products
+deep, each summed in another order by the two back ends, and by the kernel
+and einsum paths).
+"""
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import config_pair, numpy_tree
+from _torch_port import (config_pair, echo_share, numpy_tree, record_logits,
+                         assert_close)
 from repro.models import build_model as jax_build_model
 from repro.serving import Request as JaxRequest
 from repro.serving import ServeEngine as JaxServeEngine
@@ -17,13 +29,25 @@ from repro_torch.serving.engine import _scatter_slot
 
 torch.set_num_threads(1)
 
+TOL = 1e-4
+SETUPS = [(arch, impl) for arch in ("gemma2-2b", "mamba2-130m",
+                                    "recurrentgemma-2b")
+          for impl in ("cuda", "einsum")]
 
-@pytest.fixture(scope="module", params=["cuda", "einsum"])
+
+def _setup_id(p):
+    arch, impl = p
+    return impl if arch == "gemma2-2b" else f"{arch}-{impl}"   # ids of before
+
+
+@pytest.fixture(scope="module", params=SETUPS, ids=_setup_id)
 def serve_setup(request):
-    jcfg, tcfg = config_pair("gemma2-2b", "einsum", request.param,
-                             window_size=32)
+    arch, impl = request.param
+    jcfg, tcfg = config_pair(arch, "einsum", impl, window_size=32)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    jparams = {**jparams, "embed": {**jparams["embed"],
+                                    "tok": jparams["embed"]["tok"] * 0.1}}
     model = build_model(tcfg, device="cpu")
     params = from_jax_params(numpy_tree(jparams), device="cpu")
     return tcfg, model, params, jmodel, jparams
@@ -41,17 +65,28 @@ def _greedy_reference(model, params, prompt, n_new):
 
 
 def test_engine_matches_teacher_forced_greedy(serve_setup):
+    """Tokens equal teacher-forced greedy decoding, and the logits of every
+    step equal the forward's at that position."""
     cfg, model, params, _, _ = serve_setup
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 9)]
+    model = build_model(model.cfg, device="cpu")       # wrapped below
     eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
+    rows = record_logits(eng, model, "prefill", "decode_step")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
     eng.run(reqs)
+    V = cfg.vocab_size
     for r in reqs:
         want = _greedy_reference(model, params, list(r.prompt), 6)
         assert r.output == want, (r.rid, r.output, want)
+        toks = list(r.prompt) + r.output[:-1]
+        with torch.no_grad():
+            full = model.forward_logits(params, {"tokens": torch.tensor([toks])})
+        got = np.stack(rows[r.rid])
+        assert got.shape == (6, cfg.padded_vocab)
+        assert_close(got[:, :V], full[0, len(r.prompt) - 1:, :V], TOL)
 
 
 def test_engine_slot_recycling_more_requests_than_slots(serve_setup):
@@ -81,7 +116,9 @@ def test_engine_with_ds3_arrival_process(serve_setup):
 
 def test_engine_emits_the_jax_engines_tokens(serve_setup):
     """Five prompts of mixed lengths through two slots (so slots are recycled
-    and decode at different positions; 40 > window 32 wraps the ring)."""
+    and decode at different positions; 40 > window 32 wraps the ring): the
+    same tokens as the JAX engine, and the same logits at every prefill and
+    decode step of every request.  The weights do not echo their input."""
     cfg, model, params, jmodel, jparams = serve_setup
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -90,12 +127,26 @@ def test_engine_emits_the_jax_engines_tokens(serve_setup):
             for i, p in enumerate(prompts)]
     jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=5)
              for i, p in enumerate(prompts)]
+    model = build_model(model.cfg, device="cpu")       # wrapped below
     eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
+    rows = record_logits(eng, model, "prefill", "decode_step")
     eng.run(reqs)
     jeng = JaxServeEngine(jmodel, jparams, num_slots=2, max_len=64)
+    jrows = record_logits(jeng, jeng, "_prefill", "_decode")
     jeng.run(jreqs)
     assert [r.output for r in reqs] == [r.output for r in jreqs]
     assert eng.ticks == jeng.ticks
+    V = cfg.vocab_size
+    for r in reqs:
+        got, want = np.stack(rows[r.rid]), np.stack(jrows[r.rid])
+        assert got.shape == want.shape == (5, cfg.padded_vocab)
+        assert_close(got[:, :V], want[:, :V], TOL)
+    for p in prompts:
+        with torch.no_grad():
+            logits = model.forward_logits(params,
+                                          {"tokens": torch.tensor(p[None])})
+        echo = echo_share(logits[..., :V], p[None])
+        assert echo < 0.5, (len(p), echo)
 
 
 def test_engine_stops_at_eos_and_at_max_len(serve_setup):
