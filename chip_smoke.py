@@ -14,8 +14,11 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 2. build   the kernels, from the sources in this checkout (seconds printed);
 3. kernels each wrapper vs its plain version on the card, at the shapes the
            main paths give it and at small shapes: K2 flash attention and K3
-           flash decode (gemma2-2b's and recurrentgemma-2b's geometries) bf16
-           2e-2 / f32 2e-5, K4 ssd_scan (mamba2-130m's) bf16 2e-2 / f32 2e-3,
+           flash decode (gemma2-2b's and recurrentgemma-2b's geometries, the
+           tile edges S = 1, 63, 64, 65, 4097 at every head dim, both key
+           tiles of head_dim 256, 1-16 query heads per KV head, an empty slot,
+           q scaled by 8 so that the scores reach the softcap) bf16 2e-2 / f32
+           2e-5, K4 ssd_scan (mamba2-130m's) bf16 2e-2 / f32 2e-3,
            K5 rg_lru (recurrentgemma-2b's; f32 only, its gates are f32) 1e-5;
            device times from CUDA-graph replays timed by CUDA events (and the
            time of one eager call from Python beside them); for K2/K3 one
@@ -29,6 +32,10 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            equals teacher-forced greedy decoding; the logits of every prefill
            and decode step equal ``forward_logits`` at that position (1e-3);
            logits of the kernel path and the einsum path agree within 3e-2;
+           then reduced gemma2-2b and recurrentgemma-2b in bf16 (the attention
+           kernels' tensor-core path): kernel-path logits vs the einsum path
+           within 2e-2, and no farther from an f32 forward than twice the
+           einsum path;
 5. full    each of the three at full width (gemma2-2b 26 layers, recurrentgemma-
            2b 26, mamba2-130m 24), bf16, seeded random weights: 8 requests with
            Poisson arrivals, 16 new tokens each, through a 4-slot engine with
@@ -39,7 +46,8 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 
 ``--profile`` adds a second, instrumented pass of each phase-5 serve after the
 measured one: prefill and tick times by a host clock with a synchronise after
-each, and ``torch.profiler``'s device time by kernel.
+each, and ``torch.profiler``'s device time by kernel (asserting one decode
+kernel launch per ``decode_attention`` call and no merge kernel).
 
 A failure in any phase raises: the run exits non-zero and prints no result
 line.  The last line of standard output is the result object; the line before
@@ -76,6 +84,7 @@ from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
@@ -126,7 +135,9 @@ def device_ms(fns, rounds: int = 3, reps: int = 5) -> float:
     """Median device milliseconds of one call: ``rounds`` passes over the
     closures ``fns`` are captured into one CUDA graph and replayed, so no host
     time lies between the launches.  Several closures on different buffers
-    keep a call from finding its inputs in the 50 MB L2 left by the last."""
+    keep a call from finding its inputs in the 50 MB L2 left by the last.
+    The warm-up runs on the stream that captures, so what a wrapper makes once
+    per stream (K3's counters) is made there, not inside the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -135,7 +146,7 @@ def device_ms(fns, rounds: int = 3, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(rounds):
             for fn in fns:
                 fn()
@@ -278,11 +289,27 @@ def phase_flash(gen):
     cases.append((1, 200, 8, 2, 128, None, None))   # 4 query heads per KV head
     cases.append((1, 150, 9, 1, 64, 64, 30.0))      # 9 per KV head (MQA-like)
     cases.append((2, 70, 2, 2, 32, None, None))     # MHA
+    timed = len(cases)
+    # the edges of the tiles at every head dim (64 query rows a block, 64 keys
+    # a tile; 32 at Dh=256 on a large grid): one row, a tile less one, a tile,
+    # a tile plus one, many tiles plus one; a window that is no multiple of a
+    # tile; a softcap with a window
+    for dh in k2.HEAD_DIMS:
+        cases += [(1, S, 4, 2, dh, None, None) for S in (1, 63, 64, 65, 4097)]
+        cases += [(1, 1000, 4, 2, dh, 100, None), (1, 777, 4, 2, dh, 300, 50.0)]
+    cases = [c + (1.0,) for c in cases]
+    # q scaled by 8: scores of std 8, up to ~40, where tanh bends (both tiles
+    # of head_dim 256)
+    cases += [(1, 1000, 8, 4, 256, None, 50.0, 8.0),
+              (1, 4097, 8, 4, 256, 4096, 50.0, 8.0),
+              (1, 777, 4, 2, 64, None, 30.0, 8.0)]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    tiles = set()      # key tiles the bf16 cases at head_dim 256 ran
     entry = {}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for (b, S, h, kv, dh, window, softcap) in cases:
+    for i, (b, S, h, kv, dh, window, softcap, qmul) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
-            q = randn(gen, (b, S, h, dh), dtype)
+            q = (randn(gen, (b, S, h, dh), torch.float32) * qmul).to(dtype)
             k = randn(gen, (b, S, kv, dh), dtype)
             v = randn(gen, (b, S, kv, dh), dtype)
             kw = dict(causal=True, window=window, softcap=softcap,
@@ -290,13 +317,18 @@ def phase_flash(gen):
             out = k2.flash_attention(q, k, v, **kw)
             want = k2.flash_attention_plain(q, k, v, **kw)
             what = (f"flash_attention B={b} S={S} H={h} KV={kv} Dh={dh} "
-                    f"window={window} softcap={softcap} "
+                    f"window={window} softcap={softcap} q x{qmul:g} "
                     f"{str(dtype).split('.')[-1]}")
+            if dtype == torch.bfloat16:
+                tile = k2.key_tile(S, dh, b, h, sms)
+                what += f" (key tile {tile})"
+                if dh == 256:
+                    tiles.add(tile)
             err = compare(out, want, TOL[dtype], what)
             errs[dtype] = max(errs[dtype], err)
             del want
             line = f"[kernels] {what}: max_abs_err {err:.3e}"
-            if dh == Dh:
+            if dh == Dh and i < timed:
                 ms = device_ms([lambda: k2.flash_attention(q, k, v, **kw)])
                 eager = eager_ms(lambda: k2.flash_attention(q, k, v, **kw))
                 plain = device_ms(
@@ -318,6 +350,9 @@ def phase_flash(gen):
                              "plain_ms": plain, "bound_ms": bound,
                              "bound_by": by, "library_ms": lib}
             log(line)
+    if tiles != {32, 64}:
+        raise AssertionError(f"flash_attention: head_dim 256 ran key tiles "
+                             f"{sorted(tiles)}, not both 32 and 64")
     entry["max_abs_err_f32_all_cases"] = errs[torch.float32]
     entry["max_abs_err_bf16_all_cases"] = errs[torch.bfloat16]
     return entry
@@ -355,11 +390,27 @@ def phase_decode(gen):
         ("9 heads per KV head", 1, 200, 9, 1, 64, full_valid(200, [150]), 30.0),
         ("MHA", 2, 129, 2, 2, 32, full_valid(129, [128, 5]), None),
     ]
+    timed = 4
+    # every query-group size a block serves in one pass (up to 16 heads on
+    # one KV head), and a group of 16 with a fully masked slot
+    cases += [(f"{g} heads per KV head", 2, 700, 2 * g, 2, dh,
+               full_valid(700, [699, 250]), 50.0 if g % 2 else None)
+              for g, dh in ((1, 256), (2, 64), (4, 128), (9, 256), (10, 256),
+                            (16, 256))]
+    cases.append(("16 heads per KV head, one slot empty", 2, 300, 16, 1, 256,
+                  full_valid(300, [299, 5]) & torch.tensor([[True], [False]],
+                                                            device=DEV), None))
+    cases = [c + (1.0,) for c in cases]
+    # q scaled by 8: the scores reach the softcap
+    cases += [("softcap reached", 2, 700, 8, 4, 256,
+               full_valid(700, [699, 250]), 50.0, 8.0),
+              ("softcap reached, 9 heads per KV head", 1, 300, 9, 1, 64,
+               full_valid(300, [299]), 30.0, 8.0)]
     entry = {}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for (name, b, L, h, kv, dh, valid, softcap) in cases:
+    for i, (name, b, L, h, kv, dh, valid, softcap, qmul) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
-            q = randn(gen, (b, 1, h, dh), dtype)
+            q = (randn(gen, (b, 1, h, dh), torch.float32) * qmul).to(dtype)
             k = randn(gen, (b, L, kv, dh), dtype)
             v = randn(gen, (b, L, kv, dh), dtype)
             kw = dict(softcap=softcap, scale=dh ** -0.5)
@@ -370,8 +421,10 @@ def phase_decode(gen):
                     f"{str(dtype).split('.')[-1]}")
             err = compare(out, want, TOL[dtype], what)
             errs[dtype] = max(errs[dtype], err)
+            if name.endswith("slot empty") and float(out[1].abs().max()) != 0.0:
+                raise AssertionError(f"{what}: the empty slot's output is not 0")
             line = f"[kernels] {what}: max_abs_err {err:.3e}"
-            if dh == Dh:
+            if i < timed:
                 # the caller finds the cache cold (26 layers of caches and
                 # weights pass between two ticks of one layer): time over
                 # several copies of K/V, more than the L2 holds
@@ -628,6 +681,45 @@ def phase_reduced(arch):
         f"max_abs_err {kerr:.3e}")
 
 
+@torch.no_grad()
+def phase_reduced_bf16(arch):
+    """The attention kernels' bf16 (tensor-core) path end to end: the reduced
+    model in bf16, ``forward_logits`` on the kernel path against the einsum
+    path, and both against an f32 einsum forward of the same weights."""
+    cfg = reduced(get_config(arch)).replace(window_size=32, dtype="bfloat16")
+    model = build_model(cfg, device=DEV)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
+    params["embed"]["tok"].mul_(0.1)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 80))).to(DEV)      # 80 > window 32
+    V = cfg.vocab_size
+    before = k2.launches
+    kern = model.forward_logits(params, {"tokens": tokens})[..., :V].float()
+    if k2.launches == before:
+        raise AssertionError(f"reduced {arch} bf16: flash_attention not launched")
+    ein = build_model(cfg.replace(attn_impl="einsum"), device=DEV) \
+        .forward_logits(params, {"tokens": tokens})[..., :V].float()
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    ref = build_model(cfg.replace(attn_impl="einsum", dtype="float32"),
+                      device=DEV).forward_logits(p32, {"tokens": tokens})[..., :V]
+    # Both bf16 paths round every layer's activations to bf16 (2^-8 relative);
+    # the einsum path also rounds the scores and the probabilities, the
+    # kernels round only P before P·V.  So they are held to the bf16 tolerance
+    # of the kernel tests, 2e-2 absolute plus relative (the logits are below 1
+    # here; a CPU rehearsal differs by 5e-3); and the kernel path must be no
+    # farther from f32 than twice the einsum path's distance.
+    err = compare(kern, ein, 2e-2, f"reduced {arch} bf16 forward_logits cuda "
+                                   "vs einsum")
+    e_kern = float((kern - ref).abs().max())
+    e_ein = float((ein - ref).abs().max())
+    if not e_kern <= 2 * e_ein + 1e-3:
+        raise AssertionError(f"reduced {arch} bf16: kernel path {e_kern:.3e} "
+                             f"from f32, einsum path {e_ein:.3e}")
+    log(f"[reduced] {arch} bf16: logits cuda vs einsum max_abs_err {err:.3e}; "
+        f"vs f32 einsum: cuda {e_kern:.3e}, einsum {e_ein:.3e} (logits up to "
+        f"{float(ref.abs().max()):.2f})")
+
+
 # ------------------------------------------------------------------ phase 5
 
 def make_requests(cfg, prompt_lens):
@@ -685,9 +777,11 @@ def profile_serve(model, params, cfg, prompt_lens, smi: str):
         f"{1e3 * sum(ticks):.1f} ms  [{smi}]")
 
     eng = ServeEngine(model, params, num_slots=4, max_len=8192, device=DEV)
+    calls = k3.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.run(make_requests(cfg, prompt_lens))
         torch.cuda.synchronize()
+    calls = k3.launches - calls
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -699,6 +793,16 @@ def profile_serve(model, params, cfg, prompt_lens, smi: str):
     for e in rows[:14]:
         if dev_us(e) > 0:
             log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    # one CUDA launch per decode_attention call, and no merge kernel
+    dec = sum(e.count for e in rows if dev_us(e) > 0 and
+              ("decode_mma_kernel" in e.key or "decode_f32_kernel" in e.key))
+    merge = [e.key for e in rows if dev_us(e) > 0 and "merge" in e.key]
+    if dec != calls or merge:
+        raise AssertionError(f"{cfg.name}: {calls} decode_attention calls, "
+                             f"{dec} decode kernel launches, merge kernels "
+                             f"{merge}")
+    log(f"[profile] {cfg.name}: {calls} decode_attention calls = {dec} kernel "
+        "launches; no merge kernel")
 
 
 @torch.no_grad()
@@ -790,6 +894,8 @@ def main():
     torch.cuda.empty_cache()
     for arch in PROMPT_LENS:
         phase_reduced(arch)
+    for arch in ("gemma2-2b", "recurrentgemma-2b"):
+        phase_reduced_bf16(arch)
     launches = {name: 0 for name in KERNELS}
     for arch in PROMPT_LENS:
         for name, n in phase_full(arch, smi, args.profile).items():

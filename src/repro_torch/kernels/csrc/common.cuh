@@ -14,32 +14,88 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// N contiguous elements of T -> f32, with the widest aligned loads N allows.
-// `p` must be aligned to min(16, N·sizeof(T)) bytes.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* p, float* out) {
-  constexpr int BYTES = N * (int)sizeof(T);
-  if constexpr (BYTES % 16 == 0) {
-    uint4 raw[BYTES / 16];
-#pragma unroll
-    for (int i = 0; i < BYTES / 16; ++i) raw[i] = reinterpret_cast<const uint4*>(p)[i];
-    const T* t = reinterpret_cast<const T*>(raw);
-#pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(t[e]);
-  } else if constexpr (BYTES == 8) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(t[e]);
-  } else if constexpr (BYTES == 4) {
-    uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-    const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(t[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(p[e]);
-  }
+// ---- asynchronous copies (global -> shared, through L2 only)
+
+// 16 bytes; with `full` false nothing is read and the 16 bytes are zeroed
+// (`gmem` must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full = true) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// ---- bf16 tensor-core fragments (mma.sync m16n8k16, f32 accumulate)
+//
+// Lane l of a warp is in quad g = l / 4 at position t = l % 4.  A (16x16,
+// row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 =
+// (g+8, 2t+8..).  B (16x8, k x n): b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g).
+// C (16x8 f32): c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1).  So two C tiles
+// side by side, rounded to bf16, are one A tile: what P·V needs.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// c += a·b
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats -> one register of two bf16, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Fast forms for the bf16 paths only; the f32 paths keep tanhf/expf for 2e-5.
+// 2^x on the special-function unit: 2^-22 relative error.
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// tanh(x) = 1 - 2 / (1 + e^{2x}) from exp2_approx and a fast division: an
+// ABSOLUTE error below 2^-20 everywhere, so a softcap c moves a score by less
+// than c·2^-20 (5e-5 at c = 50, far below the bf16 rounding of P).  (The SFU's
+// tanh.approx is not used: its 2^-11 relative error would move a score near a
+// cap of 50 by up to 0.024.)  Saturates to ±1 without a NaN.
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + exp2_approx(2.f * LOG2E * x));
+}
+
+// max / sum over the 4 lanes of a quad (the lanes that share a C-fragment row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL_MASK, x, 1);
+  return x + __shfl_xor_sync(FULL_MASK, x, 2);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

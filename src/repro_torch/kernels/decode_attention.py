@@ -4,14 +4,20 @@ Replaces the TPU kernel ``_decode_kernel`` / ``decode_attention_bhd`` of
 ``src/repro/kernels/decode_attention.py``.  The kernel is
 ``csrc/decode_attention.cu`` (design notes at its top).  On an H100 the
 function is bound by bytes: each valid K and V row of the cache is read once.
-So the cache length is split across blocks (a second small kernel merges the
-partial softmax states), one block serves all query heads of its KV head from
-one pass over K/V, a warp fetches the K and V rows of 16 keys at once with
+So one block serves all (up to 16) query heads of its KV head from one pass
+over K/V, the cache length is split across blocks, and the last block of each
+(batch, KV head) merges the partial softmax states in the same launch (found by
+an atomic counter); a warp fetches the K and V rows of 16 keys at once with
 16-byte asynchronous copies, and slots whose ``valid`` is false are not loaded.
+bfloat16 runs both products on the tensor cores (``mma.sync``, the group's
+queries as the rows of a 16-row tile), float32 on the CUDA cores.
 
-``decode_attention`` launches the kernels for a CUDA tensor or raises; only a
-CPU tensor goes to ``decode_attention_plain``.  ``launches`` counts calls that
-launched (one split pass + one merge pass each).
+``decode_attention`` launches the kernel for a CUDA tensor or raises; only a
+CPU tensor goes to ``decode_attention_plain``.  ``launches`` counts calls, one
+launch each.  The merge counters are one zeroed buffer per (device, stream),
+allocated at the first call on that stream and left at zero by every launch:
+calls on one stream run in order, so no two launches share a counter, and
+calls on two streams use two buffers.
 """
 from __future__ import annotations
 
@@ -25,11 +31,15 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 128            # keys per split
+CHUNK = 256            # keys per split (a multiple of 64: one pass of a block)
+MIN_CHUNK = 64
 MAX_SPLITS = 512
+TARGET_BLOCKS = 64     # the least grid before splits get shorter (see split_plan)
+MAX_GROUP = 16         # query heads per KV head one block serves
 
 launches = 0
 _fn = None
+_counters = {}         # (device, stream) -> int32 merge counters, zero between calls
 
 
 def decode_attention_plain(q, k, v, valid, *, softcap: Optional[float] = None,
@@ -58,11 +68,32 @@ def decode_attention_plain(q, k, v, valid, *, softcap: Optional[float] = None,
     return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
-def split_plan(L: int):
-    """(keys per split, number of splits) for a cache of length L."""
-    chunk = max(CHUNK, -(-L // MAX_SPLITS))
-    chunk = -(-chunk // 16) * 16
+def split_plan(L: int, groups: int = 1):
+    """(keys per split, number of splits) for a cache of length L read by
+    ``groups`` (batch, KV head) pairs, one block per pair and split: CHUNK keys
+    per split, halved down to MIN_CHUNK while the grid has fewer than
+    TARGET_BLOCKS blocks, and more than CHUNK where L would need more than
+    MAX_SPLITS splits.  Longer splits mean fewer partials for the last block
+    to merge; on an H100 256 keys beat 128 and 64 at gemma2-2b's caches (16
+    groups) and 128 beat 256 and 64 at recurrentgemma-2b's ring (4 groups)
+    (``tools/tune_decode_split.py``, PERF.md)."""
+    chunk = CHUNK
+    while chunk > MIN_CHUNK and groups * -(-L // chunk) < TARGET_BLOCKS:
+        chunk //= 2
+    chunk = max(chunk, -(-L // MAX_SPLITS))
+    chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
     return chunk, -(-L // chunk)
+
+
+def _counter_buffer(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for launches on ``stream`` of
+    ``device``, made once (a later, larger need makes a larger buffer once
+    more); the kernel leaves them at 0."""
+    buf = _counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _counters[(device, stream)] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def _kernel():
@@ -71,7 +102,7 @@ def _kernel():
         lib = _build.load("decode_attention")
         fn = lib.repro_decode_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         err = lib.repro_decode_attention_error
@@ -99,8 +130,14 @@ def decode_attention(q, k, v, valid, *, softcap: Optional[float] = None,
     """q: (B,1,H,Dh); k,v: (B,L,KV,Dh); valid: (L,) or (B,L) bool -> (B,1,H,Dh).
 
     K and V are read through their strides (a slice of a stacked cache is taken
-    as it is).
+    as it is).  At most 16 query heads per KV head, on every device, so that
+    what runs on the CPU runs on the card.
     """
+    if q.ndim == 4 and k.ndim == 4 and k.shape[2] > 0 \
+            and q.shape[2] // k.shape[2] > MAX_GROUP:
+        raise ValueError(f"decode_attention: {q.shape[2] // k.shape[2]} query "
+                         f"heads per KV head; the kernel serves at most "
+                         f"{MAX_GROUP} from one block")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid, softcap=softcap,
                                       scale=scale)
@@ -129,19 +166,16 @@ def decode_attention(q, k, v, valid, *, softcap: Optional[float] = None,
                          f"{valid.device}, want {(B, L)} on {q.device}")
     if valid.dtype != torch.bool:
         valid = valid != 0
-    # a lane reads min(16 bytes, its Dh/32 elements) of q at once; K and V rows
-    # are copied in 16-byte pieces
-    vec = 16 // q.element_size()
-    for name, t, n in (("q", q, min(vec, max(Dh // 32, 1))), ("k", k, vec),
-                       ("v", v, vec)):
-        _check(name, t, q, n)
+    vec = 16 // q.element_size()       # rows are read in 16-byte pieces
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q, vec)
 
     fn, err = _kernel()
-    chunk, ns = split_plan(L)
+    chunk, ns = split_plan(L, B * KV)
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
-    # scratch of the split pass: acc (B,H,ns,Dh), then m and l (B,H,ns) each.
-    # It (like `vbytes`) is dropped when this function returns, before the
-    # kernels have run: that is safe because the caching allocator hands the
+    # scratch of the partial states: acc (B,H,ns,Dh), then m and l (B,H,ns)
+    # each.  It (like `vbytes`) is dropped when this function returns, before
+    # the kernel has run: that is safe because the caching allocator hands the
     # memory only to later work on the same stream.
     rows = B * H * ns
     part = torch.empty(rows * (Dh + 2), dtype=torch.float32, device=q.device)
@@ -152,8 +186,10 @@ def decode_attention(q, k, v, valid, *, softcap: Optional[float] = None,
     global launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        counters = _counter_buffer(q.device, stream, B * KV)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vbytes.data_ptr(),
-                out.data_ptr(), part_acc, part_m, part_l, _DTYPES[q.dtype],
+                out.data_ptr(), part_acc, part_m, part_l,
+                counters.data_ptr(), _DTYPES[q.dtype],
                 B, H, KV, L, Dh, chunk, ns,
                 q.stride(0), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),

@@ -1,15 +1,21 @@
-"""Flash attention: hand-written CUDA kernel + its plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels + their plain PyTorch version.
 
 Replaces the TPU kernel ``_flash_kernel`` / ``flash_attention_bhsd`` of
-``src/repro/kernels/flash_attention.py``.  The kernel is
-``csrc/flash_attention.cu`` (design notes at its top): one block per tile of 32
-query rows of a (batch, head), a loop over 32-key tiles inside the block
-between the window's lower edge and the causal edge, online softmax in
-registers, f32 arithmetic on the CUDA cores.  On an H100 the function is bound
-by operations at long sequences (4·B·H·Dh·Σ_rows keys attended FLOP); moving
-the two products to the tensor cores for bf16 is later work.
+``src/repro/kernels/flash_attention.py``.  On an H100 the function is bound by
+operations at long sequences (4·B·H·Dh·Σ_rows keys attended FLOP).
+``csrc/flash_attention.cu`` (design notes at its top) holds two kernels, picked
+by the input type:
 
-``flash_attention`` launches the kernel for a CUDA tensor or raises; only a CPU
+* bfloat16 runs on the tensor cores: a block of 4 warps owns 64 query rows of a
+  (batch, head), K/V tiles arrive by ``cp.async`` into a double-buffered ring of
+  bf16 shared memory, and both products are ``mma.sync`` m16n8k16 with f32
+  accumulators, the online softmax on the fragments in registers; keys per
+  tile by ``key_tile``;
+* float32 runs on the CUDA cores (32 query rows a block, 32-key tiles, f32 in
+  shared memory): TF32 or bf16 products could not hold 2e-5.
+
+Both loop over key tiles between the window's lower edge and the causal edge.
+``flash_attention`` launches a kernel for a CUDA tensor or raises; only a CPU
 tensor goes to ``flash_attention_plain``.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -24,9 +30,11 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM_64 = 1.3   # see key_tile
 
 launches = 0
 _fn = None
+_sms = {}              # device -> number of SMs
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -61,13 +69,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def key_tile(S: int, Dh: int, B: int, H: int, sms: int) -> int:
+    """Keys per tile of the bf16 kernel: 64, except at head_dim 256 once the
+    grid of B·H·ceil(S/64) blocks holds more than BLOCKS_PER_SM_64 blocks per SM
+    of the ``sms`` SMs.  BK=64 takes one block an SM and crosses half the
+    barriers; BK=32 lets two blocks share an SM and hide each other's softmax,
+    which pays once most SMs have a second block to run.  On an H100 64 was
+    9-12% faster at 0.97 and 1.21 blocks per SM, 32 3-31% faster from 1.45 to
+    6 (``tools/tune_flash_tiles.py``, PERF.md)."""
+    blocks = B * H * -(-S // 64)
+    return 32 if Dh == 256 and blocks > BLOCKS_PER_SM_64 * sms else 64
+
+
 def _kernel():
     global _fn
     if _fn is None:
         lib = _build.load("flash_attention")
         fn = lib.repro_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_float, ctypes.c_void_p])
@@ -79,7 +99,7 @@ def _kernel():
 
 
 def _check(name: str, t: torch.Tensor, q: torch.Tensor, vec: int):
-    """``vec`` elements are fetched by one aligned load (1: no constraint)."""
+    """``vec`` elements are fetched by one aligned load."""
     if t.device != q.device or t.dtype != q.dtype:
         raise ValueError(f"flash_attention: {name} is {t.dtype} on {t.device}, "
                          f"q is {q.dtype} on {q.device}")
@@ -87,9 +107,9 @@ def _check(name: str, t: torch.Tensor, q: torch.Tensor, vec: int):
             or t.data_ptr() % (vec * t.element_size()):
         raise ValueError(
             f"flash_attention: {name} needs a contiguous last dim"
-            + (f", strides that are multiples of {vec} and a "
-               f"{vec * t.element_size()}-byte aligned base" if vec > 1 else "")
-            + f"; got strides {t.stride()}")
+            + f", strides that are multiples of {vec} and a "
+              f"{vec * t.element_size()}-byte aligned base; got strides "
+              f"{t.stride()}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -98,8 +118,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B,S,H,Dh); k,v: (B,S,KV,Dh) -> (B,S,H,Dh), any S >= 1.
 
     Tensors are read through their strides, so views such as a sliced
-    projection are taken as they are: the last dim must be contiguous, and k
-    and v need a 16-byte aligned base and strides that are multiples of 16
+    projection are taken as they are: the last dim must be contiguous, and q,
+    k and v need a 16-byte aligned base and strides that are multiples of 16
     bytes.
     """
     if q.device.type == "cpu":
@@ -125,17 +145,28 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: window {window} < 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap {softcap} <= 0")
-    vec = 16 // q.element_size()       # K/V rows are read in 16-byte chunks
-    for name, t, n in (("q", q, 1), ("k", k, vec), ("v", v, vec)):
-        _check(name, t, q, n)
+    vec = 16 // q.element_size()       # rows are read in 16-byte chunks
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q, vec)
+    sms = _sms.get(q.device)
+    if sms is None:
+        sms = _sms[q.device] = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+    return _launch(q, k, v, causal, window, softcap, scale,
+                   key_tile(S, Dh, B, H, sms))
 
+
+def _launch(q, k, v, causal, window, softcap, scale, bk: int):
+    """One launch on checked inputs with ``bk`` keys per tile (bf16)."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
     fn, err = _kernel()
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     global launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, H, KV, S, Dh,
+                _DTYPES[q.dtype], B, H, KV, S, Dh, bk,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
