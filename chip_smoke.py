@@ -18,8 +18,11 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            tile edges S = 1, 63, 64, 65, 4097 at every head dim, both key
            tiles of head_dim 256, 1-16 query heads per KV head, an empty slot,
            q scaled by 8 so that the scores reach the softcap) bf16 2e-2 / f32
-           2e-5, K4 ssd_scan (mamba2-130m's) bf16 2e-2 / f32 2e-3,
-           K5 rg_lru (recurrentgemma-2b's; f32 only, its gates are f32) 1e-5;
+           2e-5, K4 ssd_scan (mamba2-130m's, and for its bf16 tensor-core
+           path the chunk edges c = 1, 15, 16, 17, 63, 64, 65, 255, 256 in one
+           and three chunks at (P, N) = (16, 16), (32, 64), (64, 128)) bf16
+           2e-2 / f32 2e-3, K5 rg_lru (recurrentgemma-2b's; f32 only, its
+           gates are f32) 1e-5;
            device times from CUDA-graph replays timed by CUDA events (and the
            time of one eager call from Python beside them); for K2/K3 one
            library call (``scaled_dot_product_attention``, softcap off, a
@@ -32,10 +35,10 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            equals teacher-forced greedy decoding; the logits of every prefill
            and decode step equal ``forward_logits`` at that position (1e-3);
            logits of the kernel path and the einsum path agree within 3e-2;
-           then reduced gemma2-2b and recurrentgemma-2b in bf16 (the attention
-           kernels' tensor-core path): kernel-path logits vs the einsum path
-           within 2e-2, and no farther from an f32 forward than twice the
-           einsum path;
+           then reduced gemma2-2b, recurrentgemma-2b and mamba2-130m in bf16
+           (the tensor-core paths of K2 and K4; mamba2's prompt of 512 tokens
+           is two chunks): kernel-path logits vs the einsum path within 2e-2,
+           and no farther from an f32 forward than twice the einsum path;
 5. full    each of the three at full width (gemma2-2b 26 layers, recurrentgemma-
            2b 26, mamba2-130m 24), bf16, seeded random weights: 8 requests with
            Poisson arrivals, 16 new tokens each, through a 4-slot engine with
@@ -44,10 +47,12 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            model's layers imply (e.g. recurrentgemma-2b: K5 18 and K2 8 per
            request, K3 8 per tick).
 
-``--profile`` adds a second, instrumented pass of each phase-5 serve after the
-measured one: prefill and tick times by a host clock with a synchronise after
-each, and ``torch.profiler``'s device time by kernel (asserting one decode
-kernel launch per ``decode_attention`` call and no merge kernel).
+``--profile`` adds the device time of each of K4's three launches at S=4096
+bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
+serve after the measured one: prefill and tick times by a host clock with a
+synchronise after each, and ``torch.profiler``'s device time by kernel
+(asserting one decode kernel launch per ``decode_attention`` call and no merge
+kernel).
 
 A failure in any phase raises: the run exits non-zero and prints no result
 line.  The last line of standard output is the result object; the line before
@@ -491,17 +496,43 @@ def ssd_case(gen, B, S, H, P, N, c, dtype):
     return x, dt, torch.cumsum(dt * A, dim=2), bm, cm
 
 
-def phase_ssd(gen):
+def ssd_profile(args):
+    """Device time of each of K4's launches in one call, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    k4.ssd_scan(*args)
+    torch.cuda.synchronize()
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            k4.ssd_scan(*args)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and "ssd_" in e.key:
+            log(f"[profile]   {us / 1e3 / reps:.4f} ms a call  x{e.count // reps} "
+                f"{e.key[:90]}")
+
+
+def phase_ssd(gen, with_profile: bool = False):
     """K4 vs plain.  Returns the `kernels` entry, timed at mamba2-130m's
     heaviest prefill on the path (S=4096, bf16)."""
     cases = [(1, S, 24, 64, 128, 256) for S in (256, 1024, 4096)]
     cases += [(2, 64, 4, 16, 16, 32),       # the reduced config's geometry
               (1, 37, 3, 16, 16, 37),       # a chunk no multiple of the tile
               (1, 128, 2, 32, 64, 64)]
+    cases = [c + ((torch.bfloat16, torch.float32),) for c in cases]
+    # the bf16 (tensor-core) path at the edges of its 64-row tiles, in one
+    # chunk and in three (the inter-chunk term), at each width it takes; one
+    # batch of 2
+    cases += [(1, nc * c, h, P, N, c, (torch.bfloat16,))
+              for P, N, h in ((16, 16, 3), (32, 64, 3), (64, 128, 24))
+              for c in (1, 15, 16, 17, 63, 64, 65, 255, 256) for nc in (1, 3)]
+    cases.append((2, 3 * 65, 3, 64, 128, 65, (torch.bfloat16,)))
     entry = {}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for (b, S, h, P, N, c) in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+    for i, (b, S, h, P, N, c, dtypes) in enumerate(cases):
+        for dtype in dtypes:
             args = ssd_case(gen, b, S, h, P, N, c, dtype)
             y, hl = k4.ssd_scan(*args)
             wy, wh = k4.ssd_scan_plain(*args)
@@ -511,7 +542,7 @@ def phase_ssd(gen):
                       compare(hl, wh, SSD_TOL[dtype], what + " state"))
             errs[dtype] = max(errs[dtype], err)
             line = f"[kernels] {what}: max_abs_err {err:.3e}"
-            if (h, P, N) == (24, 64, 128):
+            if i < 3:      # mamba2-130m's S = 256, 1024, 4096
                 ms = device_ms([lambda: k4.ssd_scan(*args)])
                 eager = eager_ms(lambda: k4.ssd_scan(*args))
                 plain = device_ms([lambda: k4.ssd_scan_plain(*args)], rounds=1)
@@ -528,6 +559,8 @@ def phase_ssd(gen):
                              "library_note": "no single PyTorch call computes "
                                              "the chunked SSD scan"}
             log(line)
+            if with_profile and (S, dtype) == (4096, torch.bfloat16):
+                ssd_profile(args)
     entry["max_abs_err_f32_all_cases"] = errs[torch.float32]
     entry["max_abs_err_bf16_all_cases"] = errs[torch.bfloat16]
     return entry
@@ -683,31 +716,37 @@ def phase_reduced(arch):
 
 @torch.no_grad()
 def phase_reduced_bf16(arch):
-    """The attention kernels' bf16 (tensor-core) path end to end: the reduced
-    model in bf16, ``forward_logits`` on the kernel path against the einsum
-    path, and both against an f32 einsum forward of the same weights."""
+    """The kernels' bf16 (tensor-core) paths end to end: the reduced model in
+    bf16, ``forward_logits`` on the kernel path against the einsum path, and
+    both against an f32 einsum forward of the same weights."""
     cfg = reduced(get_config(arch)).replace(window_size=32, dtype="bfloat16")
     model = build_model(cfg, device=DEV)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
     params["embed"]["tok"].mul_(0.1)
+    # 80 > window 32; mamba2: two chunks of 256 (a length must be a multiple
+    # of min(256, length))
+    length = 512 if arch == "mamba2-130m" else 80
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 80))).to(DEV)      # 80 > window 32
+        0, cfg.vocab_size, (2, length))).to(DEV)
     V = cfg.vocab_size
-    before = k2.launches
+    before = {n: KERNELS[n].launches
+              for n, k in expected_launches(cfg, 1, 0).items() if k}
     kern = model.forward_logits(params, {"tokens": tokens})[..., :V].float()
-    if k2.launches == before:
-        raise AssertionError(f"reduced {arch} bf16: flash_attention not launched")
+    idle = [n for n in before if KERNELS[n].launches == before[n]]
+    if idle:
+        raise AssertionError(f"reduced {arch} bf16: {idle} not launched")
     ein = build_model(cfg.replace(attn_impl="einsum"), device=DEV) \
         .forward_logits(params, {"tokens": tokens})[..., :V].float()
     p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
     ref = build_model(cfg.replace(attn_impl="einsum", dtype="float32"),
                       device=DEV).forward_logits(p32, {"tokens": tokens})[..., :V]
     # Both bf16 paths round every layer's activations to bf16 (2^-8 relative);
-    # the einsum path also rounds the scores and the probabilities, the
-    # kernels round only P before P·V.  So they are held to the bf16 tolerance
-    # of the kernel tests, 2e-2 absolute plus relative (the logits are below 1
-    # here; a CPU rehearsal differs by 5e-3); and the kernel path must be no
-    # farther from f32 than twice the einsum path's distance.
+    # the einsum path also rounds the scores and the probabilities (attention)
+    # or seg, the decay weights and the carried state (mamba2), the kernels
+    # round only P before P·V or seg·x.  So they are held to the bf16
+    # tolerance of the kernel tests, 2e-2 absolute plus relative (the logits
+    # are below 1 here; a CPU rehearsal differs by 5e-3); and the kernel path
+    # must be no farther from f32 than twice the einsum path's distance.
     err = compare(kern, ein, 2e-2, f"reduced {arch} bf16 forward_logits cuda "
                                    "vs einsum")
     e_kern = float((kern - ref).abs().max())
@@ -790,7 +829,9 @@ def profile_serve(model, params, cfg, prompt_lens, smi: str):
     busy = sum(dev_us(e) for e in rows)
     log(f"[profile] {cfg.name}: device time by kernel under torch.profiler, "
         f"total {busy / 1e3:.1f} ms")
-    for e in rows[:14]:
+    # the top 14, and the port's kernels below them
+    ours = ("flash_", "decode_", "ssd_", "rg_lru")
+    for e in rows[:14] + [e for e in rows[14:] if any(k in e.key for k in ours)]:
         if dev_us(e) > 0:
             log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
     # one CUDA launch per decode_attention call, and no merge kernel
@@ -890,11 +931,12 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(0)
     measured = {"flash_attention": phase_flash(gen),
                 "decode_attention": phase_decode(gen),
-                "ssd_scan": phase_ssd(gen), "rg_lru": phase_rglru(gen)}
+                "ssd_scan": phase_ssd(gen, args.profile),
+                "rg_lru": phase_rglru(gen)}
     torch.cuda.empty_cache()
     for arch in PROMPT_LENS:
         phase_reduced(arch)
-    for arch in ("gemma2-2b", "recurrentgemma-2b"):
+    for arch in PROMPT_LENS:
         phase_reduced_bf16(arch)
     launches = {name: 0 for name in KERNELS}
     for arch in PROMPT_LENS:

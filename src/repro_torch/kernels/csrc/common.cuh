@@ -23,6 +23,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fu
   const int n = full ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
 }
+// 4 bytes (through L1); zeroed when `full` is false, as above
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full = true) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

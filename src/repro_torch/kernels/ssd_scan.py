@@ -1,4 +1,4 @@
-"""Mamba2 SSD chunk scan: hand-written CUDA kernel + its plain PyTorch version.
+"""Mamba2 SSD chunk scan: hand-written CUDA kernels + their plain PyTorch version.
 
 Replaces the TPU kernel ``_ssd_kernel`` / ``ssd_scan_bhzc`` of
 ``src/repro/kernels/ssd_scan.py``.  Per (batch, head), over chunks of c steps
@@ -7,11 +7,19 @@ with ``cs`` the inclusive cumsum of A·dt inside each chunk:
     y      = (C · e^{cs}) @ stateᵀ + tril(C Bᵀ ⊙ e^{cs_i - cs_j} ⊙ dt_j) @ x
     state <- state · e^{cs_last} + (x ⊙ e^{cs_last - cs} dt)ᵀ B
 
-The kernel is ``csrc/ssd_scan.cu`` (design notes at its top): the TPU kernel
+The kernels are ``csrc/ssd_scan.cu`` (design notes at its top): the TPU kernel
 carries the state from one chunk to the next in scratch, which needs its grid
 to run in order; here chunk states, a serial pass over chunks, and the outputs
 are three launches, each parallel over (batch, head, chunk), as the
-reference's einsum path splits the work.  f32 arithmetic on the CUDA cores.
+reference's einsum path splits the work.  Two paths, by input type:
+
+- bf16: the tensor cores (``mma.sync`` bf16 products, f32 accumulators).
+  Rounded to bf16 on the way: seg·x before the state product, the weights
+  C·Bᵀ ⊙ decay ⊙ dt before W·x, and the entering state before C·state.  P and
+  N must be multiples of 16, and x, Bm and Cm need 16-byte aligned bases and
+  strides that are multiples of 8 elements (16-byte ``cp.async`` loads).
+- f32: the CUDA cores, f32 arithmetic throughout (2e-3 against the plain
+  version; TF32 products would not hold it).
 
 ``ssd_scan`` launches the kernels for a CUDA tensor or raises; only a CPU
 tensor goes to ``ssd_scan_plain``.  ``launches`` counts calls that launched
@@ -76,17 +84,12 @@ def _kernel():
     return _fn
 
 
-def ssd_scan(x, dt, cs, Bm, Cm):
-    """x: (B,nc,c,H,P); dt, cs: (B,nc,c,H) f32; Bm, Cm: (B,nc,c,N), x/Bm/Cm of
-    one dtype (float32 or bfloat16) -> (y: (B,nc,c,H,P) in x's dtype,
-    h_last: (B,H,P,N) f32).  Any c >= 1; P <= 64, N <= 128.
-
-    Read through their strides (views of the model's tensors are taken as they
-    are); the last dim of x, Bm and Cm must be contiguous."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, cs, Bm, Cm)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+def _check(x, dt, cs, Bm, Cm):
+    """Raises ValueError on what the kernels do not take.  Both paths: shapes
+    that disagree, P > 64 or N > 128, a dtype other than float32 or bfloat16,
+    operands of another type or device, a last dim that is not contiguous.
+    The bf16 path also: P or N no multiple of 16, and x, Bm or Cm with a base
+    that is not 16-byte aligned or a stride that is no multiple of 8."""
     if x.ndim != 5 or dt.ndim != 4 or Bm.ndim != 4:
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, Bm {tuple(Bm.shape)}")
@@ -112,6 +115,35 @@ def ssd_scan(x, dt, cs, Bm, Cm):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan: {name} needs a contiguous last dim; "
                              f"got strides {t.stride()}")
+    if x.dtype != torch.bfloat16:
+        return
+    if P % 16 or N % 16:
+        raise ValueError(f"ssd_scan: bf16 needs a head dim and a state that "
+                         f"are multiples of 16; got P={P}, N={N}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+            raise ValueError(f"ssd_scan: bf16 {name} needs a 16-byte aligned "
+                             f"base and strides that are multiples of 8; got "
+                             f"strides {t.stride()} at offset "
+                             f"{t.storage_offset()}")
+
+
+def ssd_scan(x, dt, cs, Bm, Cm):
+    """x: (B,nc,c,H,P); dt, cs: (B,nc,c,H) f32; Bm, Cm: (B,nc,c,N), x/Bm/Cm of
+    one dtype (float32 or bfloat16) -> (y: (B,nc,c,H,P) in x's dtype,
+    h_last: (B,H,P,N) f32).  Any c >= 1; P <= 64, N <= 128, in bf16 both
+    multiples of 16.
+
+    Read through their strides (views of the model's tensors are taken as they
+    are); the last dim of x, Bm and Cm must be contiguous, and in bf16 their
+    bases 16-byte aligned and their strides multiples of 8 (``_check``)."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, cs, Bm, Cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _check(x, dt, cs, Bm, Cm)
+    Bsz, nc, c, H, P = x.shape
+    N = Bm.shape[-1]
 
     fn, err = _kernel()
     y = torch.empty((Bsz, nc, c, H, P), dtype=x.dtype, device=x.device)

@@ -6,12 +6,18 @@ against the JAX package's Pallas kernels in interpret mode
 shapes and tolerances: 2e-3 for the SSD scan (a chunked form against a
 sequential recurrence, f32), 1e-5 for the RG-LRU (the same sequential
 recurrence, f32).  Inputs are made once with numpy and handed to both.
+
+K4's bf16 path runs on the tensor cores, which no CPU test can launch; an
+emulation of its arithmetic in plain PyTorch (where it rounds to bf16) is held
+here to the 2e-2 that ``chip_smoke.py`` holds the kernel to on the card, and
+its wrapper's input checks (``_check``) are run on CPU tensors.
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import assert_close, rnd, sigmoid, ssd_inputs, to_jax, to_torch
+from _torch_port import (assert_close, rnd, sigmoid, softplus, ssd_inputs, to_jax,
+                         to_torch)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
@@ -86,6 +92,140 @@ def test_ssd_scan_refuses_an_initial_state():
     args = [to_torch(a) for a in chunked]
     with pytest.raises(ValueError, match="zero state"):
         tops.ssd_scan(*args, h0=torch.zeros(1, 2, 16, 16))
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _hi_lo(t):
+    """t as the kernel hands it to the tensor cores: hi = bf16(t) and
+    lo = bf16(t - hi), two products summed in f32."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _ssd_tensor_core_emulation(x, dt, cs, Bm, Cm):
+    """The arithmetic of ``ssd_scan``'s bf16 path (csrc/ssd_scan.cu): bf16
+    operands, exact products summed in f32; seg·x rounded to bf16 once before
+    the state product; W = C·Bᵀ ⊙ e^{cs_i - cs_j} ⊙ dt_j before W·x and the
+    entering state before C·state as hi + lo bf16 pairs; y rounded at the
+    end.  The carry over chunks and the final state stay f32."""
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    Bsz, nc, c, H, P = x.shape
+    N = Bm.shape[-1]
+    seg = torch.exp(cs[:, :, -1:, :] - cs) * dt                 # (B,nc,c,H)
+    states = torch.einsum("bzchp,bzcn->bzhpn", _bf16(seg[..., None] * xf), Bf)
+    h = torch.zeros((Bsz, H, P, N))
+    entering = []
+    for z in range(nc):
+        entering.append(h)
+        h = h * torch.exp(cs[:, z, -1])[:, :, None, None] + states[:, z]
+    ent = _hi_lo(torch.stack(entering, dim=1))                  # (B,nc,H,P,N)
+    y_off = torch.exp(cs)[..., None] * torch.einsum("bzin,bzhpn->bzihp", Cf, ent)
+    lower = torch.ones((c, c), dtype=torch.bool).tril()[None, None, :, :, None]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]          # (B,nc,i,j,H)
+    decay = torch.exp(diff.masked_fill(~lower, float("-inf")))
+    g = torch.einsum("bzin,bzjn->bzij", Cf, Bf)
+    w = _hi_lo(g[..., None] * decay * dt[:, :, None, :, :])
+    y_diag = torch.einsum("bzijh,bzjhp->bzihp", w, xf)
+    return (y_off + y_diag).to(torch.bfloat16), h
+
+
+def _ssd_bf16_case(seed, B, nc, c, H, P, N):
+    """As ``chip_smoke.ssd_case`` makes them: x, B and C bf16 views of one
+    (B, S, H·P + 2N) projection scaled by 0.5; dt = softplus(·); A < 0; cs the
+    cumsum of A·dt inside each chunk.  Also the model-layout f32 copies for
+    the sequential oracle."""
+    S = nc * c
+    xbc = to_torch(rnd(seed, (B, S, H * P + 2 * N), 0.5)).to(torch.bfloat16)
+    dt = softplus(rnd(seed + 1, (B, S, H)))
+    A = -np.exp(rnd(seed + 2, (H,), 0.3))
+    cs = np.cumsum((dt * A).reshape(B, nc, c, H), axis=2, dtype=np.float32)
+    views = (xbc[..., :H * P].reshape(B, nc, c, H, P),
+             to_torch(dt.reshape(B, nc, c, H)), to_torch(cs),
+             xbc[..., H * P:H * P + N].reshape(B, nc, c, N),
+             xbc[..., H * P + N:].reshape(B, nc, c, N))
+    f = xbc.float().numpy()
+    model = (f[..., :H * P].reshape(B, S, H, P), dt, A,
+             f[..., H * P:H * P + N], f[..., H * P + N:])
+    return views, model
+
+
+@pytest.mark.parametrize("P,N", [(16, 16), (64, 128)])
+@pytest.mark.parametrize("nc", [1, 3])
+@pytest.mark.parametrize("c", [1, 16, 17, 64, 65, 256])
+def test_ssd_bf16_tensor_core_arithmetic_holds_the_bf16_tolerance(c, nc, P, N):
+    """Why the card may hold the bf16 kernel to 2e-2 (absolute plus relative)
+    against its plain version: the same roundings, done here in plain
+    PyTorch, stay within it, against the plain version (f32 arithmetic on the
+    same bf16 inputs) and against the sequential oracle."""
+    B, H = 1, 2
+    views, model = _ssd_bf16_case(c + nc + P, B, nc, c, H, P, N)
+    y, h = _ssd_tensor_core_emulation(*views)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    want_y, want_h = tssd.ssd_scan_plain(*views)
+    assert_close(y, want_y, 2e-2)
+    assert_close(h, want_h, 2e-2)
+    ref_y, ref_h = jref.ssd_ref(*(to_jax(a) for a in model))
+    assert_close(y.reshape(B, nc * c, H, P), ref_y, 2e-2)
+    assert_close(h, ref_h, 2e-2)
+
+
+@pytest.mark.parametrize("P,N", [(24, 16), (16, 24), (8, 128)])
+def test_ssd_check_refuses_bf16_widths_that_are_no_multiple_of_16(P, N):
+    views, _ = _ssd_bf16_case(0, 1, 1, 32, 2, P, N)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tssd._check(*views)
+    # the f32 path (CUDA cores) takes any width up to 64 / 128
+    tssd._check(*(v.float() for v in views))
+
+
+def test_ssd_check_refuses_misaligned_bf16_views():
+    B, nc, c, H, P, N = 1, 2, 32, 2, 16, 16
+    S = nc * c
+    dt = to_torch(softplus(rnd(1, (B, nc, c, H))))
+    # x starting one element into the row: a base off the 16-byte grid
+    xbc = torch.zeros((B, S, 1 + H * P + 2 * N), dtype=torch.bfloat16)
+    args = (xbc[..., 1:1 + H * P].reshape(B, nc, c, H, P), dt, dt,
+            xbc[..., 1 + H * P:1 + H * P + N].reshape(B, nc, c, N),
+            xbc[..., 1 + H * P + N:].reshape(B, nc, c, N))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tssd._check(*args)
+    # rows 4 elements longer than the three operands: strides no multiple of 8
+    xbc = torch.zeros((B, S, H * P + 2 * N + 4), dtype=torch.bfloat16)
+    args = (xbc[..., :H * P].reshape(B, nc, c, H, P), dt, dt,
+            xbc[..., H * P:H * P + N].reshape(B, nc, c, N),
+            xbc[..., H * P + N:H * P + 2 * N].reshape(B, nc, c, N))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tssd._check(*args)
+    tssd._check(*(a.float() for a in args))      # f32 reads element by element
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "mamba2-130m reduced"])
+def test_ssd_check_takes_the_views_the_model_hands_over(arch):
+    """apply_mamba's x, B and C are views of one (B, S, H·P + 2N) projection
+    (offsets 0, H·P, H·P + N): in bf16 they meet the kernel's limits."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config("mamba2-130m")
+    if arch.endswith("reduced"):
+        cfg = reduced(cfg)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    views, _ = _ssd_bf16_case(0, 1, 2, 16, H, P, N)
+    assert views[0].dtype == torch.bfloat16 and not views[0].is_contiguous()
+    tssd._check(*views)
+
+
+def test_ssd_check_refuses_shapes_and_types_that_disagree():
+    views, _ = _ssd_bf16_case(0, 1, 1, 16, 2, 16, 16)
+    x, dt, cs, Bm, Cm = views
+    with pytest.raises(ValueError, match="do not agree"):
+        tssd._check(x, dt, cs[:, :, :8], Bm, Cm)
+    with pytest.raises(ValueError, match="Cm is torch.float32"):
+        tssd._check(x, dt, cs, Bm, Cm.float())
+    with pytest.raises(ValueError, match="head dim 80 > 64"):
+        tssd._check(torch.zeros((1, 1, 16, 2, 80), dtype=torch.bfloat16),
+                    dt, cs, Bm, Cm)
 
 
 # ---------------------------------------------------------------- RG-LRU
