@@ -21,8 +21,12 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            2e-5, K4 ssd_scan (mamba2-130m's, and for its bf16 tensor-core
            path the chunk edges c = 1, 15, 16, 17, 63, 64, 65, 255, 256 in one
            and three chunks at (P, N) = (16, 16), (32, 64), (64, 128)) bf16
-           2e-2 / f32 2e-3, K5 rg_lru (recurrentgemma-2b's; f32 only, its
-           gates are f32) 1e-5;
+           2e-2 / f32 2e-3, K5 rg_lru (recurrentgemma-2b's at B = 1, 2, 4,
+           and the edges of a warp's rows, a block's chunk and the first
+           anchor, S = 1, 15, 16, 17, 127, 128, 129, 257, 1024, 1025 at
+           W = 33, 100; f32 only, its gates are f32) 1e-5, its output
+           bit-identical over two eager calls and three calls in a replayed
+           CUDA graph;
            device times from CUDA-graph replays timed by CUDA events (and the
            time of one eager call from Python beside them); for K2/K3 one
            library call (``scaled_dot_product_attention``, softcap off, a
@@ -574,24 +578,69 @@ def rglru_bound_ms(B, S, W):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def rglru_inputs(gen, b, S, W, kind):
+    r = randn(gen, (b, S, W), torch.float32)
+    x = randn(gen, (b, S, W), torch.float32)
+    if kind == "sigmoid":
+        return torch.sigmoid(r), x * 0.5
+    # a in (0.99, 1); x scaled by sqrt(1 - a²) as the RG-LRU does
+    a = 1.0 - 0.01 * torch.sigmoid(r)
+    return a, x * torch.sqrt(1.0 - a * a)
+
+
+def rglru_deterministic(a, x):
+    """Two eager calls and three calls captured into one CUDA graph and
+    replayed return the same bits (the carry is folded in one fixed order)."""
+    first = k5.rg_lru(a, x)
+    second = k5.rg_lru(a, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k5.rg_lru(a, x)      # the capturing stream's scratch, made outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [k5.rg_lru(a, x) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = [torch.equal(first, o) for o in [second] + outs]
+        if not all(same):
+            raise AssertionError(f"rg_lru is not deterministic: bit-equal to "
+                                 f"the first call {same}")
+    del graph
+
+
 def phase_rglru(gen):
     """K5 vs plain (f32: the only input type, the gates are f32).  Returns the
     `kernels` entry, timed at recurrentgemma-2b's heaviest prefill on the path
     (B=1, S=5000, W=2560)."""
     cases = [(1, S, 2560, "sigmoid") for S in (37, 1000, 5000)]
     cases += [(1, 5000, 2560, "near 1"),    # long memory, gated as the model
+              (2, 5000, 2560, "sigmoid"), (4, 5000, 2560, "near 1"),
               (2, 77, 100, "sigmoid"),      # ragged W and S
               (3, 1, 33, "sigmoid")]
+    # the edges of a warp's rows and of a block's chunk, in one and three
+    # chunks, and the first anchor beyond chunk 0, with a ragged channel tile
+    R, L, K = k5.ROWS, k5.CHUNK, k5.ANCHOR
+    cases += [(2, S, W, "near 1" if S % 2 else "sigmoid")
+              for S in (1, R - 1, R, R + 1, L - 1, L, L + 1, 2 * L + 1,
+                        K * L, K * L + 1)
+              for W in (33, 100)]
+    info = k5.kernel_info(DEV)
+    tiles, chunks, blocks = k5.geometry(1, 5000, 2560)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    log(f"[kernels] rg_lru: blocks of {info['chunk_rows']} rows of S x "
+        f"{info['channels']} channels, {info['threads']} threads, "
+        f"{info['blocks_per_sm']} blocks per SM "
+        f"({info['blocks_per_sm'] * sms} resident on {sms} SMs), an anchor "
+        f"every {info['anchor']} chunks; B=1 S=5000 W=2560: grid {tiles} "
+        f"tiles x {chunks} chunks = {blocks} blocks")
     entry = {}
     worst = 0.0
     for (b, S, W, kind) in cases:
-        r = randn(gen, (b, S, W), torch.float32)
-        x = randn(gen, (b, S, W), torch.float32)
-        if kind == "sigmoid":
-            a, x = torch.sigmoid(r), x * 0.5
-        else:     # a in (0.99, 1); x scaled by sqrt(1 - a²) as the RG-LRU does
-            a = 1.0 - 0.01 * torch.sigmoid(r)
-            x = x * torch.sqrt(1.0 - a * a)
+        a, x = rglru_inputs(gen, b, S, W, kind)
         what = f"rg_lru B={b} S={S} W={W} a {kind} f32"
         err = compare(k5.rg_lru(a, x), k5.rg_lru_plain(a, x), LRU_TOL, what)
         worst = max(worst, err)
@@ -602,15 +651,19 @@ def phase_rglru(gen):
             plain = device_ms([lambda: k5.rg_lru_plain(a, x)], rounds=1, reps=2)
             bound, by = rglru_bound_ms(b, S, W)
             line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
-                     f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
-                     "library n/a")
-            if S == 5000 and kind == "sigmoid":
+                     f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, "
+                     f"{100 * bound / ms:.0f}% of it), library n/a")
+            if S == 5000 and b == 1 and kind == "sigmoid":
                 entry = {"shape": f"B={b} S={S} W={W} f32",
                          "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
                          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                          "library_ms": None,
                          "library_note": "no single PyTorch call computes a "
                                          "linear recurrence"}
+            if S == 5000 and b == 1 and kind == "near 1":
+                rglru_deterministic(a, x)
+                line += ("; bit-identical over 2 eager calls and 3 calls in "
+                         "a CUDA graph, replayed twice")
         log(line)
     entry["max_abs_err_f32_all_cases"] = worst
     return entry

@@ -115,4 +115,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ---- words shared between the blocks of one launch (device scope, through
+// L2; single-copy atomic for an aligned 64-bit word)
+__device__ __forceinline__ unsigned long long ld_relaxed_u64(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed_u64(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
 }  // namespace repro

@@ -10,8 +10,14 @@ recurrence, f32).  Inputs are made once with numpy and handed to both.
 K4's bf16 path runs on the tensor cores, which no CPU test can launch; an
 emulation of its arithmetic in plain PyTorch (where it rounds to bf16) is held
 here to the 2e-2 that ``chip_smoke.py`` holds the kernel to on the card, and
-its wrapper's input checks (``_check``) are run on CPU tensors.
+its wrapper's input checks (``_check``) are run on CPU tensors.  K5's
+chunked scan is emulated the same way, in the order its kernel takes (f32
+fmaf as an f64 product plus sum rounded once), and held to 1e-5 at full width
+and at its chunk edges; its scratch sizing is checked against the CUDA
+source's constants.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -265,6 +271,154 @@ def test_rg_lru_ragged_lengths_and_widths(B, S, W):
     x = rnd(7, (B, S, W), 0.5)
     out = tops.rg_lru(to_torch(a), to_torch(x))
     assert_close(out, jref.rg_lru_ref(to_jax(a), to_jax(x)), 1e-5)
+
+
+def _fma(p, q, r):
+    """fmaf: an f64 product plus sum (exact product), rounded once to f32."""
+    return (p.astype(np.float64) * q + r).astype(np.float32)
+
+
+def anchored_carry(P, E):
+    """The state entering each chunk as csrc/rg_lru.cu takes it: every
+    ANCHOR-th chunk publishes (0, its inclusive state), the others (P, E), and
+    chunk i folds from 0 the slots of chunks g .. i-1, g the last anchor below
+    i.  P, E: (B, nc, W) -> (B, nc, W)."""
+    K = tlru.ANCHOR
+    slot_p, slot_e = P.copy(), E.copy()
+    enter = np.zeros_like(E)
+    for i in range(P.shape[1]):
+        if i > 0:
+            c = np.zeros_like(E[:, 0])
+            for j in range((i - 1) // K * K, i):
+                c = _fma(slot_p[:, j], c, slot_e[:, j])
+            enter[:, i] = c
+        if i % K == 0:
+            slot_p[:, i] = 0.0
+            slot_e[:, i] = _fma(P[:, i], enter[:, i], E[:, i])
+    return enter
+
+
+def sequential_carry(P, E):
+    """c_0 = 0, c_{j+1} = fmaf(P_j, c_j, E_j): the one fixed order."""
+    enter = np.zeros_like(E)
+    run = np.zeros_like(E[:, 0])
+    for i in range(P.shape[1]):
+        enter[:, i] = run
+        run = _fma(P[:, i], run, E[:, i])
+    return enter
+
+
+def emulate_rg_lru_kernel(a, x, carry=anchored_carry):
+    """csrc/rg_lru.cu's arithmetic in numpy, in the kernel's order: per-warp
+    scans of ROWS rows from 0 (and the rows' product), the warps folded in
+    order into each chunk's aggregate (P, E), the state entering each chunk
+    (``carry``), the warps' entering states in order, and the rescan."""
+    R, NW = tlru.ROWS, tlru.WARPS
+    B, S, W = a.shape
+    nc = -(-S // tlru.CHUNK)
+    pad = ((0, 0), (0, nc * tlru.CHUNK - S), (0, 0))
+    a = np.pad(a, pad, constant_values=1.0).reshape(B, nc, NW, R, W)
+    x = np.pad(x, pad, constant_values=0.0).reshape(B, nc, NW, R, W)
+    end = np.zeros((B, nc, NW, W), np.float32)
+    prod = np.ones((B, nc, NW, W), np.float32)
+    for r in range(R):
+        end = _fma(a[:, :, :, r], end, x[:, :, :, r])
+        prod = prod * a[:, :, :, r]
+    P = np.ones((B, nc, W), np.float32)
+    E = np.zeros((B, nc, W), np.float32)
+    for w in range(NW):
+        E = _fma(prod[:, :, w], E, end[:, :, w])
+        P = P * prod[:, :, w]
+    enter = carry(P, E)
+    h = np.empty_like(a)
+    for w in range(NW):
+        hv = enter
+        for r in range(R):
+            hv = h[:, :, w, r] = _fma(a[:, :, w, r], hv, x[:, :, w, r])
+        enter = _fma(prod[:, :, w], enter, end[:, :, w])
+    return h.reshape(B, nc * tlru.CHUNK, W)[:, :S]
+
+
+def lru_inputs(seed, B, S, W, kind):
+    """As chip_smoke.py phase 3 makes them: a = sigmoid(r), x / 2; or a near 1
+    (long memory) with x scaled by sqrt(1 - a^2), as the model gates it."""
+    r, x = rnd(seed, (B, S, W)), rnd(seed + 1, (B, S, W))
+    if kind == "sigmoid":
+        return sigmoid(r), (x * 0.5).astype(np.float32)
+    a = (1.0 - 0.01 * sigmoid(r)).astype(np.float32)
+    return a, (x * np.sqrt(1.0 - a * a)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["near 1", "sigmoid"])
+def test_rg_lru_kernel_arithmetic_at_full_width(kind):
+    """recurrentgemma-2b's heaviest prefill, B=1 S=5000 W=2560: the kernel's
+    chunked order of fmaf against the sequential oracles, 1e-5."""
+    a, x = lru_inputs(11, 1, 5000, 2560, kind)
+    got = emulate_rg_lru_kernel(a, x)
+    assert_close(got, jref.rg_lru_ref(to_jax(a), to_jax(x)), 1e-5)
+    assert_close(got, tlru.rg_lru_plain(to_torch(a), to_torch(x)), 1e-5)
+    # the anchors change who folds a prefix, not a bit of the result
+    assert np.array_equal(got, emulate_rg_lru_kernel(a, x, sequential_carry))
+
+
+@pytest.mark.parametrize("W", [33, 100])
+@pytest.mark.parametrize("S", [1, tlru.ROWS - 1, tlru.ROWS, tlru.ROWS + 1,
+                               tlru.CHUNK - 1, tlru.CHUNK, tlru.CHUNK + 1,
+                               2 * tlru.CHUNK + 1, tlru.ANCHOR * tlru.CHUNK,
+                               tlru.ANCHOR * tlru.CHUNK + 1])
+def test_rg_lru_kernel_arithmetic_at_the_chunk_edges(S, W):
+    """One warp's rows, one block's chunk and three chunks, each one row
+    short, exact and one row over, and the first anchor's chunk (the last one
+    without, the first one with an anchor beyond chunk 0), with a ragged
+    channel tile."""
+    a, x = lru_inputs(S + W, 2, S, W, "near 1" if S % 2 else "sigmoid")
+    got = emulate_rg_lru_kernel(a, x)
+    assert got.shape == (2, S, W)
+    assert np.array_equal(got, emulate_rg_lru_kernel(a, x, sequential_carry))
+    assert_close(got, jref.rg_lru_ref(to_jax(a), to_jax(x)), 1e-5)
+    assert_close(got, tlru.rg_lru_plain(to_torch(a), to_torch(x)), 1e-5)
+
+
+def test_rg_lru_geometry_matches_the_cuda_source():
+    """The wrapper sizes scratch with constants that csrc/rg_lru.cu defines."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "rg_lru.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    names = ("CH", "WARPS", "ROWS", "ANCHOR", "HEADER", "COUNT_BITS")
+    assert {k: int(const[k]) for k in names} == \
+        {k: getattr(tlru, k) for k in names}
+    assert "constexpr int SLOT = CH;" in src and tlru.SLOT == tlru.CH
+    # the slot words are read as device-scope relaxed loads (through L2),
+    # never through the non-coherent path
+    assert "__ldg" not in src and "ld_relaxed_u64(" in src
+
+
+def test_rg_lru_scratch_sizing_and_growth():
+    """tiles x chunks x batch blocks, one slot each; the buffer is made once
+    per (device, stream) and remade larger (zeroed) only when a call needs
+    more."""
+    assert tlru.geometry(1, 5000, 2560) == (80, 40, 3200)
+    assert tlru.geometry(1, 37, 2560) == (80, 1, 80)
+    assert tlru.geometry(4, tlru.CHUNK + 1, 33) == (2, 2, 16)
+    assert tlru.scratch_words(1, 5000, 2560) == tlru.HEADER + 2 * 3200 * tlru.SLOT
+    key = (torch.device("cpu"), -12345)
+    tlru._scratch.pop(key, None)
+    try:
+        short = tlru._scratch_buffer(key[0], key[1], tlru.scratch_words(1, 37, 2560))
+        assert short.numel() == tlru.MIN_WORDS and short.dtype == torch.int64
+        assert not short.any()
+        short[0] = 7
+        same = tlru._scratch_buffer(key[0], key[1],
+                                    tlru.scratch_words(1, 5000, 2560))
+        assert same is short
+        need = tlru.scratch_words(4, 8192, 2560)
+        assert need > tlru.MIN_WORDS
+        grown = tlru._scratch_buffer(key[0], key[1], need)
+        assert grown is not short and grown.numel() == need
+        assert not grown.any()
+        assert tlru._scratch_buffer(key[0], key[1], 5) is grown
+    finally:
+        tlru._scratch.pop(key, None)
 
 
 # ---------------------------------------------------------------- wrappers
