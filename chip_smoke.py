@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--verbose] [--profile]
 
 Drives the port's main paths — ``ServeEngine`` -> prefill -> decode for
-gemma2-2b, recurrentgemma-2b and mamba2-130m — through the entry points a user
-would call, and holds every CUDA kernel of those paths against its plain
-PyTorch version.  Needs one CUDA device; without one it exits non-zero at
+gemma2-2b, recurrentgemma-2b and mamba2-130m, and the DS3 scenario path
+``Scenario`` -> ``run`` / ``simulate_batch`` -> the epoch scan — through the
+entry points a user would call, and holds every CUDA kernel of those paths
+against its plain PyTorch version.  Needs one CUDA device; without one it exits non-zero at
 once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
@@ -49,7 +50,20 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            an 8192-token cache.  Every kernel's launch count is set to 0 just
            before each serve and read just after, and must equal what the
            model's layers imply (e.g. recurrentgemma-2b: K5 18 and K2 8 per
-           request, K3 8 per tick).
+           request, K3 8 per tick);
+6. scenario the DS3 simulator with K1, the epoch scan: wifi_tx x {etf, met,
+           table} at 80 jobs and 2, 20, 60 jobs/ms through
+           ``run(backend="torch")``, and the comm-free etf case, equal to K1's
+           plain version bit for bit (every output), to ``backend="ref"``
+           within 1e-4 (latency, makespan) / 1e-3 (energy), the comm-free
+           schedule equal to the event-heap oracle; K1's SASS holds no FFMA;
+           then the paper's five-app mix on ``DesignPoint(num_vit=1)`` (15
+           PEs), 1,024 lanes (32 rates from 1 to 80 jobs/ms x 32 seeds) of
+           1,000 Poisson jobs, one K1 launch per scheduler, every 16th lane
+           equal to the plain scan bit for bit; K1's time (CUDA events, median
+           of 5), the plain loop's, scheduled tasks per second, the memory a
+           launch holds and ``backend="ref"``'s time for one lane.  Launch
+           counts are set to 0 before each part and must be exact (10, 3).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -67,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,15 +101,22 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core.jobgen import poisson_trace  # noqa: E402
+from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
+from repro_torch.core.applications import wifi_tx  # noqa: E402
+from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
+from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
+from repro_torch.core.schedulers import get_scheduler  # noqa: E402
+from repro_torch.dse import DesignPoint  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
+from repro_torch.kernels import epoch_scan as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
+from repro_torch.scenario import Scenario, TraceSpec, run, tables_for  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -106,7 +128,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 LRU_TOL = 1e-5
 KERNELS = {"flash_attention": k2, "decode_attention": k3, "ssd_scan": k4,
-           "rg_lru": k5}
+           "rg_lru": k5, "epoch_scan": k1}
 # the serves of phase 5: prompt lengths (mamba2's inside the reference's
 # chunk rule, a multiple of min(256, length); recurrentgemma's 5000 wraps
 # its 2048-slot ring)
@@ -834,7 +856,8 @@ def expected_launches(cfg, requests: int, ticks: int):
     return {"flash_attention": attn_layers * requests,
             "decode_attention": attn_layers * ticks,
             "ssd_scan": kinds.count("mamba2") * requests,
-            "rg_lru": kinds.count("rglru") * requests}
+            "rg_lru": kinds.count("rglru") * requests,
+            "epoch_scan": 0}
 
 
 def profile_serve(model, params, cfg, prompt_lens, smi: str):
@@ -964,6 +987,213 @@ def phase_full(arch: str, smi: str, with_profile: bool = False):
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+
+APPS5 = ("wifi_tx", "wifi_rx", "single_carrier", "range_detection",
+         "pulse_doppler")
+SCAN_OUT = ("scheduled", "start", "finish", "onpe")
+# the full-size run: rates x seeds lanes of jobs each; every CHECK_EVERY-th
+# lane also goes through the plain scan
+SCAN_RATES, SCAN_SEEDS, SCAN_JOBS, CHECK_EVERY = 32, 32, 1000, 16
+
+
+def counts_zero():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def counts():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def scan_plain_outputs(tables, policy, arrival, app_idx):
+    """K1's plain version and the shared epilogue on the same lanes."""
+    arrival = torch.as_tensor(arrival, device=DEV)
+    app_idx = torch.as_tensor(app_idx, device=DEV, dtype=torch.int32)
+    if arrival.ndim == 1:
+        arrival, app_idx = arrival[None], app_idx[None]
+    scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx)
+    return simkernel_torch._epilogue(tables, arrival, app_idx, *scan)
+
+
+def assert_bits_equal(got: dict, want: dict, keys, what: str):
+    torch.cuda.synchronize()
+    for key in keys:
+        g, w = got[key], want[key]
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            bad = int((g != w).sum()) if g.shape == w.shape else -1
+            raise AssertionError(f"{what}: K1 and its plain version differ "
+                                 f"in {key} ({bad} entries)")
+
+
+def no_fma_in_k1():
+    """ptxas may contract a*b+c into FFMA; the scan's three contractible
+    spots are written with __fmul_rn/__fadd_rn, so its SASS holds no FFMA."""
+    tool = Path(shutil.which(_build.nvcc())).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.build_all()["epoch_scan"])],
+                          capture_output=True, text=True, check=True).stdout
+    body = sass.split("epoch_scan_kernel", 1)[1]
+    n = sum("FFMA" in line for line in body.splitlines())
+    if n:
+        raise AssertionError(f"epoch_scan_kernel's SASS holds {n} FFMA")
+    return sum(1 for line in body.splitlines() if "FMUL" in line or "FADD" in line)
+
+
+def scan_bound_ms(tables, L, J):
+    """Bytes only: the tables and the (L, J) lanes read once, the (L, J, T)
+    schedule written once (bool, f32, f32, i32), at the memory rate.  The scan
+    itself is a chain of dependent steps that no rate bounds."""
+    A, T, P = tables.exec_us.shape
+    table_bytes = 4 * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
+    nbytes = table_bytes + 8 * L * J + 13 * L * J * T
+    return 1e3 * nbytes / PEAK_BYTES_S
+
+
+@torch.no_grad()
+def phase_scenario(smi: str):
+    """K1 through the DS3 scenario path: small cases against the plain scan
+    and the event-heap oracle, then 1,024 lanes of the five-app mix at 1,000
+    jobs per scheduler.  Returns (the `kernels` entry, K1 launches)."""
+    # -- small: the cases of tests/test_sim_equivalence.py through run()
+    small = [(p, r) for p in ("etf", "met", "table") for r in (2.0, 20.0, 60.0)]
+    counts_zero()
+    runs = []
+    for policy, rate in small:
+        scn = Scenario(apps=("wifi_tx",), scheduler=policy,
+                       trace=TraceSpec(rate_jobs_per_ms=rate, num_jobs=80,
+                                       seed=int(rate)))
+        runs.append((scn, run(scn, backend="torch")))
+    db = make_soc_table2()
+    db.comm = CommModel(startup_us=0.0, bw_bytes_per_us=1e30)
+    free_trace = deterministic_trace(25.0, 64, ["wifi_tx"])
+    free_tables = simkernel_torch.build_tables(db, [wifi_tx()])
+    free = simkernel_torch.simulate_torch(free_tables, "etf",
+                                          free_trace.arrival_us,
+                                          free_trace.app_index)
+    torch.cuda.synchronize()
+    small_counts = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want["epoch_scan"] = len(small) + 1
+    if small_counts != want:
+        raise AssertionError(f"scenario path (small): launches {small_counts}, "
+                             f"expected {want}")
+    for (scn, res) in runs:
+        trace = scn.job_trace()
+        plain = scan_plain_outputs(tables_for(scn), scn.scheduler,
+                                   trace.arrival_us, trace.app_index)
+        assert_bits_equal({k: v[None] for k, v in res.raw.items()}, plain,
+                          res.raw.keys(), scn.label())
+        ref = run(scn, backend="ref")
+        np.testing.assert_allclose(res.avg_latency_us, ref.avg_latency_us, rtol=1e-4)
+        np.testing.assert_allclose(res.makespan_us, ref.makespan_us, rtol=1e-4)
+        np.testing.assert_allclose(res.energy_j, ref.energy_j, rtol=1e-3)
+    plain = scan_plain_outputs(free_tables, "etf", free_trace.arrival_us,
+                               free_trace.app_index)
+    assert_bits_equal({k: v[None] for k, v in free.items()}, plain, free.keys(),
+                      "comm-free")
+    ref = simkernel_ref.simulate(db, [wifi_tx()], free_trace,
+                                 get_scheduler("etf"))
+    fin, onpe = free["finish"].cpu().numpy(), free["onpe"].cpu().numpy()
+    for r in ref.records:
+        if fin[r.job_id, r.task_id] != np.float32(r.finish_us) or \
+                onpe[r.job_id, r.task_id] != r.pe_id:
+            raise AssertionError(f"comm-free: job {r.job_id} task {r.task_id} "
+                                 "differs from the event-heap oracle")
+    fmul_fadd = no_fma_in_k1()
+    log(f"[scenario] small: wifi_tx x {{etf, met, table}} x rates {{2, 20, 60}} "
+        f"(80 jobs) through run(backend='torch') and the comm-free etf case: "
+        f"K1 = plain bit for bit (every output), vs backend='ref' within "
+        f"1e-4 / 1e-3, comm-free schedule = the event-heap oracle; launches "
+        f"{small_counts['epoch_scan']}; epoch_scan_kernel's SASS: 0 FFMA, "
+        f"{fmul_fadd} FMUL/FADD")
+
+    # -- full size: the paper's five-app mix, 1,024 lanes of 1,000 jobs
+    rates = np.linspace(1.0, 80.0, SCAN_RATES)
+    traces = [poisson_trace(float(r), SCAN_JOBS, APPS5, seed=s)
+              for r in rates for s in range(SCAN_SEEDS)]
+    arrival = torch.from_numpy(np.stack([t.arrival_us for t in traces])).to(DEV)
+    app_idx = torch.from_numpy(np.stack([t.app_index for t in traces])).to(DEV)
+    L, J = arrival.shape
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5)
+    tables = {p: tables_for(base.replace(scheduler=p))
+              for p in ("etf", "met", "table")}
+    T, P = tables["etf"].t_max, tables["etf"].num_pes
+    info = k1.kernel_info(J, len(APPS5), T, P, DEV)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    counts_zero()
+    outs = {}
+    for policy, tb in tables.items():
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        outs[policy] = simkernel_torch.simulate_batch(tb, policy, arrival, app_idx)
+        torch.cuda.synchronize()
+        outs[policy]["held_bytes"] = torch.cuda.max_memory_allocated() - held
+    full_counts = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want["epoch_scan"] = 3
+    if full_counts != want:
+        raise AssertionError(f"scenario path (full): launches {full_counts}, "
+                             f"expected {want}")
+    checked = torch.arange(0, L, CHECK_EVERY, device=DEV)
+    valid_tasks = int(tables["etf"].valid[app_idx.long()].sum())
+    entry = {"shape": f"L={L} lanes x J={J} jobs, T={T}, P={P} (five apps, "
+                      "DesignPoint(num_vit=1))"}
+    for policy, tb in tables.items():
+        out = outs[policy]
+        if not bool(out["scheduled"].all()) or \
+                not bool(torch.isfinite(out["finish"]).all()) or \
+                not bool((out["makespan_us"] > 0).all()) or \
+                out["finish"].shape != (L, J, T):
+            raise AssertionError(f"full {policy}: unscheduled, non-finite or "
+                                 "misshapen output")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan = k1.epoch_scan_plain(tb, policy, arrival[checked], app_idx[checked])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = 0.0
+        for key, got in zip(SCAN_OUT, scan):
+            want_k = out[key][checked]
+            if not torch.equal(got, want_k):
+                raise AssertionError(f"full {policy}: K1 and its plain version "
+                                     f"differ in {key} on the checked lanes")
+            if got.dtype == torch.float32:
+                err = max(err, float((got - want_k).abs().max()))
+        ms = eager_ms(lambda: k1.epoch_scan(tb, policy, arrival, app_idx),
+                      iters=5, warm=1)
+        t0 = time.perf_counter()
+        ref = run(base.replace(scheduler=policy), backend="ref",
+                  trace_override=traces[0])
+        ref_s = time.perf_counter() - t0
+        lat0 = float(out["avg_job_latency_us"][0])
+        bound = scan_bound_ms(tb, L, J)
+        log(f"[scenario] full {policy}: K1 {ms:.3f} ms a launch (median of 5, "
+            f"CUDA events), {valid_tasks / (ms * 1e-3):.4g} scheduled tasks/s "
+            f"({valid_tasks} valid tasks), holds "
+            f"{out['held_bytes'] / 2 ** 20:.1f} MiB; plain {plain_s:.3f} s for "
+            f"its {len(checked)} lanes (= K1 bit for bit on scheduled, start, "
+            f"finish, onpe); backend='ref' {ref_s:.3f} s for lane 0 on the "
+            f"host (avg latency {ref.avg_latency_us:.3f} us, K1 {lat0:.3f}); "
+            f"byte bound {bound:.5f} ms  [{smi}]")
+        entry[f"ms_{policy}"] = ms
+        entry[f"plain_s_{len(checked)}_lanes_{policy}"] = plain_s
+        entry[f"tasks_per_s_{policy}"] = valid_tasks / (ms * 1e-3)
+        entry[f"ref_s_one_lane_{policy}"] = ref_s
+        entry[f"held_bytes_{policy}"] = out["held_bytes"]
+        entry.setdefault("max_abs_err", err)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    log(f"[scenario] K1: {info['threads']} threads a block, "
+        f"{info['shared_bytes']} bytes of shared memory, "
+        f"{info['blocks_per_sm']} blocks per SM ({info['blocks_per_sm'] * sms} "
+        f"resident on {sms} SMs) for {L} lanes")
+    entry.update(ms=entry["ms_etf"], plain_ms=1e3 * entry[f"plain_s_{len(checked)}_lanes_etf"],
+                 plain_note=f"etf, the plain loop over {len(checked)} of the {L} lanes",
+                 bound_ms=scan_bound_ms(tables["etf"], L, J), bound_by="bytes",
+                 library_ms=None,
+                 library_note="no PyTorch call computes the scan")
+    return entry, small_counts["epoch_scan"] + full_counts["epoch_scan"]
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -995,11 +1225,15 @@ def main():
     for arch in PROMPT_LENS:
         for name, n in phase_full(arch, smi, args.profile).items():
             launches[name] += n
+    t_scn = time.perf_counter()
+    measured["epoch_scan"], launches["epoch_scan"] = phase_scenario(smi)
+    log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
 
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
                "decode_attention": "src/repro/kernels/decode_attention.py:62",
                "ssd_scan": "src/repro/kernels/ssd_scan.py:66",
-               "rg_lru": "src/repro/kernels/rg_lru.py:42"}
+               "rg_lru": "src/repro/kernels/rg_lru.py:42",
+               "epoch_scan": "src/repro/core/simkernel_jax.py:321"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": sources[name], "launches": launches[name],

@@ -1,0 +1,329 @@
+"""The DS3 simulation as a fixed-shape tensor program, on PyTorch.
+
+The twin of ``src/repro/core/simkernel_jax.py`` for *static* DVFS governors
+(performance / powersave / userspace: one OPP baked into the tables) under
+the ``met``, ``etf`` and ``table`` schedulers.  Semantics are the reference
+kernel's (same epoch ordering, same tie-breaking, float32 arithmetic).
+
+* :class:`SimTables` / :func:`build_tables` — one design's device-resident
+  constants, built as the reference builds them (padding rules of DESIGN.md
+  §5), or carried across from the JAX package's tables by
+  :func:`tables_from_numpy`.
+* The epoch scan is K1 (``kernels/epoch_scan.py``): on a CUDA tensor one
+  launch of ``csrc/epoch_scan.cu`` over all lanes, on a CPU tensor its plain
+  version :func:`epoch_scan_plain`.
+* :func:`_epilogue` derives latency, energy and per-PE busy time from the
+  scan's schedule; both routes share it, so they differ only in the scan.
+
+Closed-loop DTPM (dynamic governors) and fail-stop faults are later slices
+(ROADMAP.md queue 1, items 3 and 4); both raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..kernels import ops as _ops
+from ..kernels.epoch_scan import epoch_scan_plain
+from .applications import Application
+from .dvfs import Governor, MAX_OPP_LEVELS, PerformanceGovernor, padded_ladder
+from .power import active_power, idle_power
+from .resources import NOMINAL_FREQ, ResourceDB
+from . import thermal as _thermal
+
+__all__ = ["SimTables", "build_tables", "tables_from_numpy",
+           "epoch_scan_plain", "simulate_torch", "simulate_batch"]
+
+# Frequency domains: one per SoC cluster (0=big, 1=LITTLE, 2=accelerator
+# fabric).  Padded PE slots map to the last (accel) domain, which never moves
+# and carries zero power — inert.
+MIN_DOMAINS = 3
+
+ARRAY_FIELDS = ("exec_us", "pred", "ebytes", "valid", "comm_mult",
+                "comm_startup", "comm_inv_bw", "power_active", "power_idle",
+                "table_pe", "node_of_pe", "pe_domain", "pe_is_cpu",
+                "exec_opp", "power_active_opp", "opp_freq", "num_opp",
+                "domain_node", "domain_cpu")
+_DTYPES = {"pred": torch.bool, "valid": torch.bool, "table_pe": torch.int32,
+           "node_of_pe": torch.int32, "pe_domain": torch.int32,
+           "num_opp": torch.int32, "domain_node": torch.int32}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SimTables:
+    """One design's simulation constants (fields, shapes and dtypes of the
+    reference's ``SimTables``).  Compared and hashed by identity: the kernel
+    caches what it derives from a table set on the object."""
+    exec_us: torch.Tensor        # (A, T, P) f32 — DVFS-scaled latency, 1e30=unsupported
+    pred: torch.Tensor           # (A, T, T) bool
+    ebytes: torch.Tensor         # (A, T, T) f32 (bytes flowing t' -> t)
+    valid: torch.Tensor          # (A, T) bool
+    comm_mult: torch.Tensor      # (P, P) f32 in {0,1,penalty}
+    comm_startup: torch.Tensor   # () f32
+    comm_inv_bw: torch.Tensor    # () f32
+    power_active: torch.Tensor   # (P,) f32  W while busy
+    power_idle: torch.Tensor     # (P,) f32  W while idle
+    table_pe: torch.Tensor       # (A, T) i32 — table-scheduler assignment (or -1)
+    node_of_pe: torch.Tensor     # (P,) i32 thermal node per PE slot
+    pe_domain: torch.Tensor      # (P,) i32 frequency domain (cluster) per slot
+    pe_is_cpu: torch.Tensor      # (P,) f32 1.0 = CPU slot (counts in util)
+    # DTPM-only OPP tables (None for static-governor tables):
+    exec_opp: Optional[torch.Tensor] = None          # (A, T, P, K) f32
+    power_active_opp: Optional[torch.Tensor] = None  # (P, K) f32
+    opp_freq: Optional[torch.Tensor] = None          # (C, K) f32 asc, top-padded
+    num_opp: Optional[torch.Tensor] = None           # (C,) i32 real level count
+    domain_node: Optional[torch.Tensor] = None       # (C,) i32 thermal node
+    domain_cpu: Optional[torch.Tensor] = None        # (C,) f32 CPU PEs per domain
+    t_max: int = 0
+    num_pes: int = 0
+    device: torch.device = torch.device("cpu")
+
+
+def tables_from_numpy(fields, t_max: int, num_pes: int,
+                      device="cuda") -> SimTables:
+    """SimTables from numpy arrays: a mapping, or an object with the fields as
+    attributes (the JAX package's tables after ``tree_map(np.asarray, tb)``).
+    Absent or ``None`` OPP fields stay ``None``."""
+    dev = resolve_device(device)
+    get = (fields.get if isinstance(fields, Mapping)
+           else lambda k: getattr(fields, k, None))
+    kw = {}
+    for name in ARRAY_FIELDS:
+        value = get(name)
+        if value is None:
+            continue
+        kw[name] = torch.as_tensor(
+            np.array(value), dtype=_DTYPES.get(name, torch.float32),
+            device=dev)
+    return SimTables(t_max=int(t_max), num_pes=int(num_pes), device=dev, **kw)
+
+
+def build_tables(db: ResourceDB, apps: Sequence[Application],
+                 governor: Optional[Governor] = None,
+                 table: Optional[Dict[Tuple[str, int], int]] = None,
+                 pad_tasks: Optional[int] = None,
+                 pad_pes: Optional[int] = None,
+                 freq_caps: Optional[Mapping[str, float]] = None,
+                 device="cuda") -> SimTables:
+    """Build the simulation tables of one SoC design on ``device``.
+
+    ``pad_tasks`` / ``pad_pes`` pad the task and PE axes to a fixed size so
+    tables from *different* designs stack into one batch.  Padding is inert:
+    padded task rows are invalid (pre-scheduled), padded PE columns carry
+    1e30 latency (never win an argmin) and zero active/idle power.
+
+    A *dynamic* governor (``governor.policy().dynamic``) additionally builds
+    the OPP-indexed tables the DTPM scan gathers from (per-level latency
+    ``exec_opp``, per-level active power, per-domain OPP ladders truncated at
+    ``freq_caps``, which defaults to the governor's own).  The static scan
+    never reads them; the DTPM scan is a later slice.
+    """
+    dev = resolve_device(device)
+    governor = governor or PerformanceGovernor()
+    dynamic = governor.policy().dynamic
+    if freq_caps is None:
+        freq_caps = getattr(governor, "freq_caps", None)
+    A = len(apps)
+    T = max(a.num_tasks for a in apps)
+    P = db.num_pes
+    if pad_tasks is not None:
+        if pad_tasks < T:
+            raise ValueError(f"pad_tasks={pad_tasks} < max tasks {T}")
+        T = pad_tasks
+    if pad_pes is not None:
+        if pad_pes < P:
+            raise ValueError(f"pad_pes={pad_pes} < num_pes {P}")
+        P = pad_pes
+
+    freq = {}
+    for pe in db.pes:
+        if pe.is_cpu and pe.cluster not in freq:
+            freq[pe.cluster] = governor.initial_freq(pe.pe_type)
+
+    exec_us = np.full((A, T, P), 1e30, dtype=np.float32)
+    pred = np.zeros((A, T, T), dtype=bool)
+    ebytes = np.zeros((A, T, T), dtype=np.float32)
+    valid = np.zeros((A, T), dtype=bool)
+    table_pe = np.full((A, T), -1, dtype=np.int32)
+
+    for ai, app in enumerate(apps):
+        lat = db.latency_matrix(app.task_names)      # (t, P), inf unsupported
+        for t in range(app.num_tasks):
+            valid[ai, t] = True
+            for j, pe in enumerate(db.pes):
+                base = lat[t, j]
+                if np.isfinite(base):
+                    scale = (NOMINAL_FREQ[pe.pe_type] / freq[pe.cluster]
+                             if pe.is_cpu else 1.0)
+                    # quantised as the reference does: f32(f32(base)·f32(scale))
+                    exec_us[ai, t, j] = np.float32(np.float32(base) * np.float32(scale))
+            if table is not None:
+                table_pe[ai, t] = table.get((app.name, t), -1)
+        pred[ai, :app.num_tasks, :app.num_tasks] = app.pred_matrix()
+        ebytes[ai, :app.num_tasks, :app.num_tasks] = app.edge_bytes_matrix()
+
+    comm_mult = np.zeros((P, P), dtype=np.float32)
+    for s in range(db.num_pes):
+        for d in range(db.num_pes):
+            if s == d:
+                continue
+            comm_mult[s, d] = (db.comm.cross_cluster_penalty
+                               if db.pes[s].cluster != db.pes[d].cluster else 1.0)
+
+    p_act = np.zeros(P, dtype=np.float32)
+    p_idle = np.zeros(P, dtype=np.float32)
+    for j, pe in enumerate(db.pes):
+        f = freq.get(pe.cluster, 0.0) if pe.is_cpu else 0.0
+        p_act[j] = active_power(pe, f)
+        p_idle[j] = idle_power(pe)
+
+    # frequency-domain / thermal-node maps (padded slots are inert: zero
+    # power, non-CPU, binned to the accel node/domain by convention)
+    C = max(MIN_DOMAINS, max(pe.cluster for pe in db.pes) + 1)
+    node_of_pe = np.full(P, _thermal.NODE_ACCEL, dtype=np.int32)
+    node_of_pe[:db.num_pes] = _thermal.cluster_nodes(db)
+    pe_domain = np.full(P, C - 1, dtype=np.int32)
+    pe_is_cpu = np.zeros(P, dtype=np.float32)
+    for j, pe in enumerate(db.pes):
+        pe_domain[j] = pe.cluster
+        pe_is_cpu[j] = 1.0 if pe.is_cpu else 0.0
+
+    fields = dict(
+        exec_us=exec_us, pred=pred, ebytes=ebytes, valid=valid,
+        comm_mult=comm_mult,
+        comm_startup=np.float32(db.comm.startup_us),
+        # 1/bw taken in double precision, then rounded once, as the reference
+        comm_inv_bw=np.float32(1.0 / db.comm.bw_bytes_per_us),
+        power_active=p_act, power_idle=p_idle, table_pe=table_pe,
+        node_of_pe=node_of_pe, pe_domain=pe_domain, pe_is_cpu=pe_is_cpu)
+    if dynamic:
+        fields.update(_build_opp_tables(db, apps, A, T, P, C, freq_caps))
+    return tables_from_numpy(fields, T, P, dev)
+
+
+def _build_opp_tables(db: ResourceDB, apps: Sequence[Application],
+                      A: int, T: int, P: int, C: int,
+                      freq_caps: Optional[Mapping[str, float]]) -> Dict:
+    """The (…, K) OPP-indexed tables (numpy) the DTPM scan gathers from.
+
+    Level ladders are ascending and top-padded by repeating the highest real
+    level; ``num_opp`` bounds the real counts (truncated under ``freq_caps``,
+    but never below one level).  ``exec_opp`` quantises exactly like the
+    reference path — f32(base) · f32(nominal/f).
+    """
+    K = MAX_OPP_LEVELS
+    exec_opp = np.full((A, T, P, K), 1e30, dtype=np.float32)
+    p_act_opp = np.zeros((P, K), dtype=np.float32)
+    opp_freq = np.zeros((C, K), dtype=np.float32)
+    num_opp = np.ones(C, dtype=np.int32)
+    domain_node = np.full(C, _thermal.NODE_ACCEL, dtype=np.int32)
+    domain_cpu = np.zeros(C, dtype=np.float32)
+    nodes = _thermal.cluster_nodes(db)
+    ladders = {pe.pe_type: padded_ladder(pe.pe_type, freq_caps)
+               for pe in db.pes if pe.is_cpu}
+
+    for j, pe in enumerate(db.pes):
+        if pe.is_cpu:
+            _, row, n = ladders[pe.pe_type]
+            c = pe.cluster
+            num_opp[c] = n
+            domain_node[c] = nodes[j]
+            domain_cpu[c] += 1.0
+            for k in range(K):
+                opp_freq[c, k] = row[k]
+                p_act_opp[j, k] = active_power(pe, row[k])
+        else:
+            p_act_opp[j, :] = active_power(pe, 0.0)
+
+    for ai, app in enumerate(apps):
+        lat = db.latency_matrix(app.task_names)
+        for t in range(app.num_tasks):
+            for j, pe in enumerate(db.pes):
+                base = lat[t, j]
+                if not np.isfinite(base):
+                    continue
+                if pe.is_cpu:
+                    _, row, _ = ladders[pe.pe_type]
+                    for k in range(K):
+                        scale = np.float32(NOMINAL_FREQ[pe.pe_type] / row[k])
+                        exec_opp[ai, t, j, k] = np.float32(
+                            np.float32(base) * scale)
+                else:
+                    exec_opp[ai, t, j, :] = np.float32(base)
+
+    return dict(exec_opp=exec_opp, power_active_opp=p_act_opp,
+                opp_freq=opp_freq, num_opp=num_opp, domain_node=domain_node,
+                domain_cpu=domain_cpu)
+
+
+def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
+              scheduled, start, finish, onpe) -> Dict[str, torch.Tensor]:
+    """Latency, energy and per-PE busy time of (L, J, T) schedules: the
+    reference's post-scan arithmetic (``simkernel_jax.py:533-571``), lanes
+    first.  Its sums run in torch's order, not XLA's (tolerance in the tests);
+    the schedule arrays pass through as they are."""
+    valid_j = tables.valid[app_idx.long()]                              # (L, J, T)
+    busy = torch.where(valid_j, finish - start, 0.0)
+    fin_valid = torch.where(valid_j, finish, 0.0)
+    makespan = fin_valid.amax(dim=(1, 2))                               # (L,)
+    job_finish = fin_valid.amax(dim=2)                                  # (L, J)
+    avg_latency = (job_finish - arrival).mean(dim=1)
+    # energy: active while busy + idle leakage elsewhere  (uJ = W * us).
+    # busy · power of its PE is the reference's busy · onehot · power (the
+    # one-hot factor is exactly 1 or 0); per-PE sums one PE at a time keep the
+    # order fixed (no atomics) without an (L, J, T, P) one-hot
+    e_active = (busy * tables.power_active[onpe.long()]).sum(dim=(1, 2))
+    busy_per_pe = torch.stack([torch.where(onpe == pe, busy, 0.0).sum(dim=(1, 2))
+                               for pe in range(tables.num_pes)], dim=1)  # (L, P)
+    e_idle = (tables.power_idle
+              * torch.clamp(makespan[:, None] - busy_per_pe, min=0.0)).sum(dim=1)
+    energy_j = (e_active + e_idle) * 1e-6                               # W·us -> J
+    return dict(finish=finish, start=start, onpe=onpe, scheduled=scheduled,
+                job_finish=job_finish, makespan_us=makespan,
+                avg_job_latency_us=avg_latency, energy_j=energy_j,
+                busy_per_pe_us=busy_per_pe)
+
+
+def _lanes(tables: SimTables, arrival, app_idx):
+    """Lanes as f32 / int32 tensors on the tables' device (numpy accepted)."""
+    def on_device(x, dtype):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(tables.device, dtype)
+    return on_device(arrival, torch.float32), on_device(app_idx, torch.int32)
+
+
+def _check_static(tables: SimTables, faults):
+    if tables.exec_opp is not None:
+        # dynamic-built tables bake exec_us at the governor's initial (fmin)
+        # OPP — the static scan would return plausible but wrong numbers
+        raise ValueError("tables were built for a dynamic governor; the DTPM "
+                         "scan is not ported yet (ROADMAP.md queue 1, item 3)")
+    if faults is not None:
+        raise NotImplementedError("fail-stop faults in the epoch scan are not "
+                                  "ported yet (ROADMAP.md queue 1, item 4)")
+
+
+def simulate_batch(tables: SimTables, policy: str, arrival, app_idx,
+                   faults=None) -> Dict[str, torch.Tensor]:
+    """Batched simulation: ``arrival`` / ``app_idx`` (L, J), one simulation
+    per lane (seed × rate × mix), in one K1 launch on a CUDA device.  Every
+    output has the lane axis first."""
+    _check_static(tables, faults)
+    arrival, app_idx = _lanes(tables, arrival, app_idx)
+    scheduled, start, finish, onpe = _ops.epoch_scan(tables, policy, arrival,
+                                                     app_idx)
+    return _epilogue(tables, arrival, app_idx, scheduled, start, finish, onpe)
+
+
+def simulate_torch(tables: SimTables, policy: str, arrival, app_idx,
+                   faults=None) -> Dict[str, torch.Tensor]:
+    """Single simulation: ``arrival`` (J,) f32, ``app_idx`` (J,) int.  The
+    output dict has the reference's keys and shapes."""
+    arrival, app_idx = _lanes(tables, arrival, app_idx)
+    out = simulate_batch(tables, policy, arrival[None], app_idx[None], faults)
+    return {k: v[0] for k, v in out.items()}

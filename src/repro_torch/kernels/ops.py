@@ -1,7 +1,8 @@
 """Public wrappers of the kernels, in the reference's layouts.
 
 The twin of ``src/repro/kernels/ops.py``; model code calls these when
-``cfg.attn_impl == "cuda"``.  The reference transposes to (B,H,S,Dh) and
+``cfg.attn_impl == "cuda"``, and the simulator (``core/simkernel_torch.py``)
+calls ``epoch_scan``.  The reference transposes to (B,H,S,Dh) and
 (B,H,nc,c,P) for its kernels; the CUDA kernels read the model's (B,S,H,Dh),
 (B,L,KV,Dh) and (B,nc,c,H,P) layouts through strides, so nothing is
 transposed or copied here.
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import decode_attention as _dec
+from . import epoch_scan as _scan
 from . import flash_attention as _fa
 from . import rg_lru as _lru
 from . import ssd_scan as _ssd
@@ -55,3 +57,10 @@ def rg_lru(a, x, h0=None):
         x = x.clone()
         x[:, 0] += a[:, 0] * h0
     return _lru.rg_lru(a, x)
+
+
+def epoch_scan(tables, policy: str, arrival, app_idx):
+    """K1: the static epoch scan of ``L`` lanes of one table set.
+    arrival (L, J) f32, app_idx (L, J) int on the tables' device ->
+    (scheduled, start, finish, onpe), each (L, J, T)."""
+    return _scan.epoch_scan(tables, policy, arrival, app_idx)

@@ -1,0 +1,142 @@
+"""``run(scenario, backend=...)`` — one scenario, either kernel.
+
+``backend="torch"`` (the default) builds the scenario's ``SimTables`` on the
+device, runs the epoch scan (K1 on a CUDA device, its plain version on the
+CPU) and the binned RC peak temperature; ``backend="ref"`` materialises the
+scenario and calls the port's event-heap oracle.  Tables are cached on the
+(frozen, hashable) scenario minus its trace, and on the device, so repeated
+runs over different workloads reuse them.
+
+Unlike the reference's ``run``, which defaults to ``"ref"``, this one runs on
+the card unless asked otherwise: ``device="cuda"`` raises where there is no
+CUDA device; pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import simkernel_ref as _refk
+from ..core import simkernel_torch as _torchk
+from ..core.simkernel_torch import SimTables
+from ..core.thermal import cluster_nodes
+from ..dse import thermal_torch as _thermal_torch
+from . import faults as _faults
+from .config import Scenario, ThermalSpec, TraceSpec
+from .errors import BackendCapabilityError, ScenarioError
+from .result import Result
+
+BACKENDS = ("ref", "torch")
+
+
+def _tables_key(scn: Scenario) -> Scenario:
+    """Strip table-irrelevant fields so different workloads share tables.
+
+    The scheduler only shapes tables through the offline ILP table, so all
+    non-"table" policies collapse to one cache entry per design/governor.
+    Dynamic (ondemand-family) governors collapse further: their OPP ladders
+    depend on the design and applications alone.
+    """
+    scheduler = scn.scheduler if scn.scheduler == "table" else "etf"
+    key = dataclasses.replace(scn, trace=TraceSpec(), failures=(),
+                              thermal=ThermalSpec(), scheduler=scheduler,
+                              telemetry=False)
+    if key.make_policy().dynamic:
+        key = dataclasses.replace(key, governor="ondemand",
+                                  governor_params=())
+    return key
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_tables(key: Scenario, pad_pes: Optional[int],
+                   device: torch.device) -> SimTables:
+    return _torchk.build_tables(key.soc(), key.applications(),
+                                governor=key.make_governor(),
+                                table=key.schedule_table(), pad_pes=pad_pes,
+                                device=device)
+
+
+def tables_for(scn: Scenario, pad_pes: Optional[int] = None,
+               device="cuda") -> SimTables:
+    """The scenario's ``SimTables`` on ``device`` (identical to a direct
+    ``build_tables`` call), cached across traces and thermal settings."""
+    return _cached_tables(_tables_key(scn), pad_pes, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_nodes(design, device: torch.device) -> torch.Tensor:
+    """Thermal node per PE for a design (depends on the design alone)."""
+    return torch.as_tensor(np.asarray(cluster_nodes(design.to_db()), np.int32),
+                           device=device)
+
+
+def _peak_temp_single(out, nodes, p_act, p_idle, bins: int, repeats: int):
+    """One schedule's RC peak temperature."""
+    power_trace, dt_s = _thermal_torch.binned_power_trace(
+        out["start"], out["finish"], out["onpe"], out["scheduled"], nodes,
+        p_act, p_idle, out["makespan_us"], bins=bins)
+    return _thermal_torch.peak_temperature(power_trace, dt_s, repeats=repeats)
+
+
+def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
+        trace_override=None, telemetry: Optional[bool] = None) -> Result:
+    """Simulate one scenario.
+
+    ``backend="torch"``: the epoch scan on ``device`` for static governors
+    (performance / powersave / userspace / ``"design"``) under met, etf or
+    table, with the binned RC co-simulation's peak temperature.  Dynamic
+    governors, fail-stop faults and telemetry raise
+    :class:`BackendCapabilityError` (each a later slice).
+    ``backend="ref"``: the event-heap reference kernel on the host — all
+    governors and fail-stop injection; ``device`` is not read.
+
+    ``trace_override``: a pre-materialised ``JobTrace`` replacing the
+    scenario's trace spec.
+    """
+    want_tel = scenario.telemetry if telemetry is None else bool(telemetry)
+    if backend not in BACKENDS:
+        raise ScenarioError(f"unknown backend {backend!r}; have {BACKENDS}")
+    if want_tel:
+        raise BackendCapabilityError(
+            "telemetry", backend, "repro.scenario.run",
+            detail="per-window timelines need repro_torch.obs, which is not "
+                   "ported yet (ROADMAP.md queue 1, item 9)")
+
+    if backend == "ref":
+        db = scenario.soc()
+        res = _refk.simulate(db, scenario.applications(),
+                             trace_override or scenario.job_trace(),
+                             scenario.make_scheduler(),
+                             scenario.make_governor(),
+                             failures=_faults.ref_failures(scenario.failures))
+        return Result.from_ref(scenario, db, res)
+
+    if scenario.make_policy().dynamic:
+        raise BackendCapabilityError(
+            f"the dynamic governor {scenario.governor!r}", "torch",
+            "backend='ref'",
+            detail="closed-loop DTPM in the epoch scan is not ported yet "
+                   "(ROADMAP.md queue 1, item 3)")
+    # no-op fault specs (empty / all-inf) normalise to plan=None: the
+    # fault-free program, as in the reference
+    if _faults.fault_plan(scenario.failures, scenario.design.num_pes) is not None:
+        raise BackendCapabilityError(
+            "fail-stop fault injection", "torch", "backend='ref'",
+            detail="faults in the epoch scan are not ported yet "
+                   "(ROADMAP.md queue 1, item 4)")
+    dev = resolve_device(device)
+    tables = tables_for(scenario, device=dev)
+    trace = trace_override or scenario.job_trace()
+    out = _torchk.simulate_torch(tables, scenario.scheduler, trace.arrival_us,
+                                 trace.app_index)
+    peak = _peak_temp_single(out, _cached_nodes(scenario.design, dev),
+                             tables.power_active, tables.power_idle,
+                             bins=scenario.thermal.bins,
+                             repeats=scenario.thermal.repeats)
+    return Result.from_torch(scenario, out, scenario.design.num_pes,
+                             float(peak))

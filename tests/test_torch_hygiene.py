@@ -41,6 +41,9 @@ for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b"):
             for i, t in enumerate(trace.arrival_us)]
     eng.run(reqs)
     assert all(len(r.output) == 3 for r in reqs)
+from repro_torch.scenario import Scenario, run
+for backend in ("torch", "ref"):
+    assert run(Scenario(), backend=backend, device="cpu").makespan_us > 0
 bad = sorted(m for m in sys.modules
              if sys.modules[m] is not None
              and (m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -125,12 +128,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     proc = _run(["-m", "repro_torch.serving", "--reduced"])
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
 
+    from repro_torch.core import make_soc_table2, wifi_tx
+    from repro_torch.core.simkernel_torch import (ARRAY_FIELDS, build_tables,
+                                                  simulate_torch,
+                                                  tables_from_numpy)
+    from repro_torch.scenario import Scenario, run
+    db, apps = make_soc_table2(), [wifi_tx()]
+    host = build_tables(db, apps, device="cpu")
+    fields = {k: getattr(host, k).numpy() for k in ARRAY_FIELDS
+              if getattr(host, k) is not None}
+    arrival, app_idx = [10.0, 20.0], [0, 0]
+    for call in (lambda: run(Scenario()),
+                 lambda: build_tables(db, apps),
+                 lambda: simulate_torch(
+                     tables_from_numpy(fields, host.t_max, host.num_pes),
+                     "etf", arrival, app_idx)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
 
 def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu", "rg_lru.cu",
-                     "ssd_scan.cu"]
+    assert names == ["decode_attention.cu", "epoch_scan.cu",
+                     "flash_attention.cu", "rg_lru.cu", "ssd_scan.cu"]
     for src in _build.sources():
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
