@@ -62,8 +62,23 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            1,000 Poisson jobs, one K1 launch per scheduler, every 16th lane
            equal to the plain scan bit for bit; K1's time (CUDA events, median
            of 5), the plain loop's, scheduled tasks per second, the memory a
-           launch holds and ``backend="ref"``'s time for one lane.  Launch
-           counts are set to 0 before each part and must be exact (10, 3).
+           launch holds and ``backend="ref"``'s time for one lane.  Then
+           closed-loop DTPM through K1's DTPM variant: (a) ondemand and
+           throttle (27 C cap, 0.05 s RC step) x {etf, met, table} at 2, 20,
+           60 jobs/ms, 80 jobs, through ``run(backend="torch")``: equal to
+           the plain scan bit for bit on the schedule, ``onopp`` and
+           ``opp_idx``, within 1e-5 on peak temperature and energy, within
+           1e-4 / 1e-3 of ``backend="ref"``; (b) one launch of 9 lanes with
+           different up thresholds and windows, each lane equal to its own
+           plain scan; (c) the comm-free integer trace (window 50 us, etf and
+           met) equal to the event-heap oracle on finish, PE and latched
+           frequency; (d) the full grid under ondemand and throttle per
+           scheduler, K1 timed as above, windows a lane printed, two lanes
+           (seed 0 of the middle and of the highest rate: the plain loop
+           pays each checked lane's windows) equal to the plain scan.  The
+           host oracle runs at 20 and 60 jobs/ms only.  K1's SASS, both
+           instantiations, holds no FFMA.  Launch counts are
+           set to 0 before each part and must be exact (10, 3, 18, 1, 2, 6).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -103,6 +118,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
 from repro_torch.core.applications import wifi_tx  # noqa: E402
+from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E402
+                                   policy_lanes)
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
 from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
 from repro_torch.core.schedulers import get_scheduler  # noqa: E402
@@ -995,6 +1012,11 @@ SCAN_OUT = ("scheduled", "start", "finish", "onpe")
 # the full-size run: rates x seeds lanes of jobs each; every CHECK_EVERY-th
 # lane also goes through the plain scan
 SCAN_RATES, SCAN_SEEDS, SCAN_JOBS, CHECK_EVERY = 32, 32, 1000, 16
+# DTPM: the governors (throttle with bench_dtpm.py's 27 C cap and 0.05 s RC
+# step, so the cap binds) and the outputs held bit for bit
+DTPM_GOVERNORS = {"ondemand": (),
+                  "throttle": (("thermal_cap_c", 27.0), ("thermal_dt_s", 0.05))}
+DTPM_EXACT = SCAN_OUT + ("onopp", "opp_idx", "job_finish", "makespan_us")
 
 
 def counts_zero():
@@ -1006,14 +1028,21 @@ def counts():
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-def scan_plain_outputs(tables, policy, arrival, app_idx):
-    """K1's plain version and the shared epilogue on the same lanes."""
+def scan_plain_outputs(tables, policy, arrival, app_idx, gov=None):
+    """K1's plain version and the shared epilogue on the same lanes; ``gov``
+    (one policy or one per lane) runs the DTPM program."""
     arrival = torch.as_tensor(arrival, device=DEV)
     app_idx = torch.as_tensor(app_idx, device=DEV, dtype=torch.int32)
     if arrival.ndim == 1:
         arrival, app_idx = arrival[None], app_idx[None]
-    scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx)
-    return simkernel_torch._epilogue(tables, arrival, app_idx, *scan)
+    if gov is None:
+        scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx)
+        return simkernel_torch._epilogue(tables, arrival, app_idx, *scan)
+    scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx,
+                               policy_lanes(gov, arrival.shape[0]))
+    out = simkernel_torch._epilogue(tables, arrival, app_idx, *scan[:5])
+    out.update(zip(("onopp", "opp_idx", "peak_temp_c"), scan[4:]))
+    return out
 
 
 def assert_bits_equal(got: dict, want: dict, keys, what: str):
@@ -1027,25 +1056,45 @@ def assert_bits_equal(got: dict, want: dict, keys, what: str):
 
 
 def no_fma_in_k1():
-    """ptxas may contract a*b+c into FFMA; the scan's three contractible
-    spots are written with __fmul_rn/__fadd_rn, so its SASS holds no FFMA."""
+    """ptxas may contract a*b+c into FFMA; the scan's contractible spots are
+    written with __fmul_rn/__fadd_rn and the DTPM kernel's divisions refine
+    in f64 (``div_rn``), so neither instantiation's SASS holds an FFMA.
+    Returns per instantiation its counts of FMUL+FADD and of DFMA."""
     tool = Path(shutil.which(_build.nvcc())).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build.build_all()["epoch_scan"])],
                           capture_output=True, text=True, check=True).stdout
-    body = sass.split("epoch_scan_kernel", 1)[1]
-    n = sum("FFMA" in line for line in body.splitlines())
-    if n:
-        raise AssertionError(f"epoch_scan_kernel's SASS holds {n} FFMA")
-    return sum(1 for line in body.splitlines() if "FMUL" in line or "FADD" in line)
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name, *lines = part.splitlines()
+        kind = ("static" if "epoch_scan_kernelILb0E" in name else
+                "dtpm" if "epoch_scan_kernelILb1E" in name else None)
+        if kind is None:
+            continue
+        n = sum("FFMA" in ln for ln in lines)
+        if n:
+            raise AssertionError(f"epoch_scan_kernel ({kind})'s SASS holds {n} FFMA")
+        found[kind] = {"fmul_fadd": sum("FMUL" in ln or "FADD" in ln for ln in lines),
+                       "dfma": sum("DFMA" in ln for ln in lines)}
+    if set(found) != {"static", "dtpm"}:
+        raise AssertionError(f"epoch_scan's SASS: kernels {sorted(found)}, "
+                             "expected the static and the DTPM one")
+    return found
 
 
-def scan_bound_ms(tables, L, J):
+def scan_bound_ms(tables, L, J, dtpm=False):
     """Bytes only: the tables and the (L, J) lanes read once, the (L, J, T)
-    schedule written once (bool, f32, f32, i32), at the memory rate.  The scan
-    itself is a chain of dependent steps that no rate bounds."""
+    schedule written once (bool, f32, f32, i32), at the memory rate; under
+    DTPM also the OPP tables, the per-lane policies (window, up, cap, the RC
+    matrices, two exponents) and the latched OPPs (L, J, T), final OPPs and
+    peaks.  The scan itself is a chain of dependent steps, and under DTPM of
+    windows, that no rate bounds."""
     A, T, P = tables.exec_us.shape
     table_bytes = 4 * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
     nbytes = table_bytes + 8 * L * J + 13 * L * J * T
+    if dtpm:
+        C, K = tables.opp_freq.shape
+        nbytes += 4 * (A * T * P * (K - 1) + P * K + C * K + 3 * C + 4 * P
+                       + 37 * L + L * J * T + L * C + L)
     return 1e3 * nbytes / PEAK_BYTES_S
 
 
@@ -1099,13 +1148,15 @@ def phase_scenario(smi: str):
                 onpe[r.job_id, r.task_id] != r.pe_id:
             raise AssertionError(f"comm-free: job {r.job_id} task {r.task_id} "
                                  "differs from the event-heap oracle")
-    fmul_fadd = no_fma_in_k1()
+    sass = no_fma_in_k1()
     log(f"[scenario] small: wifi_tx x {{etf, met, table}} x rates {{2, 20, 60}} "
         f"(80 jobs) through run(backend='torch') and the comm-free etf case: "
         f"K1 = plain bit for bit (every output), vs backend='ref' within "
         f"1e-4 / 1e-3, comm-free schedule = the event-heap oracle; launches "
-        f"{small_counts['epoch_scan']}; epoch_scan_kernel's SASS: 0 FFMA, "
-        f"{fmul_fadd} FMUL/FADD")
+        f"{small_counts['epoch_scan']}; SASS: 0 FFMA in both kernels; static "
+        f"{sass['static']['fmul_fadd']} FMUL/FADD, DTPM "
+        f"{sass['dtpm']['fmul_fadd']} FMUL/FADD and {sass['dtpm']['dfma']} "
+        f"DFMA (its divisions' f64 refinement)")
 
     # -- full size: the paper's five-app mix, 1,024 lanes of 1,000 jobs
     rates = np.linspace(1.0, 80.0, SCAN_RATES)
@@ -1191,7 +1242,199 @@ def phase_scenario(smi: str):
                  bound_ms=scan_bound_ms(tables["etf"], L, J), bound_by="bytes",
                  library_ms=None,
                  library_note="no PyTorch call computes the scan")
-    return entry, small_counts["epoch_scan"] + full_counts["epoch_scan"]
+    dtpm_launches = phase_scenario_dtpm(smi, entry, traces, arrival, app_idx)
+    return entry, small_counts["epoch_scan"] + full_counts["epoch_scan"] \
+        + dtpm_launches
+
+
+def assert_dtpm_equal(got: dict, want: dict, what: str) -> float:
+    """K1's DTPM outputs against the plain scan's: the schedule, latched and
+    final OPPs bit for bit, peak temperature and energy within 1e-5
+    relative.  Returns the largest absolute difference of the two."""
+    assert_bits_equal(got, want, DTPM_EXACT, what)
+    err = 0.0
+    for key in ("peak_temp_c", "energy_j"):
+        err = max(err, compare(got[key], want[key], 1e-5, f"{what}: {key}"))
+    return err
+
+
+@torch.no_grad()
+def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx) -> int:
+    """Closed-loop DTPM through K1's DTPM variant: (a) small cases through
+    run(), (b) one launch of lanes with different policies, (c) the comm-free
+    integer trace against the event-heap oracle, (d) the full grid under
+    ondemand and throttle.  Adds to ``entry``; returns K1's launches."""
+    t_phase = time.perf_counter()
+    # (a) ondemand and throttle x etf/met/table x 2, 20, 60 jobs/ms, 80 jobs
+    small = [(g, p, r) for g in DTPM_GOVERNORS for p in ("etf", "met", "table")
+             for r in (2.0, 20.0, 60.0)]
+    counts_zero()
+    runs = []
+    for gov, policy, rate in small:
+        scn = Scenario(apps=("wifi_tx",), scheduler=policy, governor=gov,
+                       governor_params=DTPM_GOVERNORS[gov],
+                       trace=TraceSpec(rate_jobs_per_ms=rate, num_jobs=80,
+                                       seed=int(rate)))
+        runs.append((scn, run(scn, backend="torch")))
+    torch.cuda.synchronize()
+    want = dict.fromkeys(KERNELS, 0)
+    want["epoch_scan"] = len(small)
+    if counts() != want:
+        raise AssertionError(f"DTPM (small): launches {counts()}, expected {want}")
+    n_launches = len(small)
+    err = 0.0
+    for scn, res in runs:
+        trace = scn.job_trace()
+        plain = scan_plain_outputs(tables_for(scn), scn.scheduler,
+                                   trace.arrival_us, trace.app_index,
+                                   scn.make_policy())
+        err = max(err, assert_dtpm_equal({k: v[None] for k, v in res.raw.items()},
+                                         plain, scn.label()))
+        if scn.trace.rate_jobs_per_ms >= 20.0:   # the host oracle's windows are slow
+            ref = run(scn, backend="ref")
+            np.testing.assert_allclose(res.avg_latency_us, ref.avg_latency_us, rtol=1e-4)
+            np.testing.assert_allclose(res.makespan_us, ref.makespan_us, rtol=1e-4)
+            np.testing.assert_allclose(res.energy_j, ref.energy_j, rtol=1e-3)
+    log(f"[scenario] DTPM small: {{ondemand, throttle}} x {{etf, met, table}} x "
+        f"rates {{2, 20, 60}} (80 jobs) through run(backend='torch'): K1 = "
+        f"plain bit for bit on {', '.join(DTPM_EXACT)}, peak and energy within "
+        f"1e-5 (max abs err {err:.3e}); at 20 and 60 jobs/ms within 1e-4 / 1e-3 "
+        f"of backend='ref'; launches {len(small)}")
+
+    # (b) one launch, a different policy on every lane
+    pols = [GovernorPolicy(dynamic=True, up_threshold=u, sample_window_us=w,
+                           thermal_dt_s=w * 1e-6)
+            for u in (0.6, 0.8, 0.95) for w in (25.0, 50.0, 100.0)]
+    base_b = Scenario(apps=("wifi_tx",), governor="ondemand")
+    lane_traces = [base_b.replace(trace=TraceSpec(rate_jobs_per_ms=r, num_jobs=80,
+                                                  seed=k)).job_trace()
+                   for k, r in enumerate((5.0, 20.0, 40.0) * 3)]
+    tb = tables_for(base_b)
+    counts_zero()
+    mixed = simkernel_torch.simulate_batch_dtpm(
+        tb, "etf", np.stack([t.arrival_us for t in lane_traces]),
+        np.stack([t.app_index for t in lane_traces]), pols)
+    torch.cuda.synchronize()
+    if counts()["epoch_scan"] != 1:
+        raise AssertionError(f"DTPM (policy lanes): launches {counts()}, expected 1")
+    n_launches += 1
+    plain = scan_plain_outputs(tb, "etf", np.stack([t.arrival_us for t in lane_traces]),
+                               np.stack([t.app_index for t in lane_traces]), pols)
+    for k in range(len(pols)):
+        err = max(err, assert_dtpm_equal({key: v[k:k + 1] for key, v in mixed.items()},
+                                         {key: v[k:k + 1] for key, v in plain.items()},
+                                         f"policy lane {k}"))
+    log(f"[scenario] DTPM policy lanes: one launch of 9 lanes (up_threshold "
+        f"0.6/0.8/0.95 x window 25/50/100 us), each lane = the plain scan's "
+        f"bit for bit")
+
+    # (c) the comm-free integer trace against the event-heap oracle
+    db = make_soc_table2()
+    db.comm = CommModel(startup_us=0.0, bw_bytes_per_us=1e30)
+    free_trace = deterministic_trace(25.0, 64, ["wifi_tx"])
+    counts_zero()
+    for policy in ("etf", "met"):
+        governor = OndemandGovernor(sample_window_us=50.0)
+        free_tables = simkernel_torch.build_tables(db, [wifi_tx()], governor=governor)
+        got = simkernel_torch.simulate_torch_dtpm(
+            free_tables, policy, free_trace.arrival_us, free_trace.app_index,
+            governor.policy())
+        ref = simkernel_ref.simulate(db, [wifi_tx()], free_trace,
+                                     get_scheduler(policy), governor)
+        fin, onpe, onopp = (got[k].cpu().numpy() for k in ("finish", "onpe", "onopp"))
+        opp_freq = free_tables.opp_freq.cpu().numpy()
+        pe_domain = free_tables.pe_domain.cpu().numpy()
+        for r in ref.records:
+            f = opp_freq[pe_domain[r.pe_id], onopp[r.job_id, r.task_id]]
+            if fin[r.job_id, r.task_id] != np.float32(r.finish_us) or \
+                    onpe[r.job_id, r.task_id] != r.pe_id or \
+                    (db.pes[r.pe_id].is_cpu and f != np.float32(r.freq_ghz)):
+                raise AssertionError(f"DTPM comm-free {policy}: job {r.job_id} "
+                                     f"task {r.task_id} differs from the "
+                                     "event-heap oracle")
+    if counts()["epoch_scan"] != 2:
+        raise AssertionError(f"DTPM (comm-free): launches {counts()}, expected 2")
+    n_launches += 2
+    log("[scenario] DTPM comm-free: deterministic_trace(25, 64, wifi_tx), "
+        "window 50 us, etf and met: finish, PE and latched frequency = the "
+        "event-heap oracle bit for bit")
+
+    # (d) the full grid under ondemand and throttle
+    L, J = arrival.shape
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5)
+    valid = None
+    counts_zero()
+    outs = {}
+    for gov, params in DTPM_GOVERNORS.items():
+        for policy in ("etf", "met", "table"):
+            scn = base.replace(scheduler=policy, governor=gov, governor_params=params)
+            tb = tables_for(scn)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            out = simkernel_torch.simulate_batch_dtpm(tb, policy, arrival,
+                                                      app_idx, scn.make_policy())
+            torch.cuda.synchronize()
+            out["held_bytes"] = torch.cuda.max_memory_allocated() - held
+            outs[gov, policy] = (scn, tb, out)
+    if counts()["epoch_scan"] != 2 * 3:
+        raise AssertionError(f"DTPM (full): launches {counts()}, expected 6")
+    n_launches += 6
+    # the plain loop runs its longest lane's steps (~6,800 here, ~1 ms each)
+    # and one masked window step for each window of each of its lanes (they
+    # seldom close together; ~20,000 / rate a lane, ~1 ms each): so two
+    # lanes, seed 0 of the middle rate and of the highest, where most jobs
+    # are in flight, the window walk's hardest case
+    check_idx = (SCAN_RATES // 2, SCAN_RATES - 1)
+    checked = torch.tensor([r * SCAN_SEEDS for r in check_idx], device=DEV)
+    check_rates = " and ".join(f"{np.linspace(1.0, 80.0, SCAN_RATES)[r]:.2f}"
+                               for r in check_idx)
+    for (gov, policy), (scn, tb, out) in outs.items():
+        A, T, P = tb.exec_us.shape
+        C, K = tb.opp_freq.shape
+        if valid is None:
+            valid = int(tb.valid[app_idx.long()].sum())
+            info = k1.kernel_info(J, A, T, P, DEV, C, K)
+        if not bool(out["scheduled"].all()) or \
+                not bool(torch.isfinite(out["finish"]).all()) or \
+                not bool(torch.isfinite(out["peak_temp_c"]).all()) or \
+                not bool((out["peak_temp_c"] >= 25.0).all()) or \
+                out["onopp"].shape != (L, J, T):
+            raise AssertionError(f"DTPM full {gov} {policy}: unscheduled, "
+                                 "non-finite or misshapen output")
+        pol = scn.make_policy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = scan_plain_outputs(tb, policy, arrival[checked], app_idx[checked], pol)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max(err, assert_dtpm_equal({k: v[checked] for k, v in out.items()
+                                          if k != "held_bytes"},
+                                         plain, f"DTPM full {gov} {policy}"))
+        lanes = policy_lanes(pol, L)
+        ms = eager_ms(lambda: k1.epoch_scan(tb, policy, arrival, app_idx, gov=lanes),
+                      iters=5, warm=1)
+        windows = (out["makespan_us"].double() / pol.sample_window_us).floor() + 1
+        bound = scan_bound_ms(tb, L, J, dtpm=True)
+        log(f"[scenario] DTPM full {gov} {policy}: K1 {ms:.3f} ms a launch "
+            f"(median of 5, CUDA events), {valid / (ms * 1e-3):.4g} scheduled "
+            f"tasks/s, {float(windows.mean()):.0f} windows a lane on average "
+            f"({int(windows.max())} at most, {int(windows.min())} at least), "
+            f"peak {float(out['peak_temp_c'].min()):.3f}-"
+            f"{float(out['peak_temp_c'].max()):.3f} C, holds "
+            f"{out['held_bytes'] / 2 ** 20:.1f} MiB; plain {plain_s:.3f} s for "
+            f"lanes {checked.tolist()} (seed 0 at {check_rates} jobs/ms; = K1 "
+            f"bit for bit); byte bound {bound:.5f} ms  [{smi}]")
+        entry[f"ms_{gov}_{policy}"] = ms
+        entry[f"plain_s_{len(checked)}_lanes_{gov}_{policy}"] = plain_s
+        entry[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)
+        entry[f"windows_mean_{gov}_{policy}"] = float(windows.mean())
+        entry[f"bound_ms_{gov}_{policy}"] = bound
+    log(f"[scenario] K1 DTPM: {info['threads']} threads a block, "
+        f"{info['shared_bytes']} bytes of shared memory, {info['blocks_per_sm']} "
+        f"blocks per SM for {L} lanes; the DTPM part took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return n_launches
 
 
 # ------------------------------------------------------------------ main

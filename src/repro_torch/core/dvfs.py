@@ -15,8 +15,11 @@ below are thin wrappers over those functions (``OndemandGovernor.update``
 calls ``ondemand_index``), and the epoch-scan kernel is to run the *same*
 transition on tensors, so ref and kernel governor semantics agree by
 construction, not by parallel maintenance (DESIGN.md §7).  In this port the
-policy is a plain frozen dataclass; the lane-stacked form (``stack_policies``)
-comes with the closed-loop DTPM scan (ROADMAP.md queue 1, item 3).
+policy is a plain frozen dataclass.  The epoch scan takes policies as
+per-lane tensors (:func:`policy_lanes`) and runs the transition through the
+tensor twins :func:`ondemand_index_torch` / :func:`throttle_index_torch`
+(its CUDA kernel repeats them op for op); the sweep's ``stack_policies`` is
+a later slice (ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import math
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .resources import CPU_BIG, CPU_LITTLE, NOMINAL_FREQ, OPP_TABLE, ResourceDB
 
@@ -140,6 +144,87 @@ def throttle_index(idx, temp_c, thermal_cap_c, xp=np):
     """
     return xp.where(xp.asarray(temp_c) > thermal_cap_c,
                     xp.zeros_like(idx), idx)
+
+
+# the reference's ``target - 1e-9`` rounds the constant to float32 first
+# (a weakly typed Python float meets f32 arrays): at any target above ~0.01
+# it is lost, at util = 0 it is not
+_COVER_SLACK = np.float32(1e-9)
+
+
+def ondemand_index_torch(opp_freq: torch.Tensor, num_opp: torch.Tensor,
+                         up_threshold: torch.Tensor,
+                         util: torch.Tensor) -> torch.Tensor:
+    """:func:`ondemand_index` on tensors, lanes first: ``opp_freq`` (C, K)
+    f32, ``num_opp`` (C,) int, ``up_threshold`` (L,) f32, ``util`` (L, C) f32
+    -> (L, C) int64.  Float32 op by op in the reference's order:
+    ``fmax * max(util, 0) / up``, then ``opp_freq >= target - f32(1e-9)``;
+    the first covering level, or level 0 where none covers (argmax of an
+    all-false row), as ``jnp.argmax`` gives."""
+    top = num_opp.long() - 1                                     # (C,)
+    fmax = opp_freq.gather(1, top[:, None])[:, 0]                # (C,)
+    up = up_threshold[:, None]
+    target = fmax * torch.clamp(util, min=0.0) / up              # (L, C)
+    # a fill on the device: a tensor copied from the host would synchronise
+    slack = torch.full((), _COVER_SLACK, device=util.device)
+    covers = opp_freq >= (target - slack)[..., None]             # (L, C, K)
+    down = torch.argmax(covers.to(torch.int32), dim=-1)          # first True
+    return torch.where(util > up, top, down)
+
+
+def throttle_index_torch(idx: torch.Tensor, temp_c: torch.Tensor,
+                         thermal_cap_c: torch.Tensor) -> torch.Tensor:
+    """:func:`throttle_index` on tensors: ``idx`` and ``temp_c`` (L, C),
+    ``thermal_cap_c`` (L,); an infinite cap disables the override."""
+    return torch.where(temp_c > thermal_cap_c[:, None],
+                       torch.zeros_like(idx), idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyLanes:
+    """Dynamic policies as per-lane float32 tensors on the host: what the
+    DTPM epoch scan reads, the same values for its kernel and its plain
+    version.  ``A_rc`` / ``B_rc`` (L, 4, 4) are the exact RC update over
+    each lane's ``thermal_dt_s``."""
+    window: torch.Tensor   # (L,) sample_window_us
+    up: torch.Tensor       # (L,) up_threshold
+    cap: torch.Tensor      # (L,) thermal_cap_c (inf: no throttle)
+    A_rc: torch.Tensor     # (L, 4, 4)
+    B_rc: torch.Tensor     # (L, 4, 4)
+
+    @property
+    def lanes(self) -> int:
+        return int(self.window.shape[0])
+
+
+def policy_lanes(policies, lanes: int) -> PolicyLanes:
+    """One dynamic :class:`GovernorPolicy` for every lane, or a sequence of
+    ``lanes`` of them, as :class:`PolicyLanes` on the host.  Raises for a
+    static policy or a non-positive window, threshold or RC step, as the
+    reference's ``simulate_jax_dtpm`` does.  The RC matrices are computed
+    once per distinct ``thermal_dt_s`` by ``dse.thermal_torch.
+    exact_step_matrices``, in float32 on the CPU."""
+    from ..dse.thermal_torch import exact_step_matrices
+    pols = ([policies] * lanes if isinstance(policies, GovernorPolicy)
+            else list(policies))
+    if len(pols) != lanes:
+        raise ValueError(f"{len(pols)} policies for {lanes} lanes")
+    if not all(p.dynamic for p in pols):
+        raise ValueError("static governors bake into the tables; use "
+                         "simulate_torch (DESIGN.md §7)")
+    validate_policy_params([p.sample_window_us for p in pols],
+                           [p.up_threshold for p in pols],
+                           [p.thermal_dt_s for p in pols])
+    dts = [float(np.float32(p.thermal_dt_s)) for p in pols]
+    rc = {dt: exact_step_matrices(torch.tensor(dt, dtype=torch.float32))
+          for dt in set(dts)}
+    f32 = lambda xs: torch.tensor(np.asarray(xs, np.float32))
+    return PolicyLanes(
+        window=f32([p.sample_window_us for p in pols]),
+        up=f32([p.up_threshold for p in pols]),
+        cap=f32([p.thermal_cap_c for p in pols]),
+        A_rc=torch.stack([rc[dt][0] for dt in dts]),
+        B_rc=torch.stack([rc[dt][1] for dt in dts]))
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """The DS3 simulation as a fixed-shape tensor program, on PyTorch.
 
-The twin of ``src/repro/core/simkernel_jax.py`` for *static* DVFS governors
-(performance / powersave / userspace: one OPP baked into the tables) under
-the ``met``, ``etf`` and ``table`` schedulers.  Semantics are the reference
-kernel's (same epoch ordering, same tie-breaking, float32 arithmetic).
+The twin of ``src/repro/core/simkernel_jax.py`` under the ``met``, ``etf``
+and ``table`` schedulers, for *static* DVFS governors (performance /
+powersave / userspace: one OPP baked into the tables; :func:`simulate_torch`,
+:func:`simulate_batch`) and for *dynamic* ones, the ondemand family with its
+thermal throttle (:func:`simulate_torch_dtpm`, :func:`simulate_batch_dtpm`:
+the DVFS and RC loop closed inside the scan, policies per lane).  Semantics
+are the reference kernel's (same epoch ordering, same tie-breaking, float32
+arithmetic).
 
 * :class:`SimTables` / :func:`build_tables` — one design's device-resident
   constants, built as the reference builds them (padding rules of DESIGN.md
@@ -13,10 +17,10 @@ kernel's (same epoch ordering, same tie-breaking, float32 arithmetic).
   launch of ``csrc/epoch_scan.cu`` over all lanes, on a CPU tensor its plain
   version :func:`epoch_scan_plain`.
 * :func:`_epilogue` derives latency, energy and per-PE busy time from the
-  scan's schedule; both routes share it, so they differ only in the scan.
+  scan's schedule (under DTPM the energy at each task's latched OPP); both
+  routes share it, so they differ only in the scan.
 
-Closed-loop DTPM (dynamic governors) and fail-stop faults are later slices
-(ROADMAP.md queue 1, items 3 and 4); both raise here.
+Fail-stop faults are a later slice (ROADMAP.md queue 1, item 4) and raise.
 """
 from __future__ import annotations
 
@@ -30,13 +34,15 @@ from .. import resolve_device
 from ..kernels import ops as _ops
 from ..kernels.epoch_scan import epoch_scan_plain
 from .applications import Application
-from .dvfs import Governor, MAX_OPP_LEVELS, PerformanceGovernor, padded_ladder
+from .dvfs import (Governor, MAX_OPP_LEVELS, PerformanceGovernor,
+                   padded_ladder, policy_lanes)
 from .power import active_power, idle_power
 from .resources import NOMINAL_FREQ, ResourceDB
 from . import thermal as _thermal
 
 __all__ = ["SimTables", "build_tables", "tables_from_numpy",
-           "epoch_scan_plain", "simulate_torch", "simulate_batch"]
+           "epoch_scan_plain", "simulate_torch", "simulate_batch",
+           "simulate_torch_dtpm", "simulate_batch_dtpm"]
 
 # Frequency domains: one per SoC cluster (0=big, 1=LITTLE, 2=accelerator
 # fabric).  Padded PE slots map to the last (accel) domain, which never moves
@@ -120,7 +126,7 @@ def build_tables(db: ResourceDB, apps: Sequence[Application],
     the OPP-indexed tables the DTPM scan gathers from (per-level latency
     ``exec_opp``, per-level active power, per-domain OPP ladders truncated at
     ``freq_caps``, which defaults to the governor's own).  The static scan
-    never reads them; the DTPM scan is a later slice.
+    refuses such tables; the DTPM scan reads them.
     """
     dev = resolve_device(device)
     governor = governor or PerformanceGovernor()
@@ -261,11 +267,13 @@ def _build_opp_tables(db: ResourceDB, apps: Sequence[Application],
 
 
 def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
-              scheduled, start, finish, onpe) -> Dict[str, torch.Tensor]:
+              scheduled, start, finish, onpe,
+              onopp=None) -> Dict[str, torch.Tensor]:
     """Latency, energy and per-PE busy time of (L, J, T) schedules: the
     reference's post-scan arithmetic (``simkernel_jax.py:533-571``), lanes
     first.  Its sums run in torch's order, not XLA's (tolerance in the tests);
-    the schedule arrays pass through as they are."""
+    the schedule arrays pass through as they are.  ``onopp`` (DTPM) prices
+    each task's busy time at its latched OPP's active power."""
     valid_j = tables.valid[app_idx.long()]                              # (L, J, T)
     busy = torch.where(valid_j, finish - start, 0.0)
     fin_valid = torch.where(valid_j, finish, 0.0)
@@ -276,7 +284,11 @@ def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
     # busy · power of its PE is the reference's busy · onehot · power (the
     # one-hot factor is exactly 1 or 0); per-PE sums one PE at a time keep the
     # order fixed (no atomics) without an (L, J, T, P) one-hot
-    e_active = (busy * tables.power_active[onpe.long()]).sum(dim=(1, 2))
+    if onopp is None:
+        p_task = tables.power_active[onpe.long()]
+    else:
+        p_task = tables.power_active_opp[onpe.long(), onopp.long()]
+    e_active = (busy * p_task).sum(dim=(1, 2))
     busy_per_pe = torch.stack([torch.where(onpe == pe, busy, 0.0).sum(dim=(1, 2))
                                for pe in range(tables.num_pes)], dim=1)  # (L, P)
     e_idle = (tables.power_idle
@@ -297,15 +309,19 @@ def _lanes(tables: SimTables, arrival, app_idx):
     return on_device(arrival, torch.float32), on_device(app_idx, torch.int32)
 
 
+def _check_faults(faults):
+    if faults is not None:
+        raise NotImplementedError("fail-stop faults in the epoch scan are not "
+                                  "ported yet (ROADMAP.md queue 1, item 4)")
+
+
 def _check_static(tables: SimTables, faults):
     if tables.exec_opp is not None:
         # dynamic-built tables bake exec_us at the governor's initial (fmin)
         # OPP — the static scan would return plausible but wrong numbers
-        raise ValueError("tables were built for a dynamic governor; the DTPM "
-                         "scan is not ported yet (ROADMAP.md queue 1, item 3)")
-    if faults is not None:
-        raise NotImplementedError("fail-stop faults in the epoch scan are not "
-                                  "ported yet (ROADMAP.md queue 1, item 4)")
+        raise ValueError("tables were built for a dynamic governor; run "
+                         "them through simulate_torch_dtpm (DESIGN.md §7)")
+    _check_faults(faults)
 
 
 def simulate_batch(tables: SimTables, policy: str, arrival, app_idx,
@@ -326,4 +342,35 @@ def simulate_torch(tables: SimTables, policy: str, arrival, app_idx,
     output dict has the reference's keys and shapes."""
     arrival, app_idx = _lanes(tables, arrival, app_idx)
     out = simulate_batch(tables, policy, arrival[None], app_idx[None], faults)
+    return {k: v[0] for k, v in out.items()}
+
+
+def simulate_batch_dtpm(tables: SimTables, policy: str, arrival, app_idx,
+                        gov, faults=None) -> Dict[str, torch.Tensor]:
+    """Batched closed-loop DTPM simulation: ``arrival`` / ``app_idx`` (L, J),
+    ``gov`` one dynamic ``GovernorPolicy`` for every lane or a sequence of L
+    of them (lanes with different policies share one K1 launch).  The output
+    dict gains ``onopp`` (L, J, T), the OPP index latched per task,
+    ``opp_idx`` (L, C), each domain's final OPP, and ``peak_temp_c`` (L,), the
+    peak of the inline RC loop."""
+    _check_faults(faults)
+    arrival, app_idx = _lanes(tables, arrival, app_idx)
+    lanes = policy_lanes(gov, int(arrival.shape[0]))
+    (scheduled, start, finish, onpe, onopp, opp_idx,
+     peak) = _ops.epoch_scan(tables, policy, arrival, app_idx, gov=lanes)
+    out = _epilogue(tables, arrival, app_idx, scheduled, start, finish, onpe,
+                    onopp)
+    out.update(onopp=onopp, opp_idx=opp_idx, peak_temp_c=peak)
+    return out
+
+
+def simulate_torch_dtpm(tables: SimTables, policy: str, arrival, app_idx,
+                        gov, faults=None) -> Dict[str, torch.Tensor]:
+    """Single closed-loop DTPM simulation under a dynamic governor policy
+    (the twin of ``simulate_jax_dtpm``): windows advance lazily at decision
+    epochs, then drain to the makespan so ``peak_temp_c`` covers the
+    schedule's tail."""
+    arrival, app_idx = _lanes(tables, arrival, app_idx)
+    out = simulate_batch_dtpm(tables, policy, arrival[None], app_idx[None],
+                              [gov], faults)
     return {k: v[0] for k, v in out.items()}

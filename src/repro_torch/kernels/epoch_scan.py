@@ -1,23 +1,44 @@
 """K1, the DS3 epoch scan: hand-written CUDA kernel + its plain PyTorch version.
 
 Replaces ``_epoch_scan`` of ``src/repro/core/simkernel_jax.py`` (``:321``), a
-``lax.scan`` that XLA compiles (no Pallas original), for static governors and
-the ``etf``, ``met`` and ``table`` schedulers.  Each step picks the ready task
-with the least (ready time, job, task), finds its data-ready time on every PE
-from its predecessors' finishes and PEs, lets the policy pick a PE and commits
-the task to that PE's queue.  The kernel is ``csrc/epoch_scan.cu`` (design
-notes at its top): one block of 256 threads per lane, the small tables and the
-per-job done masks in shared memory, the (J, T) schedule in global memory.
+``lax.scan`` that XLA compiles (no Pallas original), for the ``etf``, ``met``
+and ``table`` schedulers, in two programs as the reference's: static
+governors (``gov=None``) and closed-loop DTPM (``gov`` a
+``core.dvfs.PolicyLanes``: ondemand and throttle).  Each step picks the ready
+task with the least (ready time, job, task), finds its data-ready time on
+every PE from its predecessors' finishes and PEs, lets the policy pick a PE
+and commits the task to that PE's queue.  The kernel is ``csrc/epoch_scan.cu``
+(design notes at its top): one block of 256 threads per lane, the small tables
+and the per-job done masks in shared memory, the (J, T) schedule in global
+memory; DTPM is a compile-time variant of it.
 
 ``epoch_scan`` launches the kernel for CUDA tensors or raises; only CPU
 tensors go to ``epoch_scan_plain``.  ``launches`` counts calls, one launch
 each.  Both return ``scheduled``, ``start``, ``finish`` and ``onpe``, each
-(L, J, T), equal bit for bit.
+(L, J, T), and under DTPM also ``onopp`` (L, J, T), ``opp_idx`` (L, C) and
+``peak_temp_c`` (L,), equal bit for bit.
+
+DTPM, the reference's ``_window_step`` (``:271``): before each commit the
+sampling windows that closed by the pick's ready time run (the lazy advance,
+``:471-480``); the pick's latency is then read at its PEs' domain OPPs from
+``exec_opp`` and the commit latches the OPP (``onopp``); after the last commit
+the windows drain to the makespan (``:535-543``).  Stopping at the first empty
+step stays exact: without faults a step that commits nothing sets ``now =
+-BIG`` and advances no window.  A window's sums (per-PE busy time and active
+energy, per-domain CPU busy time) are taken in 64-bit fixed point, each term
+``round(x * 2**s)`` with ``s`` from the lane's window (:func:`quanta`), so
+they are exact integer sums that no order changes: the kernel's and the plain
+version's agree bit for bit (the reference's einsums round in XLA's order;
+the tests hold the port to it within 1e-5).  The node power ``p_pe @
+node_oh`` is a fixed tree over 32 PE slots, the RC step ``A @ temps + B @ u``
+a left-to-right sum of rounded products, in both versions.
 
 Three traps, handled where named:
 * FMA contraction: ``startup + ebytes*inv_bw``, ``mult*base`` and
   ``finish + comm`` are rounded op by op in the reference; the kernel writes
-  them with ``__fmul_rn`` / ``__fadd_rn``, and here each is its own op.
+  them with ``__fmul_rn`` / ``__fadd_rn``, and here each is its own op.  The
+  window step's products and sums are written the same way (never
+  ``torch.matmul``, whose order and fusion on the card are not specified).
 * Ties: the task pick takes the first flat index at the least ready time,
   the PE argmins the first minimum (``torch.argmin``, and the reference's
   ``min(where(tie, flat_order, 2**30))``; never the index of
@@ -28,8 +49,10 @@ Three traps, handled where named:
 from __future__ import annotations
 
 import ctypes
+import math
 import weakref
 
+import numpy as np
 import torch
 
 from . import _build
@@ -39,6 +62,8 @@ POLICIES = ("etf", "met", "table")
 THREADS = 256         # threads per block (csrc/epoch_scan.cu)
 MAX_TASKS = 32        # T: a job's done set is one 32-bit mask
 MAX_SHARED = 232448   # dynamic shared bytes a block may use on Hopper
+MAX_PES_DTPM = 32     # DTPM: a lane of warp 0 per PE, domain and OPP level
+QUANTUM_BITS = 47     # a window's fixed-point term is below 2**47
 
 launches = 0
 _fn = None
@@ -60,16 +85,180 @@ def _check_table(tables, policy: str):
                              f"(table_pe == -1) or one outside 0..{tables.num_pes - 1}")
 
 
-def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
-                     app_idx: torch.Tensor):
-    """The static epoch scan as a Python loop over its six steps, vectorised
-    over lanes.  ``arrival`` (L, J) f32, ``app_idx`` (L, J) int on the tables'
-    device.  Returns (scheduled, start, finish, onpe), each (L, J, T).
+def rc_consts() -> np.ndarray:
+    """The RC step's constants as the reference rounds them, f32: the node
+    capacitances, the ambient drive T_amb / (R_board * C_board), and the
+    ambient temperature the carry starts at.  (``core`` imports this module,
+    so it is imported here at call time.)"""
+    from ..core import thermal
+    return np.array([*np.float32(thermal.C_NODE),
+                     thermal.T_AMBIENT_C / (thermal.R_BOARD_AMB * thermal.C_BOARD),
+                     thermal.T_AMBIENT_C], np.float32)
 
-    In the static, fault-free scan every step commits one task while any is
-    left, so the loop runs the largest count of valid tasks of any lane; a
-    lane with nothing left commits into a spare slot past its last cell and
-    PE, which is dropped at the end (the reference's padding steps).
+
+def quanta(window: torch.Tensor, p_max: float) -> torch.Tensor:
+    """(L, 2) int32 exponents ``(s_busy, s_energy)`` of each lane's window
+    sums: a term ``x`` (an overlap, at most the window; or an overlap times
+    an active power, at most ``window * p_max``) counts as
+    ``round(x * 2**s)``, below ``2**QUANTUM_BITS``.  Tasks on one PE do not
+    overlap, so a PE's window sum stays below ``2**(QUANTUM_BITS + 1)`` (the
+    roundings add at most half a unit a term) and a domain's of at most 32
+    PEs below 2**53: exact in int64 and in a double, in any order."""
+    out = []
+    for w in window.tolist():
+        out.append((QUANTUM_BITS - math.frexp(w)[1],
+                    QUANTUM_BITS - math.frexp(w * p_max)[1]))
+    if any(abs(s) > 126 for pair in out for s in pair):
+        raise ValueError(f"epoch_scan: a window of {window.tolist()} us or an "
+                         f"active power of {p_max} W is out of the f32 range "
+                         "the window sums take")
+    return torch.tensor(out, dtype=torch.int32).reshape(-1, 2)
+
+
+def _check_dtpm(tables, gov, L: int):
+    if tables.exec_opp is None:
+        raise ValueError("tables lack OPP ladders; build them with the "
+                         "dynamic governor (build_tables(governor=...))")
+    if gov.lanes != L:
+        raise ValueError(f"epoch_scan: policies for {gov.lanes} lanes, "
+                         f"{L} lanes of jobs")
+    C, K = tables.opp_freq.shape
+    if max(tables.num_pes, C, K) > MAX_PES_DTPM:
+        raise ValueError(f"epoch_scan: DTPM takes at most {MAX_PES_DTPM} PEs, "
+                         f"domains and OPP levels; have {tables.num_pes}, "
+                         f"{C}, {K}")
+
+
+def fixed_sums(terms: torch.Tensor, scales: torch.Tensor,
+               index: torch.Tensor, bins: int) -> torch.Tensor:
+    """(..., bins) int64 sums of the (..., N) f32 ``terms`` by ``index``, in
+    fixed point: ``round(term * scale)`` each, half to even as the kernel's
+    ``__float2ll_rn``.  Integer adds are exact, so no order of them (the
+    kernel's atomics, torch's scatter) changes a bit."""
+    q = torch.round(terms * scales).long()
+    acc = torch.zeros(q.shape[:-1] + (bins,), dtype=torch.long, device=q.device)
+    return acc.scatter_add_(-1, index.expand_as(q), q)
+
+
+class _Windows:
+    """The DTPM carry of the plain scan, all lanes at once: per-domain OPP
+    index (and its gather per PE), the next window's end, the RC
+    temperatures and their peak.  :meth:`step` runs one sampling window on
+    the lanes of a mask, in the kernel's arithmetic (see the module's
+    docstring).  Every constant is made on the device once: a tensor made
+    from host data on each call would synchronise the stream."""
+
+    def __init__(self, tables, gov, L: int, dev):
+        from ..core import dvfs, thermal
+        self.ondemand_index = dvfs.ondemand_index_torch
+        self.throttle_index = dvfs.throttle_index_torch
+        C, K = tables.opp_freq.shape
+        P = tables.num_pes
+        self.tables, self.K = tables, K
+        self.window = gov.window.to(dev)
+        self.up, self.cap = gov.up.to(dev), gov.cap.to(dev)
+        self.A_rc, self.B_rc = gov.A_rc.to(dev), gov.B_rc.to(dev)
+        q = quanta(gov.window, float(tables.power_active_opp.max())).tolist()
+        # 2**s in f32 (exact) scales a term in; 2**-s in f64 a sum back out
+        self.scales = torch.tensor([[[2.0 ** sb], [2.0 ** se]] for sb, se in q],
+                                   dtype=torch.float32, device=dev)  # (L, 2, 1)
+        self.backs = torch.tensor([[[2.0 ** -sb], [2.0 ** -se]] for sb, se in q],
+                                  dtype=torch.float64, device=dev)
+        rc = torch.from_numpy(rc_consts()).to(dev)
+        self.c_node, self.amb_drive = rc[:3], rc[3:4]
+        self.floor = torch.tensor(np.float32(1e-9), device=dev)
+        self.power_opp = tables.power_active_opp.reshape(-1)         # (P*K,)
+        pe_domain = tables.pe_domain.long()
+        # CPU PEs -> their domain as a 0/1 f64 matrix: the integer busy sums
+        # (each below 2**48, at most 32 of them) add exactly in f64
+        self.cpu_dom = ((pe_domain[:, None] == torch.arange(C, device=dev))
+                        & (tables.pe_is_cpu != 0)[:, None]).double()  # (P, C)
+        node = torch.full((MAX_PES_DTPM,), -1, dtype=torch.long, device=dev)
+        node[:P] = tables.node_of_pe.long()
+        self.node_mask = (node == torch.arange(thermal.NUM_NODES, device=dev)
+                          [:, None]).float()                         # (3, 32)
+        self.pe_domain = pe_domain
+        self.domain_node = tables.domain_node.long()
+        self.opp_idx = torch.zeros((L, C), dtype=torch.long, device=dev)
+        self.opp_pe = self.opp_idx[:, pe_domain]                     # (L, P)
+        self.next_w = self.window.clone()
+        self.temps = torch.full((L, 4), float(rc[4]), device=dev)
+        self.peak = torch.full((L,), float(rc[4]), device=dev)
+
+    def step(self, due, committed, start, finish, onpe, onopp):
+        """One window ``[next_w - window, next_w)`` on the lanes where
+        ``due``; the cells (L, N): ``committed`` (scheduled and valid), their
+        start, finish, PE and latched OPP."""
+        tb, L = self.tables, due.shape[0]
+        window = self.window[:, None]
+        w1 = self.next_w[:, None]
+        ov = torch.minimum(torch.clamp(torch.minimum(finish, w1)
+                                       - torch.maximum(start, w1 - window),
+                                       min=0.0), window)
+        ov = torch.where(committed, ov, 0.0)
+        # exact per-PE sums of busy time and of active energy at the
+        # latched OPP
+        p_cell = self.power_opp[onpe * self.K + onopp]
+        acc = fixed_sums(torch.stack([ov, ov * p_cell], dim=1), self.scales,
+                         onpe[:, None, :], tb.num_pes).double()     # (L, 2, P)
+        busy_pe, e_act = (acc * self.backs).float().unbind(1)         # (L, P)
+        busy_dom = ((acc[:, 0] @ self.cpu_dom) * self.backs[:, 0]).float()
+        # the governor: utilisation -> ondemand proposal
+        util = busy_dom / torch.maximum(window * tb.domain_cpu, self.floor)
+        proposed = self.ondemand_index(tb.opp_freq, tb.num_opp, self.up, util)
+        # realised window power per PE, then per node by a fixed tree over
+        # 32 slots (times 1 or 0: exact), as the kernel's warp shuffles
+        idle_frac = 1.0 - torch.clamp(busy_pe / window, 0.0, 1.0)
+        p_pe = e_act / window + tb.power_idle * idle_frac
+        x = torch.nn.functional.pad(p_pe, (0, MAX_PES_DTPM - tb.num_pes))
+        x = x[:, None, :] * self.node_mask                            # (L, 3, 32)
+        while x.shape[2] > 1:
+            half = x.shape[2] // 2
+            x = x[:, :, :half] + x[:, :, half:]
+        # the exact RC step, each product and sum rounded on its own
+        u = torch.cat([x[:, :, 0] / self.c_node,
+                       self.amb_drive.expand(L, 1)], dim=1)           # (L, 4)
+        temps = _rc_rows(self.A_rc, self.temps) + _rc_rows(self.B_rc, u)
+        peak = torch.maximum(self.peak, temps[:, :3].amax(dim=1))
+        opp = self.throttle_index(proposed, temps[:, self.domain_node], self.cap)
+        self.opp_idx = torch.where(due[:, None], opp, self.opp_idx)
+        self.opp_pe = self.opp_idx[:, self.pe_domain]
+        self.temps = torch.where(due[:, None], temps, self.temps)
+        self.peak = torch.where(due, peak, self.peak)
+        self.next_w = torch.where(due, self.next_w + self.window, self.next_w)
+
+    def advance(self, until, *cells):
+        """Windows while ``until()`` holds on any lane, masked per lane."""
+        while True:
+            due = until()
+            if not bool(due.any()):
+                return
+            self.step(due, *cells)
+
+
+def _rc_rows(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(L, 4, 4) @ (L, 4) as left-to-right sums of rounded products."""
+    prod = M * v[:, None, :]
+    acc = prod[:, :, 0]
+    for k in range(1, M.shape[2]):
+        acc = acc + prod[:, :, k]
+    return acc
+
+
+def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
+                     app_idx: torch.Tensor, gov=None):
+    """The epoch scan as a Python loop over its six steps, vectorised over
+    lanes.  ``arrival`` (L, J) f32, ``app_idx`` (L, J) int on the tables'
+    device; ``gov`` a ``core.dvfs.PolicyLanes`` of L lanes runs the DTPM
+    program.  Returns (scheduled, start, finish, onpe), each (L, J, T), and
+    under DTPM also (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,)).
+
+    Without faults every step commits one task while any is left, so the
+    loop runs the largest count of valid tasks of any lane; a lane with
+    nothing left commits into a spare slot past its last cell and PE, which
+    is dropped at the end (the reference's padding steps).  Under DTPM the
+    windows of each step run until no lane has one due; a lane whose next
+    window is not due is masked.
     """
     _check_policy(policy)
     _check_table(tables, policy)
@@ -79,11 +268,11 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
     L, J = arrival.shape
     T, P = tables.t_max, tables.num_pes
     JT = J * T
+    dtpm = gov is not None
     lanes = torch.arange(L, device=dev)
     pred_j = tables.pred[app_idx]                      # (L, J, T, T)
     ebytes_j = tables.ebytes[app_idx]                  # (L, J, T, T)
     valid_j = tables.valid[app_idx]                    # (L, J, T)
-    exec_j = tables.exec_us[app_idx]                   # (L, J, T, P)
     table_j = tables.table_pe[app_idx].long()          # (L, J, T)
     flat_order = torch.arange(JT, device=dev).view(1, J, T)
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
@@ -96,6 +285,18 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
     start = torch.zeros_like(finish)
     onpe = torch.zeros((L, JT + 1), dtype=torch.long, device=dev)
     pe_free = torch.zeros((L, P + 1), dtype=torch.float32, device=dev)
+    if dtpm:
+        _check_dtpm(tables, gov, L)
+        win = _Windows(tables, gov, L, dev)
+        onopp = torch.zeros_like(onpe)
+        valid_cells = valid_j.view(L, JT)
+        ar_p = torch.arange(P, device=dev)
+
+        def window_cells():
+            return (scheduled[:, :JT] & valid_cells, start[:, :JT],
+                    finish[:, :JT], onpe[:, :JT], onopp[:, :JT])
+    else:
+        exec_j = tables.exec_us[app_idx]               # (L, J, T, P)
 
     def cells(x):
         return x[:, :JT].view(L, J, T)
@@ -117,7 +318,14 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
         # a lane with nothing left has no pick: any in-range index will do
         pick = torch.where(do_commit, pick, 0)
         j, t = pick // T, pick % T
-        ex = exec_j[lanes, j, t]                                    # (L, P)
+        if dtpm:
+            # 3b. the windows closed by this epoch, then latency at the OPPs
+            now = torch.where(do_commit, rmin, -big)
+            win.advance(lambda: win.next_w <= now, *window_cells())
+            ex = tables.exec_opp[app_idx[lanes, j][:, None], t[:, None],
+                                 ar_p, win.opp_pe]                  # (L, P)
+        else:
+            ex = exec_j[lanes, j, t]                                # (L, P)
         # 4. per-PE data-ready with comm from the producer PEs, op by op
         mult = tables.comm_mult[cells(onpe)[lanes, j]]              # (L, T, P)
         base = tables.comm_startup + ebytes_j[lanes, j, t] * tables.comm_inv_bw
@@ -143,8 +351,17 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
         start[lanes, cell] = s0
         onpe[lanes, cell] = pe
         pe_free[lanes, torch.where(do_commit, pe, P)] = f0
-    return (cells(scheduled).contiguous(), cells(start).contiguous(),
-            cells(finish).contiguous(), cells(onpe).to(torch.int32))
+        if dtpm:
+            onopp[lanes, cell] = win.opp_pe[lanes, pe]
+    out = (cells(scheduled).contiguous(), cells(start).contiguous(),
+           cells(finish).contiguous(), cells(onpe).to(torch.int32))
+    if not dtpm:
+        return out
+    # drain the windows between the last decision epoch and the makespan
+    makespan = torch.where(valid_j, cells(finish), 0.0).amax(dim=(1, 2))
+    win.advance(lambda: win.next_w - win.window < makespan, *window_cells())
+    return out + (cells(onopp).to(torch.int32), win.opp_idx.to(torch.int32),
+                  win.peak)
 
 
 def _bits(mask: torch.Tensor) -> torch.Tensor:
@@ -172,6 +389,31 @@ def _prepare(tables, policy: str):
         hit = _prepared[tables] = {"pred_bits": _bits(tables.pred).contiguous(),
                                    "valid_bits": _bits(tables.valid).contiguous(),
                                    "table_ok": set()}
+        if tables.exec_opp is not None:
+            (C, K), i32 = tables.opp_freq.shape, torch.int32
+            shapes = {"exec_opp": (A, T, P, K), "power_active_opp": (P, K),
+                      "num_opp": (C,), "domain_node": (C,), "domain_cpu": (C,),
+                      "pe_domain": (P,), "pe_is_cpu": (P,), "node_of_pe": (P,),
+                      "power_idle": (P,)}
+            for name, shape in shapes.items():
+                if tuple(getattr(tables, name).shape) != shape:
+                    raise ValueError(f"epoch_scan: tables.{name} is "
+                                     f"{tuple(getattr(tables, name).shape)}, "
+                                     f"opp_freq {(C, K)} needs {shape}")
+            # the DTPM tables in the kernel's argument order
+            hit["dtpm"] = [
+                tables.exec_opp.float().contiguous(),
+                tables.power_active_opp.float().contiguous(),
+                tables.opp_freq.float().contiguous(),
+                tables.num_opp.to(i32).contiguous(),
+                tables.domain_node.to(i32).contiguous(),
+                tables.domain_cpu.float().contiguous(),
+                tables.pe_domain.to(i32).contiguous(),
+                tables.pe_is_cpu.float().contiguous(),
+                tables.node_of_pe.to(i32).contiguous(),
+                tables.power_idle.float().contiguous(),
+                torch.from_numpy(rc_consts()).to(tables.exec_opp.device),
+                float(tables.power_active_opp.max())]
     if policy not in hit["table_ok"]:
         _check_table(tables, policy)
         hit["table_ok"].add(policy)
@@ -186,45 +428,58 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
+        fn_dtpm = lib.repro_epoch_scan_dtpm
+        fn_dtpm.restype = ctypes.c_int
+        fn_dtpm.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
         err = lib.repro_epoch_scan_error
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _fn = (fn, err)
+        _fn = (fn, fn_dtpm, err)
     return _fn
 
 
-def shared_bytes(J: int, A: int, T: int, P: int) -> int:
-    """Dynamic shared memory of one block (csrc/epoch_scan.cu's layout)."""
-    words = A * T * P + A * T * T + P * P + 2 * A * T + A + P + 3 * J \
-        + 2 * (THREADS // 32)
+def shared_bytes(J: int, A: int, T: int, P: int, C: int = 0,
+                 K: int = 0) -> int:
+    """Dynamic shared memory of one block (csrc/epoch_scan.cu's layout);
+    ``K`` > 0 (with ``C``) sizes the DTPM variant."""
+    words = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + A + P \
+        + 3 * J + 2 * (THREADS // 32)
+    if K:
+        # window bins (2P int64), per-job latest finish, the OPP and domain
+        # tables, the lane's OPP indices, RC matrices and carry
+        words += 4 * P + J + P * K + C * K + 4 * C + 4 * P + 32 + 9
     return 4 * words
 
 
-def kernel_info(J: int, A: int, T: int, P: int, device=None) -> dict:
+def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
+                K: int = 0) -> dict:
     """Threads per block, resident blocks per SM and dynamic shared bytes of
-    one launch at these sizes."""
+    one launch at these sizes (``K`` > 0: the DTPM variant)."""
     lib = _build.load("epoch_scan")
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        rc = lib.repro_epoch_scan_info(J, A, T, P, out)
+        rc = lib.repro_epoch_scan_info(J, A, T, P, C, K, int(K > 0), out)
     if rc != 0:
-        raise RuntimeError(f"epoch_scan info failed: {_kernel()[1](rc).decode()}")
+        raise RuntimeError(f"epoch_scan info failed: {_kernel()[2](rc).decode()}")
     info = dict(zip(("threads", "blocks_per_sm", "shared_bytes"), out))
     if (info["threads"], info["shared_bytes"]) != (THREADS,
-                                                   shared_bytes(J, A, T, P)):
+                                                   shared_bytes(J, A, T, P, C, K)):
         raise RuntimeError(f"epoch_scan: csrc/epoch_scan.cu's geometry {info} "
                            "differs from epoch_scan.py's")
     return info
 
 
 def epoch_scan(tables, policy: str, arrival: torch.Tensor,
-               app_idx: torch.Tensor):
+               app_idx: torch.Tensor, gov=None):
     """(L, J) lanes of one table set -> (scheduled, start, finish, onpe), each
-    (L, J, T).  CPU tensors take the plain version; CUDA tensors one launch."""
+    (L, J, T), and with ``gov`` (a ``core.dvfs.PolicyLanes`` of L lanes) the
+    DTPM program's (onopp, opp_idx, peak_temp_c) after them.  CPU tensors
+    take the plain version; CUDA tensors one launch."""
     _check_policy(policy)
     dev = tables.exec_us.device
     if dev.type == "cpu":
-        return epoch_scan_plain(tables, policy, arrival, app_idx)
+        return epoch_scan_plain(tables, policy, arrival, app_idx, gov)
     if dev.type != "cuda":
         raise ValueError(f"epoch_scan: no kernel for device {dev}")
     if arrival.device != dev or app_idx.device != dev:
@@ -235,15 +490,19 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
                          f"{tuple(app_idx.shape)}; both (L, J)")
     L, J = arrival.shape
     A, T, P = tables.exec_us.shape
+    C, K = tables.opp_freq.shape if gov is not None else (0, 0)
     if not 1 <= T <= MAX_TASKS:
         raise ValueError(f"epoch_scan: {T} tasks a job; the kernel takes "
                          f"1..{MAX_TASKS}")
     if L == 0 or J == 0:
         raise ValueError("epoch_scan: no lanes or no jobs")
-    if shared_bytes(J, A, T, P) > MAX_SHARED:
+    if gov is not None:
+        _check_dtpm(tables, gov, L)
+    nbytes = shared_bytes(J, A, T, P, C, K)
+    if nbytes > MAX_SHARED:
         raise ValueError(f"epoch_scan: {J} jobs of {T} tasks on {P} PEs need "
-                         f"{shared_bytes(J, A, T, P)} bytes of shared memory a "
-                         f"block; the card has {MAX_SHARED}")
+                         f"{nbytes} bytes of shared memory a block; the card "
+                         f"has {MAX_SHARED}")
     if bool(((app_idx < 0) | (app_idx >= A)).any()):
         raise ValueError(f"epoch_scan: an app index outside 0..{A - 1}")
     prep = _prepare(tables, policy)
@@ -257,19 +516,32 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     start = torch.empty((L, J, T), dtype=torch.float32, device=dev)
     finish = torch.empty_like(start)
     onpe = torch.empty((L, J, T), dtype=torch.int32, device=dev)
-    fn, err = _kernel()
+    static_args = [f32[0], prep["pred_bits"], f32[1], prep["valid_bits"],
+                   f32[2], f32[3], f32[4], table_pe, arrival, app_idx,
+                   scheduled, start, finish, onpe]
+    fn, fn_dtpm, err = _kernel()
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        # one design (D = 1): its L lanes are the (1, S) lane grid
-        rc = fn(f32[0].data_ptr(), prep["pred_bits"].data_ptr(),
-                f32[1].data_ptr(), prep["valid_bits"].data_ptr(),
-                f32[2].data_ptr(), f32[3].data_ptr(), f32[4].data_ptr(),
-                table_pe.data_ptr(), arrival.data_ptr(), app_idx.data_ptr(),
-                scheduled.data_ptr(), start.data_ptr(), finish.data_ptr(),
-                onpe.data_ptr(), 1, L, J, A, T, P, POLICIES.index(policy),
-                stream)
+        if gov is None:
+            # one design (D = 1): its L lanes are the (1, S) lane grid
+            rc = fn(*[t.data_ptr() for t in static_args], 1, L, J, A, T, P,
+                    POLICIES.index(policy), stream)
+            outs = ()
+        else:
+            *dtpm_tables, rc_consts, p_max = prep["dtpm"]
+            lanes = [gov.window, gov.up, gov.cap,
+                     torch.stack([gov.A_rc, gov.B_rc], dim=1),   # (L, 2, 4, 4)
+                     quanta(gov.window, p_max)]
+            lanes = [x.to(dev).contiguous() for x in lanes]
+            outs = (torch.empty((L, J, T), dtype=torch.int32, device=dev),
+                    torch.empty((L, C), dtype=torch.int32, device=dev),
+                    torch.empty((L,), dtype=torch.float32, device=dev))
+            rc = fn_dtpm(*[t.data_ptr() for t in
+                           static_args + dtpm_tables + lanes + [rc_consts]
+                           + list(outs)],
+                         1, L, J, A, T, P, POLICIES.index(policy), C, K, stream)
     if rc != 0:
         raise RuntimeError(f"epoch_scan launch failed: {err(rc).decode()}")
     launches += 1
-    return scheduled, start, finish, onpe
+    return (scheduled, start, finish, onpe) + outs

@@ -146,8 +146,7 @@ class Scenario:
 
         ``policy.dynamic`` selects the kernel branch of the epoch scan:
         static governors bake one OPP into the tables, the ondemand family
-        runs the closed DVFS + thermal loop inside the scan (not yet on the
-        port's ``"torch"`` backend: ROADMAP.md queue 1, item 3).
+        runs the closed DVFS + thermal loop inside the scan.
         """
         return self.make_governor().policy()
 

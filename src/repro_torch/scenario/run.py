@@ -1,8 +1,10 @@
 """``run(scenario, backend=...)`` — one scenario, either kernel.
 
 ``backend="torch"`` (the default) builds the scenario's ``SimTables`` on the
-device, runs the epoch scan (K1 on a CUDA device, its plain version on the
-CPU) and the binned RC peak temperature; ``backend="ref"`` materialises the
+device and runs the epoch scan (K1 on a CUDA device, its plain version on the
+CPU): for a static governor with the binned RC peak temperature, for a
+dynamic one (ondemand, throttle) as the closed DTPM loop whose inline RC
+network gives the peak temperature; ``backend="ref"`` materialises the
 scenario and calls the port's event-heap oracle.  Tables are cached on the
 (frozen, hashable) scenario minus its trace, and on the device, so repeated
 runs over different workloads reuse them.
@@ -87,10 +89,12 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
         trace_override=None, telemetry: Optional[bool] = None) -> Result:
     """Simulate one scenario.
 
-    ``backend="torch"``: the epoch scan on ``device`` for static governors
-    (performance / powersave / userspace / ``"design"``) under met, etf or
-    table, with the binned RC co-simulation's peak temperature.  Dynamic
-    governors, fail-stop faults and telemetry raise
+    ``backend="torch"``: the epoch scan on ``device`` under met, etf or
+    table, for every governor: static ones (performance / powersave /
+    userspace / ``"design"``) bake one OPP into the tables and report the
+    binned RC co-simulation's peak temperature; the ondemand family runs the
+    closed DTPM loop inside the scan and reports the peak temperature of its
+    inline RC feedback.  Fail-stop faults and telemetry raise
     :class:`BackendCapabilityError` (each a later slice).
     ``backend="ref"``: the event-heap reference kernel on the host — all
     governors and fail-stop injection; ``device`` is not read.
@@ -116,12 +120,6 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
                              failures=_faults.ref_failures(scenario.failures))
         return Result.from_ref(scenario, db, res)
 
-    if scenario.make_policy().dynamic:
-        raise BackendCapabilityError(
-            f"the dynamic governor {scenario.governor!r}", "torch",
-            "backend='ref'",
-            detail="closed-loop DTPM in the epoch scan is not ported yet "
-                   "(ROADMAP.md queue 1, item 3)")
     # no-op fault specs (empty / all-inf) normalise to plan=None: the
     # fault-free program, as in the reference
     if _faults.fault_plan(scenario.failures, scenario.design.num_pes) is not None:
@@ -132,11 +130,18 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
     dev = resolve_device(device)
     tables = tables_for(scenario, device=dev)
     trace = trace_override or scenario.job_trace()
-    out = _torchk.simulate_torch(tables, scenario.scheduler, trace.arrival_us,
-                                 trace.app_index)
-    peak = _peak_temp_single(out, _cached_nodes(scenario.design, dev),
-                             tables.power_active, tables.power_idle,
-                             bins=scenario.thermal.bins,
-                             repeats=scenario.thermal.repeats)
+    pol = scenario.make_policy()
+    if pol.dynamic:
+        out = _torchk.simulate_torch_dtpm(tables, scenario.scheduler,
+                                          trace.arrival_us, trace.app_index,
+                                          pol)
+        peak = out["peak_temp_c"]
+    else:
+        out = _torchk.simulate_torch(tables, scenario.scheduler,
+                                     trace.arrival_us, trace.app_index)
+        peak = _peak_temp_single(out, _cached_nodes(scenario.design, dev),
+                                 tables.power_active, tables.power_idle,
+                                 bins=scenario.thermal.bins,
+                                 repeats=scenario.thermal.repeats)
     return Result.from_torch(scenario, out, scenario.design.num_pes,
                              float(peak))

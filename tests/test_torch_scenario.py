@@ -1,6 +1,7 @@
 """``repro_torch.scenario.run`` against ``repro.scenario.run``: the static
-cases of tests/test_scenario.py on the CPU, the ref backend, the RC thermal
-pipeline, and what the port's ``"torch"`` backend refuses for now.
+cases of tests/test_scenario.py on the CPU, the dynamic governors, the ref
+backend, the RC thermal pipeline, and what the port's ``"torch"`` backend
+refuses for now.
 
 Tolerances: Result floats 1e-6 relative (latency, energy and utilization are
 sums XLA and torch take in different orders; makespan is exact), peak
@@ -129,9 +130,29 @@ def test_default_scenario_runs_on_the_cpu_and_tables_are_cached():
     assert hash(Scenario()) == hash(Scenario().replace())
 
 
+@pytest.mark.parametrize("governor", ["ondemand", "throttle"])
+def test_run_torch_runs_dynamic_governors(governor):
+    """The closed DTPM loop on the "torch" backend: the same Result as the
+    JAX package's, peak temperature from the inline RC loop (the window sums
+    and the RC matrices round in another order: energy and power 1e-5)."""
+    tscn, jscn = pair(SCN, governor=governor)
+    got = run(tscn, backend="torch", device="cpu")
+    want = jrun(jscn, backend="jax")
+    assert got.backend == "torch" and want.backend == "jax"
+    assert got.makespan_us == want.makespan_us
+    for name, tol in (("avg_latency_us", 1e-6),
+                      ("throughput_jobs_per_ms", 1e-6), ("energy_j", 1e-5),
+                      ("avg_power_w", 1e-5), ("peak_temp_c", 1e-5)):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   rtol=tol, atol=0, err_msg=name)
+    np.testing.assert_allclose(got.utilization, want.utilization, rtol=1e-6,
+                               atol=1e-12)
+    for key in EXACT + ("onopp", "opp_idx"):
+        np.testing.assert_array_equal(got.raw[key].numpy(),
+                                      np.asarray(want.raw[key]), err_msg=key)
+
+
 @pytest.mark.parametrize("change,match", [
-    (dict(governor="ondemand"), "item 3"),
-    (dict(governor="throttle"), "item 3"),
     (dict(failures=(FaultSpec(0, 100.0),)), "item 4"),
     (dict(telemetry=True), "item 9"),
 ])

@@ -3,6 +3,7 @@
 
     python3 tools/epoch_scan_ab.py [SRC_DIR] [--rates 32] [--seeds 32]
         [--jobs 1000] [--check-every 16] [--verbose] [--sweep]
+        [--governor ondemand|throttle]
 
 Builds the kernels of ``SRC_DIR`` (default: this checkout's ``src``; with
 ``--verbose`` prints ptxas's report of ``epoch_scan_kernel``), then for each
@@ -15,8 +16,15 @@ per launch (CUDA events around one launch, median of 5 after one warm-up),
 scheduled tasks per second, resident blocks per SM, and the byte bound (the
 tables and the (L, J) lanes read once, the (L, J, T) schedule written once, at
 3.35 TB/s).  ``--sweep`` instead times one lane per SM at J = 80 and 1000 and
-rates 1 ... 80 jobs/ms (see ``sweep``).  Two versions are compared inside ONE
-job on one card, in turns:
+rates 1 ... 80 jobs/ms (see ``sweep``).  ``--governor`` runs K1's DTPM variant
+instead of the static one (ondemand with its defaults; throttle with a 27 C
+cap and a 0.05 s RC step, as ``benchmarks/bench_dtpm.py`` sets them): the
+grid prints windows a lane beside the steps, its check takes every
+``check-every``-th lane of the highest rate only (the plain loop runs the
+longest checked lane's windows, ~20,000 at 1 job/ms), and ``--sweep`` prints
+a lone block's µs per step (the static kernel on the same lanes) and µs per
+window (what DTPM adds, over the windows of a lane).  Two versions are
+compared inside ONE job on one card, in turns:
 
     for t in parent/src src src parent/src; do python3 tools/epoch_scan_ab.py $t; done
 
@@ -36,6 +44,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PEAK_BYTES_S = 3.35e12      # H100 SXM data sheet
 APPS5 = ("wifi_tx", "wifi_rx", "single_carrier", "range_detection",
          "pulse_doppler")
+# the DTPM cells: governor -> governor_params
+GOVERNORS = {"ondemand": (),
+             "throttle": (("thermal_cap_c", 27.0), ("thermal_dt_s", 0.05))}
 
 
 def launch_ms(fn, iters: int = 5) -> float:
@@ -65,6 +76,8 @@ def main():
     ap.add_argument("--sweep", action="store_true",
                     help="per-step time of K1 with one lane per SM, by jobs "
                          "and rate, instead of the A/B run")
+    ap.add_argument("--governor", choices=sorted(GOVERNORS),
+                    help="run K1's DTPM variant under this governor")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("epoch_scan_ab.py: no CUDA device")
@@ -75,6 +88,8 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels import epoch_scan as k1
     from repro_torch.scenario import Scenario, tables_for
+    if args.governor:                      # trees before DTPM lack it
+        from repro_torch.core.dvfs import policy_lanes
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -89,7 +104,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     if args.sweep:
-        return sweep(dev, smi)
+        return sweep(dev, smi, args.governor)
     traces = [poisson_trace(float(r), args.jobs, APPS5, seed=s)
               for r in np.linspace(1.0, 80.0, args.rates)
               for s in range(args.seeds)]
@@ -97,60 +112,108 @@ def main():
     app_idx = torch.from_numpy(np.stack([t.app_index for t in traces])).to(dev)
     L, J = arrival.shape
     base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5)
+    gov_name = args.governor
+    if gov_name:
+        base = base.replace(governor=gov_name,
+                            governor_params=GOVERNORS[gov_name])
+    pol = base.make_policy() if gov_name else None
+    out_keys = ("scheduled", "start", "finish", "onpe")
+    if gov_name:
+        out_keys += ("onopp", "opp_idx", "peak_temp_c")
     for policy in ("etf", "met", "table"):
         tables = tables_for(base.replace(scheduler=policy), device=dev)
         A, T, P = tables.exec_us.shape
-        info = k1.kernel_info(J, A, T, P, dev)
-        out = simkernel_torch.simulate_batch(tables, policy, arrival, app_idx)
+        C, K = tables.opp_freq.shape if gov_name else (0, 0)
+        # a parent tree's K1 takes neither C, K nor gov=
+        dtpm_kw = {"C": C, "K": K} if gov_name else {}
+        info = k1.kernel_info(J, A, T, P, dev, **dtpm_kw)
+        launch_kw = {"gov": policy_lanes(pol, L)} if gov_name else {}
+        if gov_name:
+            out = simkernel_torch.simulate_batch_dtpm(tables, policy, arrival,
+                                                      app_idx, pol)
+        else:
+            out = simkernel_torch.simulate_batch(tables, policy, arrival,
+                                                 app_idx)
         torch.cuda.synchronize()
         if not bool(out["scheduled"].all()):
             raise AssertionError(f"{policy}: a task was left unscheduled")
         check = ""
         if args.check_every:
-            lanes = torch.arange(0, L, args.check_every, device=dev)
+            # DTPM: the highest rate's lanes only (fewest windows)
+            first = L - args.seeds if gov_name else 0
+            lanes = torch.arange(first, L, args.check_every, device=dev)
+            sub = [policy_lanes(pol, len(lanes))] if gov_name else []
             t0 = time.perf_counter()
             plain = k1.epoch_scan_plain(tables, policy, arrival[lanes],
-                                        app_idx[lanes])
+                                        app_idx[lanes], *sub)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-            for key, want in zip(("scheduled", "start", "finish", "onpe"), plain):
+            for key, want in zip(out_keys, plain):
                 if not torch.equal(out[key][lanes], want):
                     raise AssertionError(f"{policy}: K1 and the plain scan "
                                          f"differ in {key}")
             check = (f"; {len(lanes)} lanes = plain bit for bit (plain "
                      f"{plain_s:.3f} s)")
-        ms = launch_ms(lambda: k1.epoch_scan(tables, policy, arrival, app_idx))
+        ms = launch_ms(lambda: k1.epoch_scan(tables, policy, arrival, app_idx,
+                                             **launch_kw))
         per_lane = tables.valid[app_idx.long()].sum(dim=(1, 2))
         tasks, steps = int(per_lane.sum()), int(per_lane.max())
         nbytes = (4 * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
                   + 8 * L * J + 13 * L * J * T)
+        windows = ""
+        if gov_name:
+            nbytes += 4 * L * J * T              # the latched OPPs
+            w = windows_per_lane(out["makespan_us"], pol.sample_window_us)
+            windows = (f", {float(w.float().mean()):.0f} windows a lane on "
+                       f"average, {int(w.max())} at most")
         bound = 1e3 * nbytes / PEAK_BYTES_S
-        print(f"{policy}: L={L} J={J} T={T} P={P}: K1 {ms:.4f} ms a launch, "
+        print(f"{policy}{'/' + gov_name if gov_name else ''}: L={L} J={J} "
+              f"T={T} P={P}: K1 {ms:.4f} ms a launch, "
               f"{tasks / (ms * 1e-3):.4g} tasks/s, {1e3 * ms / steps:.3f} us "
-              f"per step of the longest lane, {info['blocks_per_sm']} blocks/SM, "
-              f"{info['shared_bytes']} B shared, bound {bound:.5f} ms (bytes)"
-              f"{check}", flush=True)
+              f"per step of the longest lane{windows}, {info['blocks_per_sm']} "
+              f"blocks/SM, {info['shared_bytes']} B shared, bound {bound:.5f} "
+              f"ms (bytes){check}  [{smi}]", flush=True)
 
 
-def sweep(dev, smi):
+def windows_per_lane(makespan_us, window_us: float):
+    """Sampling windows a DTPM lane runs: they advance to the makespan and
+    one past it (floor(makespan / window) + 1; f32 sums of the window may
+    move the last by one)."""
+    return (makespan_us.double() / window_us).floor().long() + 1
+
+
+def sweep(dev, smi, gov_name=None):
     """What a scan step costs, by how much a step walks: one lane per SM (so
     no block shares its SM), etf, J = 80 and 1000 jobs at 1 ... 80 jobs/ms.
     Jobs in the system (rate x mean latency, Little's law) is how many open
     jobs a step's walk visits on average; a step that costs the same at any
     load is bound by its fixed serial part (two barriers, warp 0's reduction
-    and its dependent loads), one that grows with load by the walk."""
+    and its dependent loads), one that grows with load by the walk.
+
+    With ``gov_name`` every lane runs one trace (seed 0), so the launch is
+    one lane's chain: the static kernel on the static tables gives µs per
+    step, and the DTPM kernel's extra time over that lane's windows µs per
+    window (warp 0 runs a window while the block waits)."""
     from repro_torch.core import simkernel_torch
     from repro_torch.core.jobgen import poisson_trace
     from repro_torch.dse import DesignPoint
     from repro_torch.kernels import epoch_scan as k1
     from repro_torch.scenario import Scenario, tables_for
+    if gov_name:
+        from repro_torch.core.dvfs import policy_lanes
 
     L = torch.cuda.get_device_properties(dev).multi_processor_count
-    tables = tables_for(Scenario(design=DesignPoint(num_vit=1), apps=APPS5),
-                        device=dev)
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5)
+    tables = tables_for(base, device=dev)
+    if gov_name:
+        dyn = base.replace(governor=gov_name, governor_params=GOVERNORS[gov_name])
+        pol = dyn.make_policy()
+        dyn_tables = tables_for(dyn, device=dev)
+        lanes_pol = policy_lanes(pol, L)
     for J in (80, 1000):
         for rate in (1.0, 10.0, 20.0, 40.0, 80.0):
-            traces = [poisson_trace(rate, J, APPS5, seed=s) for s in range(L)]
+            seeds = [0] * L if gov_name else range(L)
+            traces = [poisson_trace(rate, J, APPS5, seed=s) for s in seeds]
             arrival = torch.from_numpy(
                 np.stack([t.arrival_us for t in traces])).to(dev)
             app_idx = torch.from_numpy(
@@ -159,9 +222,20 @@ def sweep(dev, smi):
             in_system = rate * 1e-3 * float(out["avg_job_latency_us"].mean())
             steps = float(tables.valid[app_idx.long()].sum(dim=(1, 2)).max())
             ms = launch_ms(lambda: k1.epoch_scan(tables, "etf", arrival, app_idx))
+            extra = ""
+            if gov_name:
+                dout = simkernel_torch.simulate_batch_dtpm(
+                    dyn_tables, "etf", arrival, app_idx, pol)
+                windows = int(windows_per_lane(dout["makespan_us"],
+                                               pol.sample_window_us).max())
+                ms_d = launch_ms(lambda: k1.epoch_scan(
+                    dyn_tables, "etf", arrival, app_idx, gov=lanes_pol))
+                extra = (f"; {gov_name}: K1 {ms_d:.4f} ms, {windows} windows, "
+                         f"{1e3 * (ms_d - ms) / windows:.3f} us a window over "
+                         f"the static steps")
             print(f"sweep: L={L} J={J} rate={rate:g}/ms: K1 {ms:.4f} ms, "
                   f"{1e3 * ms / steps:.3f} us a step, {in_system:.1f} jobs in "
-                  f"the system (rate x latency)  [{smi}]", flush=True)
+                  f"the system (rate x latency){extra}  [{smi}]", flush=True)
 
 
 if __name__ == "__main__":
