@@ -76,9 +76,31 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            scheduler, K1 timed as above, windows a lane printed, two lanes
            (seed 0 of the middle and of the highest rate: the plain loop
            pays each checked lane's windows) equal to the plain scan.  The
-           host oracle runs at 20 and 60 jobs/ms only.  K1's SASS, both
-           instantiations, holds no FFMA.  Launch counts are
-           set to 0 before each part and must be exact (10, 3, 18, 1, 2, 6).
+           host oracle runs at 20 and 60 jobs/ms only.  Then fail-stop
+           faults through K1's two faulted instantiations: (a) wifi_tx x
+           {etf, met} at 2, 20, 60 jobs/ms, 80 jobs, through
+           ``run(backend="torch")``, with one fault mid-trace, one at t = 0,
+           two faults, two simultaneous ones, every accelerator lost, and an
+           FFT accelerator lost between two arrivals:
+           equal to the plain scan bit for bit (every output, steps and
+           commits included), within 1e-4 / 1e-3 of ``backend="ref"``, and on
+           the comm-free ``deterministic_trace(25, 48)`` equal to the
+           event-heap oracle on finish, start and PE, with at least one
+           skipped step (a stale pick); (b) the five-app mix on
+           ``DesignPoint(num_vit=1)``, 1,024 lanes = 16 fault sets (none, and
+           each of the 15 PEs lost at the lane's arrival of job 500) x 8
+           rates x 8 seeds of 1,000 jobs, one faulted launch per scheduler
+           (etf, met), timed as above, with re-commits, steps against the
+           cap and memory printed; its fault-free lanes equal a fault-free
+           launch of the same 64 traces, and two lanes (80 jobs/ms seed 0:
+           the lost PE with the most re-commits, and fault-free) equal the
+           plain scan; (c) the cases of (a) under ondemand and throttle
+           through K1's DTPM-with-faults instantiation, then the grid of (b)
+           under ondemand per scheduler, two lanes checked (schedule,
+           ``onopp``, ``opp_idx``, steps and commits bit for bit, peak and
+           energy within 1e-5).  K1's SASS, all four instantiations, holds
+           no FFMA.  Launch counts are set to 0 before each part and must be
+           exact, by instantiation (10, 3, 18, 1, 2, 6, 36, 12, 2 + 2, 72, 2).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -133,7 +155,9 @@ from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
-from repro_torch.scenario import Scenario, TraceSpec, run, tables_for  # noqa: E402
+from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
+                                  pe_loss_faults, run, tables_for)
+from repro_torch.scenario.faults import fault_scan_steps  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -1017,32 +1041,63 @@ SCAN_RATES, SCAN_SEEDS, SCAN_JOBS, CHECK_EVERY = 32, 32, 1000, 16
 DTPM_GOVERNORS = {"ondemand": (),
                   "throttle": (("thermal_cap_c", 27.0), ("thermal_dt_s", 0.05))}
 DTPM_EXACT = SCAN_OUT + ("onopp", "opp_idx", "job_finish", "makespan_us")
+# faults: the full grid's traces (rates x seeds), each under 16 fault sets
+FAULT_RATES, FAULT_SEEDS = 8, 8
+
+
+# K1's four instantiations, (DTPM, FAULTS) -> the name of its `kernels` entry
+K1_VARIANTS = {(False, False): "epoch_scan", (True, False): "epoch_scan_dtpm",
+               (False, True): "epoch_scan_faults",
+               (True, True): "epoch_scan_dtpm_faults"}
 
 
 def counts_zero():
     for mod in KERNELS.values():
         mod.launches = 0
+    for key in k1.variant_launches:
+        k1.variant_launches[key] = 0
 
 
 def counts():
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-def scan_plain_outputs(tables, policy, arrival, app_idx, gov=None):
+def k1_counts():
+    """K1's launches by instantiation since the last counts_zero()."""
+    return {K1_VARIANTS[key]: n for key, n in k1.variant_launches.items()}
+
+
+def scan_plain_outputs(tables, policy, arrival, app_idx, gov=None, faults=None):
     """K1's plain version and the shared epilogue on the same lanes; ``gov``
-    (one policy or one per lane) runs the DTPM program."""
+    (one policy or one per lane) runs the DTPM program, ``faults`` ((L, P)
+    fail times) the fail-stop one."""
     arrival = torch.as_tensor(arrival, device=DEV)
     app_idx = torch.as_tensor(app_idx, device=DEV, dtype=torch.int32)
     if arrival.ndim == 1:
         arrival, app_idx = arrival[None], app_idx[None]
-    if gov is None:
-        scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx)
-        return simkernel_torch._epilogue(tables, arrival, app_idx, *scan)
-    scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx,
-                               policy_lanes(gov, arrival.shape[0]))
-    out = simkernel_torch._epilogue(tables, arrival, app_idx, *scan[:5])
-    out.update(zip(("onopp", "opp_idx", "peak_temp_c"), scan[4:]))
+    if faults is not None:
+        faults = torch.as_tensor(faults, device=DEV)
+    lanes = None if gov is None else policy_lanes(gov, arrival.shape[0])
+    scan = k1.epoch_scan_plain(tables, policy, arrival, app_idx, lanes, faults)
+    out = simkernel_torch._epilogue(tables, arrival, app_idx, *scan[:4],
+                                    *scan[4:5] if gov is not None else ())
+    if gov is not None:
+        out.update(zip(("onopp", "opp_idx", "peak_temp_c"), scan[4:7]))
+    if faults is not None:
+        out.update(steps=scan[-1][:, 0], commits=scan[-1][:, 1])
     return out
+
+
+def lane_outputs(tables, arrival, app_idx, scan_out: dict, k: int) -> dict:
+    """Lane k of a batched plain scan's outputs, its epilogue taken on that
+    lane alone (so its sums run in the order of a one-lane call's)."""
+    one = {key: v[k:k + 1] for key, v in scan_out.items()}
+    arr = torch.as_tensor(arrival[k:k + 1], device=DEV)
+    app = torch.as_tensor(app_idx[k:k + 1], device=DEV, dtype=torch.int32)
+    one.update(simkernel_torch._epilogue(tables, arr, app, one["scheduled"],
+                                         one["start"], one["finish"], one["onpe"],
+                                         one.get("onopp")))
+    return one
 
 
 def assert_bits_equal(got: dict, want: dict, keys, what: str):
@@ -1058,36 +1113,43 @@ def assert_bits_equal(got: dict, want: dict, keys, what: str):
 def no_fma_in_k1():
     """ptxas may contract a*b+c into FFMA; the scan's contractible spots are
     written with __fmul_rn/__fadd_rn and the DTPM kernel's divisions refine
-    in f64 (``div_rn``), so neither instantiation's SASS holds an FFMA.
-    Returns per instantiation its counts of FMUL+FADD and of DFMA."""
+    in f64 (``div_rn``), so no instantiation's SASS holds an FFMA.  Returns
+    per instantiation (named as in the `kernels` line) its counts of
+    FMUL+FADD, of DFMA and of all instructions."""
     tool = Path(shutil.which(_build.nvcc())).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build.build_all()["epoch_scan"])],
-                          capture_output=True, text=True, check=True).stdout
+    libs = _build.build_all()
+    sass = "".join(subprocess.run([str(tool), "-sass", str(libs[name])],
+                                  capture_output=True, text=True, check=True).stdout
+                   for name in ("epoch_scan", "epoch_scan_faults"))
+    mangled = {f"epoch_scan_kernelILb{int(d)}ELb{int(f)}E": name
+               for (d, f), name in K1_VARIANTS.items()}
     found = {}
     for part in sass.split("Function : ")[1:]:
         name, *lines = part.splitlines()
-        kind = ("static" if "epoch_scan_kernelILb0E" in name else
-                "dtpm" if "epoch_scan_kernelILb1E" in name else None)
+        kind = next((v for m, v in mangled.items() if m in name), None)
         if kind is None:
             continue
         n = sum("FFMA" in ln for ln in lines)
         if n:
             raise AssertionError(f"epoch_scan_kernel ({kind})'s SASS holds {n} FFMA")
         found[kind] = {"fmul_fadd": sum("FMUL" in ln or "FADD" in ln for ln in lines),
-                       "dfma": sum("DFMA" in ln for ln in lines)}
-    if set(found) != {"static", "dtpm"}:
+                       "dfma": sum("DFMA" in ln for ln in lines),
+                       "instructions": sum(ln.strip().startswith("/*") and "*/" in ln
+                                           and ";" in ln for ln in lines)}
+    if set(found) != set(K1_VARIANTS.values()):
         raise AssertionError(f"epoch_scan's SASS: kernels {sorted(found)}, "
-                             "expected the static and the DTPM one")
+                             f"expected {sorted(K1_VARIANTS.values())}")
     return found
 
 
-def scan_bound_ms(tables, L, J, dtpm=False):
+def scan_bound_ms(tables, L, J, dtpm=False, faults=False):
     """Bytes only: the tables and the (L, J) lanes read once, the (L, J, T)
     schedule written once (bool, f32, f32, i32), at the memory rate; under
     DTPM also the OPP tables, the per-lane policies (window, up, cap, the RC
     matrices, two exponents) and the latched OPPs (L, J, T), final OPPs and
-    peaks.  The scan itself is a chain of dependent steps, and under DTPM of
-    windows, that no rate bounds."""
+    peaks; with faults also the (L, P) plans read once, the (L, J, T) floor
+    written once and the (L, 2) counts.  The scan itself is a chain of
+    dependent steps, and under DTPM of windows, that no rate bounds."""
     A, T, P = tables.exec_us.shape
     table_bytes = 4 * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
     nbytes = table_bytes + 8 * L * J + 13 * L * J * T
@@ -1095,6 +1157,8 @@ def scan_bound_ms(tables, L, J, dtpm=False):
         C, K = tables.opp_freq.shape
         nbytes += 4 * (A * T * P * (K - 1) + P * K + C * K + 3 * C + 4 * P
                        + 37 * L + L * J * T + L * C + L)
+    if faults:
+        nbytes += 4 * (L * P + L * J * T + 2 * L)
     return 1e3 * nbytes / PEAK_BYTES_S
 
 
@@ -1153,10 +1217,10 @@ def phase_scenario(smi: str):
         f"(80 jobs) through run(backend='torch') and the comm-free etf case: "
         f"K1 = plain bit for bit (every output), vs backend='ref' within "
         f"1e-4 / 1e-3, comm-free schedule = the event-heap oracle; launches "
-        f"{small_counts['epoch_scan']}; SASS: 0 FFMA in both kernels; static "
-        f"{sass['static']['fmul_fadd']} FMUL/FADD, DTPM "
-        f"{sass['dtpm']['fmul_fadd']} FMUL/FADD and {sass['dtpm']['dfma']} "
-        f"DFMA (its divisions' f64 refinement)")
+        f"{small_counts['epoch_scan']}; SASS: 0 FFMA in all four kernels; "
+        + "; ".join(f"{name} {c['fmul_fadd']} FMUL/FADD, {c['dfma']} DFMA, "
+                    f"{c['instructions']} instructions" for name, c in sass.items())
+        + " (DFMA: the DTPM divisions' f64 refinement)")
 
     # -- full size: the paper's five-app mix, 1,024 lanes of 1,000 jobs
     rates = np.linspace(1.0, 80.0, SCAN_RATES)
@@ -1170,6 +1234,7 @@ def phase_scenario(smi: str):
               for p in ("etf", "met", "table")}
     T, P = tables["etf"].t_max, tables["etf"].num_pes
     info = k1.kernel_info(J, len(APPS5), T, P, DEV)
+    info_f = k1.kernel_info(J, len(APPS5), T, P, DEV, faults=True)
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     counts_zero()
     outs = {}
@@ -1233,18 +1298,29 @@ def phase_scenario(smi: str):
         entry[f"held_bytes_{policy}"] = out["held_bytes"]
         entry.setdefault("max_abs_err", err)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    log(f"[scenario] K1: {info['threads']} threads a block, "
-        f"{info['shared_bytes']} bytes of shared memory, "
-        f"{info['blocks_per_sm']} blocks per SM ({info['blocks_per_sm'] * sms} "
-        f"resident on {sms} SMs) for {L} lanes")
+    for name, inf in (("K1", info), ("K1 faults", info_f)):
+        log(f"[scenario] {name}: {inf['threads']} threads a block, "
+            f"{inf['registers']} registers and {inf['local_bytes']} local bytes "
+            f"a thread, {inf['shared_bytes']} bytes of shared memory, "
+            f"{inf['blocks_per_sm']} blocks per SM ({inf['blocks_per_sm'] * sms} "
+            f"resident on {sms} SMs) for {L} lanes")
     entry.update(ms=entry["ms_etf"], plain_ms=1e3 * entry[f"plain_s_{len(checked)}_lanes_etf"],
                  plain_note=f"etf, the plain loop over {len(checked)} of the {L} lanes",
                  bound_ms=scan_bound_ms(tables["etf"], L, J), bound_by="bytes",
                  library_ms=None,
                  library_note="no PyTorch call computes the scan")
-    dtpm_launches = phase_scenario_dtpm(smi, entry, traces, arrival, app_idx)
-    return entry, small_counts["epoch_scan"] + full_counts["epoch_scan"] \
-        + dtpm_launches
+    entries = {"epoch_scan": entry}
+    entries["epoch_scan_dtpm"], dtpm_launches = phase_scenario_dtpm(
+        smi, entry, traces, arrival, app_idx)
+    launches = {"epoch_scan": small_counts["epoch_scan"] + full_counts["epoch_scan"],
+                "epoch_scan_dtpm": dtpm_launches}
+    faulted = phase_scenario_faults(smi)
+    for name, (ent, n) in faulted.items():
+        if name in entries:          # fault-free launches of the fault phase
+            launches[name] += n
+        else:
+            entries[name], launches[name] = ent, n
+    return entries, launches
 
 
 def assert_dtpm_equal(got: dict, want: dict, what: str) -> float:
@@ -1259,12 +1335,14 @@ def assert_dtpm_equal(got: dict, want: dict, what: str) -> float:
 
 
 @torch.no_grad()
-def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx) -> int:
+def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx):
     """Closed-loop DTPM through K1's DTPM variant: (a) small cases through
     run(), (b) one launch of lanes with different policies, (c) the comm-free
     integer trace against the event-heap oracle, (d) the full grid under
-    ondemand and throttle.  Adds to ``entry``; returns K1's launches."""
+    ondemand and throttle.  Returns the DTPM instantiation's `kernels` entry
+    and its launches."""
     t_phase = time.perf_counter()
+    dent = {}
     # (a) ondemand and throttle x etf/met/table x 2, 20, 60 jobs/ms, 80 jobs
     small = [(g, p, r) for g in DTPM_GOVERNORS for p in ("etf", "met", "table")
              for r in (2.0, 20.0, 60.0)]
@@ -1376,8 +1454,8 @@ def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx) -> int:
             torch.cuda.synchronize()
             out["held_bytes"] = torch.cuda.max_memory_allocated() - held
             outs[gov, policy] = (scn, tb, out)
-    if counts()["epoch_scan"] != 2 * 3:
-        raise AssertionError(f"DTPM (full): launches {counts()}, expected 6")
+    if counts()["epoch_scan"] != 2 * 3 or k1_counts()["epoch_scan_dtpm"] != 6:
+        raise AssertionError(f"DTPM (full): launches {k1_counts()}, expected 6")
     n_launches += 6
     # the plain loop runs its longest lane's steps (~6,800 here, ~1 ms each)
     # and one masked window step for each window of each of its lanes (they
@@ -1424,17 +1502,347 @@ def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx) -> int:
             f"{out['held_bytes'] / 2 ** 20:.1f} MiB; plain {plain_s:.3f} s for "
             f"lanes {checked.tolist()} (seed 0 at {check_rates} jobs/ms; = K1 "
             f"bit for bit); byte bound {bound:.5f} ms  [{smi}]")
-        entry[f"ms_{gov}_{policy}"] = ms
-        entry[f"plain_s_{len(checked)}_lanes_{gov}_{policy}"] = plain_s
-        entry[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)
-        entry[f"windows_mean_{gov}_{policy}"] = float(windows.mean())
-        entry[f"bound_ms_{gov}_{policy}"] = bound
+        dent[f"ms_{gov}_{policy}"] = ms
+        dent[f"plain_s_{len(checked)}_lanes_{gov}_{policy}"] = plain_s
+        dent[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)
+        dent[f"windows_mean_{gov}_{policy}"] = float(windows.mean())
+        dent[f"bound_ms_{gov}_{policy}"] = bound
     log(f"[scenario] K1 DTPM: {info['threads']} threads a block, "
-        f"{info['shared_bytes']} bytes of shared memory, {info['blocks_per_sm']} "
-        f"blocks per SM for {L} lanes; the DTPM part took "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    return n_launches
+        f"{info['registers']} registers and {info['local_bytes']} local bytes a "
+        f"thread, {info['shared_bytes']} bytes of shared memory, "
+        f"{info['blocks_per_sm']} blocks per SM for {L} lanes; the DTPM part "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    dent.update(shape=entry["shape"] + ", ondemand", ms=dent["ms_ondemand_etf"],
+                plain_ms=1e3 * dent[f"plain_s_{len(checked)}_lanes_ondemand_etf"],
+                plain_note=f"ondemand etf, the plain loop over {len(checked)} of "
+                           f"the {L} lanes",
+                bound_ms=dent["bound_ms_ondemand_etf"], bound_by="bytes",
+                library_ms=None, library_note="no PyTorch call computes the scan",
+                max_abs_err=err)
+    return dent, n_launches
+
+
+def small_fault_sets(trace, db) -> dict:
+    """The small cases' fault sets, as (pe_id, fail time) at the trace's own
+    arrivals (f32): one fault mid-trace, one at t = 0, two faults, two
+    simultaneous ones, every accelerator lost mid-trace, and an FFT
+    accelerator lost between two arrivals (on the comm-free trace the first
+    epoch past that fail time picks a task whose pred the rollback takes: a
+    skipped step)."""
+    a = trace.arrival_us
+    J = len(a)
+
+    def at(k):
+        return float(np.float32(a[k]))
+    accel = [j for j, pe in enumerate(db.pes) if not pe.is_cpu]
+    return {"mid": ((0, at(J // 2)),),
+            "t0": ((1, 0.0),),
+            "two": ((0, at(J // 3)), (4, at(2 * J // 3))),
+            "simultaneous": ((0, at(J // 2)), (2, at(J // 2))),
+            "accelerators": tuple((p, at(J // 2)) for p in accel),
+            "between": ((10, float(np.float32((a[J // 2] + a[J // 2 + 1]) / 2))),)}
+
+
+def fault_plans(sets, num_pes) -> np.ndarray:
+    """(L, P) f32 fail-time plans of (pe_id, time) sets (inf: never)."""
+    plans = np.full((len(sets), num_pes), np.inf, np.float32)
+    for k, fs in enumerate(sets):
+        for pe, t in fs:
+            plans[k, pe] = np.float32(t)
+    return plans
+
+
+def assert_counts(want: dict, what: str):
+    got = {name: n for name, n in k1_counts().items() if n}
+    if counts() != dict.fromkeys(KERNELS, 0) | {"epoch_scan": sum(want.values())} \
+            or got != want:
+        raise AssertionError(f"{what}: launches {counts()}, by instantiation "
+                             f"{got}, expected {want}")
+
+
+@torch.no_grad()
+def phase_scenario_faults(smi: str) -> dict:
+    """Fail-stop faults through K1's faulted instantiations: (a) small cases
+    through run() and the comm-free trace against the event-heap oracle,
+    (b) the full grid of 16 fault sets x 64 traces per scheduler, (c) DTPM
+    with faults, small and on the full grid.  Returns per instantiation it
+    launched its `kernels` entry (None for the fault-free one) and its
+    launches."""
+    t_phase = time.perf_counter()
+    out = {}
+    # -- (a) wifi_tx x {etf, met} x 2, 20, 60 jobs/ms x the six fault sets
+    small = []
+    for policy in ("etf", "met"):
+        for rate in (2.0, 20.0, 60.0):
+            scn = Scenario(apps=("wifi_tx",), scheduler=policy,
+                           trace=TraceSpec(rate_jobs_per_ms=rate, num_jobs=80,
+                                           seed=int(rate)))
+            for name, fs in small_fault_sets(scn.job_trace(), scn.soc()).items():
+                small.append((scn.replace(failures=tuple(FaultSpec(*f) for f in fs)),
+                              name, fs))
+    counts_zero()
+    runs = [run(scn, backend="torch") for scn, _, _ in small]
+    torch.cuda.synchronize()
+    assert_counts({"epoch_scan_faults": len(small)}, "faults (small)")
+    recommits = skips = 0
+    for policy in ("etf", "met"):
+        idx = [k for k, (scn, _, _) in enumerate(small) if scn.scheduler == policy]
+        traces = [small[k][0].job_trace() for k in idx]
+        arrival = np.stack([t.arrival_us for t in traces])
+        app_idx = np.stack([t.app_index for t in traces])
+        tb = tables_for(small[idx[0]][0])
+        plain = scan_plain_outputs(tb, policy, arrival, app_idx,
+                                   faults=fault_plans([small[k][2] for k in idx],
+                                                      tb.num_pes))
+        for lane, k in enumerate(idx):
+            scn, res = small[k][0], runs[k]
+            want = lane_outputs(tb, arrival, app_idx, plain, lane)
+            assert_bits_equal({key: v[None] for key, v in res.raw.items()}, want,
+                              res.raw.keys(), f"faults {scn.label()} {small[k][1]}")
+            ref = run(scn, backend="ref")
+            np.testing.assert_allclose(res.avg_latency_us, ref.avg_latency_us, rtol=1e-4)
+            np.testing.assert_allclose(res.makespan_us, ref.makespan_us, rtol=1e-4)
+            np.testing.assert_allclose(res.energy_j, ref.energy_j, rtol=1e-3)
+            recommits += int(res.raw["commits"]) - int(res.raw["scheduled"].sum())
+            skips += int(res.raw["steps"]) - int(res.raw["commits"])
+    # the comm-free integer trace against the event-heap oracle
+    db = make_soc_table2()
+    db.comm = CommModel(startup_us=0.0, bw_bytes_per_us=1e30)
+    free_trace = deterministic_trace(25.0, 48, ["wifi_tx"])
+    free_tables = simkernel_torch.build_tables(db, [wifi_tx()])
+    free_sets = small_fault_sets(free_trace, db)
+    free_skips = 0
+    counts_zero()
+    for policy in ("etf", "met"):
+        for name, fs in free_sets.items():
+            got = simkernel_torch.simulate_torch(
+                free_tables, policy, free_trace.arrival_us, free_trace.app_index,
+                faults=fault_plans([fs], db.num_pes)[0])
+            ref = simkernel_ref.simulate(db, [wifi_tx()], free_trace,
+                                         get_scheduler(policy),
+                                         failures=[FaultSpec(*f) for f in fs])
+            fin, start, onpe = (got[k].cpu().numpy() for k in ("finish", "start", "onpe"))
+            free_skips += int(got["steps"] - got["commits"])
+            if int(got["scheduled"].sum()) != len(ref.records):
+                raise AssertionError(f"faults comm-free {policy} {name}: "
+                                     f"{len(ref.records)} records in the oracle")
+            for r in ref.records:
+                if fin[r.job_id, r.task_id] != np.float32(r.finish_us) or \
+                        start[r.job_id, r.task_id] != np.float32(r.start_us) or \
+                        onpe[r.job_id, r.task_id] != r.pe_id:
+                    raise AssertionError(f"faults comm-free {policy} {name}: job "
+                                         f"{r.job_id} task {r.task_id} differs "
+                                         "from the event-heap oracle")
+    assert_counts({"epoch_scan_faults": 2 * len(free_sets)}, "faults (comm-free)")
+    if not free_skips:
+        raise AssertionError("faults comm-free: no step skipped a stale pick")
+    n_faults = len(small) + 2 * len(free_sets)
+    log(f"[scenario] faults small: wifi_tx x {{etf, met}} x rates {{2, 20, 60}} "
+        f"(80 jobs) x {{{', '.join(free_sets)}}} through "
+        f"run(backend='torch') ({len(small)} launches): K1 = plain bit for bit "
+        f"(every output), within 1e-4 / 1e-3 of backend='ref'; {recommits} "
+        f"re-commits, {skips} skipped steps in all; comm-free "
+        f"deterministic_trace(25, 48) x the same sets x {{etf, met}} "
+        f"({2 * len(free_sets)} launches, {free_skips} skipped steps): finish, "
+        f"start, PE = the event-heap oracle")
+
+    # -- (b) the full grid: 16 fault sets x 8 rates x 8 seeds of 1,000 jobs
+    rates = np.linspace(1.0, 80.0, FAULT_RATES)
+    traces = [poisson_trace(float(r), SCAN_JOBS, APPS5, seed=s)
+              for r in rates for s in range(FAULT_SEEDS)]
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5)
+    P = base.design.num_pes
+    N = len(traces)
+    plans = np.full((P + 1, N, P), np.inf, np.float32)      # (set, trace, PE)
+    for f, fs in enumerate(pe_loss_faults(range(P), k=1)):
+        (spec,) = fs
+        for n, t in enumerate(traces):
+            plans[f + 1, n, spec.pe_id] = np.float32(t.arrival_us[SCAN_JOBS // 2])
+    plans = torch.from_numpy(plans.reshape(-1, P)).to(DEV)
+    arrival1 = torch.from_numpy(np.stack([t.arrival_us for t in traces])).to(DEV)
+    app1 = torch.from_numpy(np.stack([t.app_index for t in traces])).to(DEV)
+    arrival = arrival1.repeat(P + 1, 1)
+    app_idx = app1.repeat(P + 1, 1)
+    L, J = arrival.shape
+    tables = {p: tables_for(base.replace(scheduler=p)) for p in ("etf", "met")}
+    T = tables["etf"].t_max
+    cap = fault_scan_steps(J, T, 1)
+    valid = int(tables["etf"].valid[app_idx.long()].sum())
+    fent = {"shape": f"L={L} lanes (16 fault sets: none and each of the {P} "
+                     f"PEs lost at the lane's arrival of job {SCAN_JOBS // 2}, x "
+                     f"{FAULT_RATES} rates x {FAULT_SEEDS} seeds) x J={J} jobs, "
+                     f"T={T}, P={P} (five apps, DesignPoint(num_vit=1))"}
+    err = 0.0
+    counts_zero()
+    outs, free = {}, {}
+    for policy, tb in tables.items():
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        outs[policy] = simkernel_torch.simulate_batch(tb, policy, arrival, app_idx,
+                                                      faults=plans)
+        torch.cuda.synchronize()
+        outs[policy]["held_bytes"] = torch.cuda.max_memory_allocated() - held
+        free[policy] = simkernel_torch.simulate_batch(tb, policy, arrival1, app1)
+    torch.cuda.synchronize()
+    assert_counts({"epoch_scan_faults": 2, "epoch_scan": 2}, "faults (full)")
+    for policy, tb in tables.items():
+        o = outs[policy]
+        if not bool(o["scheduled"].all()) or not bool(torch.isfinite(o["finish"]).all()) \
+                or o["finish"].shape != (L, J, T):
+            raise AssertionError(f"faults full {policy}: unscheduled, non-finite "
+                                 "or misshapen output")
+        # the fault-free lanes equal the fault-free launch of the same traces
+        assert_bits_equal({k: o[k][:N] for k in SCAN_OUT}, free[policy], SCAN_OUT,
+                          f"faults full {policy}: the fault-free lanes")
+        # two lanes against the plain scan: the highest rate's seed 0, lost PE
+        # with the most re-commits, and the same trace fault-free
+        n0 = (FAULT_RATES - 1) * FAULT_SEEDS
+        lost = o["commits"][n0 + N::N] - o["commits"][n0]
+        lane = n0 + N * (1 + int(torch.argmax(lost)))
+        checked = torch.tensor([lane, n0], device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = scan_plain_outputs(tb, policy, arrival[checked], app_idx[checked],
+                                   faults=plans[checked])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        got = {k: o[k][checked] for k in SCAN_OUT + ("steps", "commits")}
+        assert_bits_equal(got, plain, SCAN_OUT + ("steps", "commits"),
+                          f"faults full {policy}: lanes {checked.tolist()}")
+        ms = eager_ms(lambda: k1.epoch_scan(tb, policy, arrival, app_idx,
+                                            faults=plans), iters=5, warm=1)
+        commits, steps = int(o["commits"].sum()), int(o["steps"].sum())
+        bound = scan_bound_ms(tb, L, J, faults=True)
+        log(f"[scenario] faults full {policy}: K1 {ms:.3f} ms a launch (median "
+            f"of 5, CUDA events), {valid / (ms * 1e-3):.4g} scheduled tasks/s "
+            f"({valid} valid tasks; {commits - valid} re-commits and "
+            f"{steps - commits} skipped steps besides, {commits / (ms * 1e-3):.4g} "
+            f"commits/s); the most steps of a lane {int(o['steps'].max())} of its "
+            f"cap {cap}; holds {o['held_bytes'] / 2 ** 20:.1f} MiB; the 64 "
+            f"fault-free lanes = the fault-free launch bit for bit; plain "
+            f"{plain_s:.3f} s for lanes {checked.tolist()} (seed 0 at 80 jobs/ms, "
+            f"PE {int(torch.argmax(lost))} lost at job {SCAN_JOBS // 2} with "
+            f"{int(lost.max())} re-commits, and fault-free; = K1 bit for bit); "
+            f"byte bound {bound:.5f} ms  [{smi}]")
+        fent[f"ms_{policy}"] = ms
+        fent[f"plain_s_2_lanes_{policy}"] = plain_s
+        fent[f"tasks_per_s_{policy}"] = valid / (ms * 1e-3)
+        fent[f"recommits_{policy}"] = commits - valid
+        fent[f"max_steps_{policy}"] = int(o["steps"].max())
+        fent[f"held_bytes_{policy}"] = o["held_bytes"]
+    fent.update(cap=cap, ms=fent["ms_etf"], plain_ms=1e3 * fent["plain_s_2_lanes_etf"],
+                plain_note="etf, the plain loop over 2 of the lanes",
+                bound_ms=scan_bound_ms(tables["etf"], L, J, faults=True),
+                bound_by="bytes", library_ms=None,
+                library_note="no PyTorch call computes the scan", max_abs_err=err)
+    out["epoch_scan_faults"] = (fent, n_faults + 2)
+    out["epoch_scan"] = (None, 2)
+
+    # -- (c) DTPM with faults: the small cases, then the full grid (ondemand)
+    dent = {}
+    counts_zero()
+    cases = []
+    for gov, params in DTPM_GOVERNORS.items():
+        for scn, name, fs in small:
+            cases.append((scn.replace(governor=gov, governor_params=params), name, fs))
+    runs = [run(scn, backend="torch") for scn, _, _ in cases]
+    torch.cuda.synchronize()
+    assert_counts({"epoch_scan_dtpm_faults": len(cases)}, "DTPM faults (small)")
+    for gov in DTPM_GOVERNORS:
+        for policy in ("etf", "met"):
+            idx = [k for k, (scn, _, _) in enumerate(cases)
+                   if scn.scheduler == policy and scn.governor == gov]
+            traces_c = [cases[k][0].job_trace() for k in idx]
+            arr_c = np.stack([t.arrival_us for t in traces_c])
+            app_c = np.stack([t.app_index for t in traces_c])
+            scn0 = cases[idx[0]][0]
+            tb = tables_for(scn0)
+            plain = scan_plain_outputs(tb, policy, arr_c, app_c, scn0.make_policy(),
+                                       faults=fault_plans([cases[k][2] for k in idx],
+                                                          tb.num_pes))
+            for lane, k in enumerate(idx):
+                res = runs[k]
+                want = lane_outputs(tb, arr_c, app_c, plain, lane)
+                err = max(err, assert_dtpm_equal(
+                    {key: v[None] for key, v in res.raw.items()}, want,
+                    f"DTPM faults {cases[k][0].label()} {cases[k][1]}"))
+                assert_bits_equal({key: res.raw[key][None] for key in ("steps", "commits")},
+                                  want, ("steps", "commits"),
+                                  f"DTPM faults {cases[k][0].label()} {cases[k][1]}")
+    log(f"[scenario] DTPM faults small: {{ondemand, throttle}} x the {len(small)} "
+        f"static fault cases through run(backend='torch') ({len(cases)} "
+        f"launches): K1 = plain bit for bit on {', '.join(DTPM_EXACT)}, steps and "
+        f"commits; peak and energy within 1e-5 (max abs err {err:.3e})")
+    counts_zero()
+    gov = "ondemand"
+    dlaunch = {}
+    for policy in ("etf", "met"):
+        scn = base.replace(scheduler=policy, governor=gov)
+        tb = tables_for(scn)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        o = simkernel_torch.simulate_batch_dtpm(tb, policy, arrival, app_idx,
+                                                scn.make_policy(), faults=plans)
+        torch.cuda.synchronize()
+        o["held_bytes"] = torch.cuda.max_memory_allocated() - held
+        dlaunch[policy] = (scn, tb, o)
+    assert_counts({"epoch_scan_dtpm_faults": 2}, "DTPM faults (full)")
+    for policy, (scn, tb, o) in dlaunch.items():
+        A, T, P_ = tb.exec_us.shape
+        C, K = tb.opp_freq.shape
+        if not bool(o["scheduled"].all()) or \
+                not bool(torch.isfinite(o["peak_temp_c"]).all()) or \
+                not bool((o["peak_temp_c"] >= 25.0).all()):
+            raise AssertionError(f"DTPM faults full {policy}: unscheduled or "
+                                 "non-finite output")
+        n0 = (FAULT_RATES - 1) * FAULT_SEEDS
+        lost = o["commits"][n0 + N::N] - o["commits"][n0]
+        lane = n0 + N * (1 + int(torch.argmax(lost)))
+        checked = torch.tensor([lane, n0], device=DEV)
+        pol = scn.make_policy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = scan_plain_outputs(tb, policy, arrival[checked], app_idx[checked],
+                                   pol, faults=plans[checked])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max(err, assert_dtpm_equal({k: v[checked] for k, v in o.items()
+                                          if k != "held_bytes"}, plain,
+                                         f"DTPM faults full {policy}"))
+        assert_bits_equal({k: o[k][checked] for k in ("steps", "commits")}, plain,
+                          ("steps", "commits"), f"DTPM faults full {policy}")
+        lanes = policy_lanes(pol, L)
+        ms = eager_ms(lambda: k1.epoch_scan(tb, policy, arrival, app_idx, gov=lanes,
+                                            faults=plans), iters=5, warm=1)
+        info = k1.kernel_info(J, A, T, P_, DEV, C, K, faults=True)
+        commits, steps = int(o["commits"].sum()), int(o["steps"].sum())
+        bound = scan_bound_ms(tb, L, J, dtpm=True, faults=True)
+        log(f"[scenario] DTPM faults full {gov} {policy}: K1 {ms:.3f} ms a launch "
+            f"(median of 5, CUDA events), {valid / (ms * 1e-3):.4g} scheduled "
+            f"tasks/s ({commits - valid} re-commits, {steps - commits} skipped "
+            f"steps), the most steps of a lane {int(o['steps'].max())} of {cap}, "
+            f"peak {float(o['peak_temp_c'].min()):.3f}-"
+            f"{float(o['peak_temp_c'].max()):.3f} C, holds "
+            f"{o['held_bytes'] / 2 ** 20:.1f} MiB; plain {plain_s:.3f} s for lanes "
+            f"{checked.tolist()} (= K1 bit for bit); byte bound {bound:.5f} ms; "
+            f"{info['registers']} registers, {info['local_bytes']} local bytes, "
+            f"{info['shared_bytes']} bytes of shared memory, "
+            f"{info['blocks_per_sm']} blocks per SM  [{smi}]")
+        dent[f"ms_{gov}_{policy}"] = ms
+        dent[f"plain_s_2_lanes_{gov}_{policy}"] = plain_s
+        dent[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)
+        dent[f"recommits_{gov}_{policy}"] = commits - valid
+        dent[f"held_bytes_{gov}_{policy}"] = o["held_bytes"]
+    dent.update(shape=fent["shape"] + ", ondemand", cap=cap,
+                ms=dent["ms_ondemand_etf"],
+                plain_ms=1e3 * dent["plain_s_2_lanes_ondemand_etf"],
+                plain_note="ondemand etf, the plain loop over 2 of the lanes",
+                bound_ms=scan_bound_ms(dlaunch["etf"][1], L, J, dtpm=True, faults=True),
+                bound_by="bytes", library_ms=None,
+                library_note="no PyTorch call computes the scan", max_abs_err=err)
+    out["epoch_scan_dtpm_faults"] = (dent, len(cases) + 2)
+    log(f"[scenario] the faults part took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1469,18 +1877,25 @@ def main():
         for name, n in phase_full(arch, smi, args.profile).items():
             launches[name] += n
     t_scn = time.perf_counter()
-    measured["epoch_scan"], launches["epoch_scan"] = phase_scenario(smi)
+    k1_measured, k1_launches = phase_scenario(smi)
+    measured.update(k1_measured)
+    launches.update(k1_launches)
     log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
 
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
                "decode_attention": "src/repro/kernels/decode_attention.py:62",
                "ssd_scan": "src/repro/kernels/ssd_scan.py:66",
-               "rg_lru": "src/repro/kernels/rg_lru.py:42",
-               "epoch_scan": "src/repro/core/simkernel_jax.py:321"}
+               "rg_lru": "src/repro/kernels/rg_lru.py:42"}
+    # K1's four instantiations, one source
+    sources.update(dict.fromkeys(K1_VARIANTS.values(),
+                                 "src/repro/core/simkernel_jax.py:321"))
+    # K1's fault-free kernels come from epoch_scan.cu, the fail-stop ones from
+    # epoch_scan_faults.cu (both include epoch_scan.cuh)
+    files = {"epoch_scan_dtpm": "epoch_scan", "epoch_scan_dtpm_faults": "epoch_scan_faults"}
     kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{files.get(name, name)}.cu",
                 "replaces": sources[name], "launches": launches[name],
-                **measured[name]} for name in KERNELS]
+                **measured[name]} for name in sources]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

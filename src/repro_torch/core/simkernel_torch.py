@@ -7,20 +7,22 @@ powersave / userspace: one OPP baked into the tables; :func:`simulate_torch`,
 thermal throttle (:func:`simulate_torch_dtpm`, :func:`simulate_batch_dtpm`:
 the DVFS and RC loop closed inside the scan, policies per lane).  Semantics
 are the reference kernel's (same epoch ordering, same tie-breaking, float32
-arithmetic).
+arithmetic).  Every entry point also takes ``faults``, fail-stop fail times
+per PE (``+inf``: never), which runs the reference's fail-stop program
+(DESIGN.md §14): an epoch that crosses a fail time rolls back the dead PE's
+unfinished tasks and their committed descendants inside the scan, and the
+schedulers route around dead PEs (not ``table``, which raises).
 
 * :class:`SimTables` / :func:`build_tables` — one design's device-resident
   constants, built as the reference builds them (padding rules of DESIGN.md
   §5), or carried across from the JAX package's tables by
   :func:`tables_from_numpy`.
 * The epoch scan is K1 (``kernels/epoch_scan.py``): on a CUDA tensor one
-  launch of ``csrc/epoch_scan.cu`` over all lanes, on a CPU tensor its plain
+  launch of ``csrc/epoch_scan.cuh`` over all lanes, on a CPU tensor its plain
   version :func:`epoch_scan_plain`.
 * :func:`_epilogue` derives latency, energy and per-PE busy time from the
   scan's schedule (under DTPM the energy at each task's latched OPP); both
   routes share it, so they differ only in the scan.
-
-Fail-stop faults are a later slice (ROADMAP.md queue 1, item 4) and raise.
 """
 from __future__ import annotations
 
@@ -309,37 +311,54 @@ def _lanes(tables: SimTables, arrival, app_idx):
     return on_device(arrival, torch.float32), on_device(app_idx, torch.int32)
 
 
-def _check_faults(faults):
-    if faults is not None:
-        raise NotImplementedError("fail-stop faults in the epoch scan are not "
-                                  "ported yet (ROADMAP.md queue 1, item 4)")
+def _plans(tables: SimTables, faults, L: int) -> Optional[torch.Tensor]:
+    """Fail-time plans as (L, P) f32 on the tables' device: a (P,) plan
+    shared by every lane or one (L, P) plan a lane; ``None`` stays ``None``
+    (the fault-free program)."""
+    if faults is None:
+        return None
+    if not isinstance(faults, torch.Tensor):
+        faults = torch.from_numpy(np.asarray(faults, np.float32))
+    faults = faults.to(tables.device, torch.float32)
+    if faults.ndim == 1:
+        faults = faults.expand(L, -1)
+    if tuple(faults.shape) != (L, tables.num_pes):
+        raise ValueError(f"faults {tuple(faults.shape)}: need ({tables.num_pes},)"
+                         f" or ({L}, {tables.num_pes})")
+    return faults.contiguous()
 
 
-def _check_static(tables: SimTables, faults):
+def _check_static(tables: SimTables):
     if tables.exec_opp is not None:
         # dynamic-built tables bake exec_us at the governor's initial (fmin)
         # OPP — the static scan would return plausible but wrong numbers
         raise ValueError("tables were built for a dynamic governor; run "
                          "them through simulate_torch_dtpm (DESIGN.md §7)")
-    _check_faults(faults)
 
 
 def simulate_batch(tables: SimTables, policy: str, arrival, app_idx,
                    faults=None) -> Dict[str, torch.Tensor]:
     """Batched simulation: ``arrival`` / ``app_idx`` (L, J), one simulation
     per lane (seed × rate × mix), in one K1 launch on a CUDA device.  Every
-    output has the lane axis first."""
-    _check_static(tables, faults)
+    output has the lane axis first.  ``faults``: a (P,) fail-time plan for
+    every lane or an (L, P) one per lane; the output then gains ``steps``
+    (L,), the scan steps a lane took, and ``commits`` (L,), the tasks it
+    committed, re-commits included."""
+    _check_static(tables)
     arrival, app_idx = _lanes(tables, arrival, app_idx)
-    scheduled, start, finish, onpe = _ops.epoch_scan(tables, policy, arrival,
-                                                     app_idx)
-    return _epilogue(tables, arrival, app_idx, scheduled, start, finish, onpe)
+    plans = _plans(tables, faults, int(arrival.shape[0]))
+    scan = _ops.epoch_scan(tables, policy, arrival, app_idx, faults=plans)
+    out = _epilogue(tables, arrival, app_idx, *scan[:4])
+    if plans is not None:
+        out.update(steps=scan[4][:, 0], commits=scan[4][:, 1])
+    return out
 
 
 def simulate_torch(tables: SimTables, policy: str, arrival, app_idx,
                    faults=None) -> Dict[str, torch.Tensor]:
-    """Single simulation: ``arrival`` (J,) f32, ``app_idx`` (J,) int.  The
-    output dict has the reference's keys and shapes."""
+    """Single simulation: ``arrival`` (J,) f32, ``app_idx`` (J,) int,
+    ``faults`` a (P,) fail-time plan (the twin of ``simulate_jax(faults=)``).
+    The output dict has the reference's keys and shapes."""
     arrival, app_idx = _lanes(tables, arrival, app_idx)
     out = simulate_batch(tables, policy, arrival[None], app_idx[None], faults)
     return {k: v[0] for k, v in out.items()}
@@ -352,15 +371,19 @@ def simulate_batch_dtpm(tables: SimTables, policy: str, arrival, app_idx,
     of them (lanes with different policies share one K1 launch).  The output
     dict gains ``onopp`` (L, J, T), the OPP index latched per task,
     ``opp_idx`` (L, C), each domain's final OPP, and ``peak_temp_c`` (L,), the
-    peak of the inline RC loop."""
-    _check_faults(faults)
+    peak of the inline RC loop.  ``faults`` as :func:`simulate_batch`'s."""
     arrival, app_idx = _lanes(tables, arrival, app_idx)
-    lanes = policy_lanes(gov, int(arrival.shape[0]))
-    (scheduled, start, finish, onpe, onopp, opp_idx,
-     peak) = _ops.epoch_scan(tables, policy, arrival, app_idx, gov=lanes)
+    L = int(arrival.shape[0])
+    lanes = policy_lanes(gov, L)
+    plans = _plans(tables, faults, L)
+    scan = _ops.epoch_scan(tables, policy, arrival, app_idx, gov=lanes,
+                           faults=plans)
+    (scheduled, start, finish, onpe, onopp, opp_idx, peak) = scan[:7]
     out = _epilogue(tables, arrival, app_idx, scheduled, start, finish, onpe,
                     onopp)
     out.update(onopp=onopp, opp_idx=opp_idx, peak_temp_c=peak)
+    if plans is not None:
+        out.update(steps=scan[7][:, 0], commits=scan[7][:, 1])
     return out
 
 
@@ -369,7 +392,7 @@ def simulate_torch_dtpm(tables: SimTables, policy: str, arrival, app_idx,
     """Single closed-loop DTPM simulation under a dynamic governor policy
     (the twin of ``simulate_jax_dtpm``): windows advance lazily at decision
     epochs, then drain to the makespan so ``peak_temp_c`` covers the
-    schedule's tail."""
+    schedule's tail.  ``faults``: a (P,) fail-time plan."""
     arrival, app_idx = _lanes(tables, arrival, app_idx)
     out = simulate_batch_dtpm(tables, policy, arrival[None], app_idx[None],
                               [gov], faults)

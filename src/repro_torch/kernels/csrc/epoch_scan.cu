@@ -1,583 +1,11 @@
-// K1, the DS3 epoch scan for sm_90a, plain C interface.
-//
-// Replaces `_epoch_scan` of src/repro/core/simkernel_jax.py (:321), a lax.scan
-// that XLA compiles (it has no Pallas original), in its fault-free forms under
-// the etf, met and table schedulers: static governors (epoch_scan_kernel
-// <false>) and closed-loop DTPM, the ondemand governor and its thermal
-// throttle (epoch_scan_kernel<true>), as the reference compiles one program
-// for each.  Contract: for the tables of one design and L lanes of (arrival,
-// app_idx[, policy]), the same scheduled, start, finish and onpe (and under
-// DTPM onopp, opp_idx, peak_temp_c) as the plain scan of
-// kernels/epoch_scan.py, bit for bit.
-//
-// Bound on an H100: neither bytes nor operations.  The scan is a chain of J*T
-// dependent steps a lane (each commit moves the next step's ready times and
-// PE queues); a lane's whole state is a few (J, T) arrays, so the card's
-// memory rate and peak are far away, and what a step costs is its latency:
-// a walk over the lane's open jobs, a block reduction and one commit.
-//
-// Design (a first form that is right; speed is for later):
-//   * Grid: one block of THREADS threads per lane, lanes laid out (D, S): the
-//     tables carry a leading design axis of D, and lane l reads design l / S.
-//   * Shared memory for the whole scan: the design's small tables (exec_us
-//     (A,T,P), ebytes (A,T,T), comm_mult (P,P), table_pe and each task's
-//     predecessors as a T-bit mask (A,T), each app's valid tasks as a mask),
-//     pe_free[P], and per job its arrival, app and `done` mask (T <= 32: one
-//     32-bit word a job; the wrapper and the C entry refuse a larger T).  The
-//     (J, T) schedule (start, finish, onpe) lives in global memory, which is
-//     the output; the L2 holds it, and __syncthreads makes one thread's writes
-//     visible to the block.
-//   * Each step, in the reference's order:
-//     1-2. a thread walks its jobs (j = tid, tid + THREADS, ...), skipping a
-//          job whose tasks are all done; a task is eligible when it is not
-//          done and its pred mask lies inside the job's done mask; its ready
-//          time is max(arrival, max over preds of finish) (no preds: arrival,
-//          as the reference's -BIG fill gives);
-//     3.   a block reduction takes the least (ready, j*T + t) as one 64-bit
-//          key (ready's order-preserving bits above the flat index): the
-//          reference's rmin, then the first flat index at rmin; nothing
-//          eligible, or rmin >= BIG/2, ends the scan (any_left);
-//     4.   warp 0, a lane per PE: data_ready = max(rmin, over preds of
-//          finish + comm), then start_c and fin_c;
-//     5.   the policy's PE: etf the first argmin of fin_c, met of exec, table
-//          table_pe, by a warp reduction over (value, PE) that keeps the
-//          lower PE on ties;
-//     6.   lane 0 commits s0 and f0 to the task and the PE's queue.
-//   * Stopping early: the scan ends at the first step with nothing left.  In
-//     the static, fault-free program every later step of the reference's J*T
-//     is a no-op, so this is exact.  It does not hold for fail-stop faults,
-//     whose rollbacks re-open tasks and whose skipped epochs commit nothing:
-//     that program needs its own bound (ROADMAP.md queue 1, item 4).
-// DTPM (the `DTPM` template argument; simkernel_jax.py:271-316, :377-391,
-// :471-480, :525-526, :535-543):
-//   * Shared memory adds the OPP-indexed latency exec_opp (A,T,P,K) in place
-//     of exec_us (A,T,P), the per-level active power (P,K), the domain ladders
-//     (C,K) and level counts, the domain and node maps, idle power, per job
-//     its latest committed finish, and the lane's carry: OPP index per domain,
-//     the next window's end, the 4 RC temperatures, their peak, the makespan so
-//     far.  Per lane the policy: window, up threshold, thermal cap, the exact
-//     RC matrices A and B (from the host, the plain version's f32 values) and
-//     the two fixed-point exponents of the window sums.
-//   * Before the commit of each step, warp 0 runs the windows that closed by
-//     the pick's ready time (while next_w <= rmin); after the last step, the
-//     drain (while next_w - window < makespan).  A window walks only the jobs
-//     that can overlap it: from the first job not yet done or still running
-//     past the window's start (`lo`, which only moves forward) to the last job
-//     with a commit (`hi`), skipping a job whose latest finish is at or before
-//     the window's start (no commit lands before a closed window, so such a
-//     job adds nothing again).  Each overlap `ov` and its energy `ov * p` go
-//     into per-PE bins as 64-bit integers, round(x * 2^s): integer atomics
-//     add exactly, so the sums are the same bits in every order and equal the
-//     plain version's (kernels/epoch_scan.py, `quanta`).  A lane per PE then
-//     turns its bins into window power; the node power is a fixed shuffle tree
-//     over the 32 lanes; a lane per domain takes utilisation and the ondemand
-//     step; lanes 0-3 a row each of the RC step; the throttle last.
-//   * The pick's latency is exec_opp at its PEs' domain OPPs; the commit latches
-//     the OPP (onopp) and moves the job's latest finish, `hi` and the makespan.
-//   * DTPM needs P, C, K <= 32 (a lane of warp 0 each); the wrapper checks.
-// Numerics: f32 as the reference, op by op.  nvcc contracts a*b+c into one
-// fma by default and the build's flags do not turn that off, so the three
-// contractible spots are written with __fmul_rn / __fadd_rn, in the
-// reference's order (simkernel_jax.py:487-491): base = startup + ebytes*inv_bw
-// (multiply, then add), comm = mult*base, finish + comm.  fin = start + exec is
-// one add.  The window step's spots are written the same way: ov * p before
-// its quantisation, e_act / window + idle_power * idle_frac, window *
-// domain_cpu, fmax * util / up, the node tree's adds and every product and sum
-// of A @ temps + B @ u (left to right, then the two added); the ondemand
-// slack is the f32 1e-9f, as the reference's weakly typed 1e-9 rounds.  The
-// window step's f32 divisions go through div_rn (the quotient refined in
-// f64, rounded once to f32: the IEEE f32 quotient), whose SASS, unlike nvcc's
-// f32 division, holds no FFMA: so "no FFMA" still proves that nothing was
-// contracted (its DFMAs are its own f64 refinement).
-// BIG = 1e30 is finite on purpose (:43): an unsupported PE carries 1e30 of
-// latency and loses etf and met as in the reference.
-#include "common.cuh"
-
-using namespace repro;
-
-namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_TASKS = 32;
-constexpr float BIG = 1e30f;
-constexpr int ETF = 0, MET = 1, TABLE = 2;
-constexpr unsigned long long NONE = ~0ull;
-
-constexpr int MAX_DTPM = 32;    // P, C and K under DTPM: a lane of warp 0 each
-constexpr int NODES = 3;        // thermal nodes with power (the 4th is the board)
-
-struct Params {
-  const float* exec_us;      // (D, A, T, P)
-  const int* pred_bits;      // (D, A, T): bit t' set where t' precedes t
-  const float* ebytes;       // (D, A, T, T): bytes t' -> t
-  const int* valid_bits;     // (D, A): bit t set where task t exists
-  const float* comm_mult;    // (D, P, P)
-  const float* comm_startup; // (D,)
-  const float* comm_inv_bw;  // (D,)
-  const int* table_pe;       // (D, A, T)
-  const float* arrival;      // (D*S, J)
-  const int* app_idx;        // (D*S, J)
-  unsigned char* scheduled;  // (D*S, J, T) bool
-  float* start;              // (D*S, J, T)
-  float* finish;             // (D*S, J, T), read back by later steps
-  int* onpe;                 // (D*S, J, T), read back by later steps
-  int D, S, J, A, T, P, policy;
-};
-
-// DTPM's tables (leading design axis D), per-lane policies and outputs
-struct DtpmParams {
-  const float* exec_opp;     // (D, A, T, P, K)
-  const float* pwr_opp;      // (D, P, K) active power at each level
-  const float* opp_freq;     // (D, C, K) ascending, top-padded
-  const int* num_opp;        // (D, C)
-  const int* domain_node;    // (D, C) thermal node of each domain
-  const float* domain_cpu;   // (D, C) CPU PEs per domain
-  const int* pe_domain;      // (D, P)
-  const float* pe_is_cpu;    // (D, P) 1 or 0
-  const int* node_of_pe;     // (D, P)
-  const float* power_idle;   // (D, P)
-  const float* window;       // (D*S,) sample window, us
-  const float* up;           // (D*S,) up threshold
-  const float* cap;          // (D*S,) thermal cap, C (inf: none)
-  const float* rc;           // (D*S, 2, 4, 4): A, then B
-  const int* quanta;         // (D*S, 2): fixed-point exponents, busy and energy
-  const float* rc_consts;    // (5,): C_NODE[3], ambient drive, ambient
-  int* onopp;                // (D*S, J, T)
-  int* opp_idx;              // (D*S, C)
-  float* peak;               // (D*S,)
-  int C, K;
-};
-
-// shared words of one block, in the order the kernel lays them out (K = 0:
-// the static kernel)
-__host__ __device__ inline long long shared_words(int J, int A, int T, int P, int C = 0,
-                                                  int K = 0) {
-  long long w = 2LL * WARPS + (long long)A * T * P * (K > 0 ? K : 1) + (long long)A * T * T +
-                (long long)P * P + 2LL * A * T + A + P + 3LL * J;
-  if (K > 0) w += 4LL * P + J + (long long)P * K + (long long)C * K + 4LL * C + 4LL * P + 32 + 9;
-  return w;
-}
-
-// order-preserving bits of a float (not NaN), -0 taken as +0
-__device__ __forceinline__ unsigned order_bits(float x) {
-  unsigned u = __float_as_uint(x);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float from_order_bits(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// a window sum (fixed point, exponent s) back to f32: one rounding
-__device__ __forceinline__ float fixed_to_f32(unsigned long long v, double back) {
-  return __double2float_rn(__dmul_rn(__ll2double_rn((long long)v), back));
-}
-// a / b for finite a >= 0 and normal b > 0, rounded to f32 as IEEE f32
-// division rounds it.  The exact quotient of two 24-bit floats lies at least
-// ~2^-49 (relative) from any f32 rounding midpoint, so a quotient good to
-// ~2^-52 rounds to the right f32: a reciprocal from MUFU (~2^-22) and two
-// Newton steps in f64, the product, and one correction by its exact FMA
-// residual.  nvcc's f32 division refines with FFMA and its f64 division
-// calls a slow-path subroutine (registers saved across it spill); this holds
-// neither, so "no FFMA" in the SASS still proves nothing was contracted
-__device__ __forceinline__ float div_rn(float a, float b) {
-  const double ad = (double)a, bd = (double)b;
-  double r = (double)__fdividef(1.f, b);
-  r = __fma_rn(r, __fma_rn(-bd, r, 1.0), r);
-  r = __fma_rn(r, __fma_rn(-bd, r, 1.0), r);
-  const double q = __dmul_rn(ad, r);
-  return __double2float_rn(__fma_rn(r, __fma_rn(-bd, q, ad), q));
-}
-// 2^s as an f32 and 2^-s as an f64, exactly (|s| <= 126: the wrapper checks)
-__device__ __forceinline__ float pow2f(int s) { return __int_as_float((127 + s) << 23); }
-__device__ __forceinline__ double pow2d(int s) {
-  return __longlong_as_double((long long)(1023 + s) << 52);
-}
-
-template <bool DTPM>
-__global__ void __launch_bounds__(THREADS) epoch_scan_kernel(Params p, DtpmParams dp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int stop;
-  const int A = p.A, T = p.T, P = p.P, J = p.J;
-  const int C = DTPM ? dp.C : 0, K = DTPM ? dp.K : 1;
-  const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
-  const long long lane = blockIdx.x;
-  const int d = (int)(lane / p.S);
-
-  unsigned long long* red = reinterpret_cast<unsigned long long*>(smem);  // WARPS
-  unsigned long long* bins = red + WARPS;     // DTPM: busy (P), then energy (P)
-  float* exec_s = reinterpret_cast<float*>(bins + (DTPM ? 2 * P : 0));
-  float* ebytes_s = exec_s + A * T * P * K;
-  float* mult_s = ebytes_s + A * T * T;
-  int* pred_s = reinterpret_cast<int*>(mult_s + P * P);
-  int* tpe_s = pred_s + A * T;
-  int* valid_s = tpe_s + A * T;
-  float* pe_free = reinterpret_cast<float*>(valid_s + A);
-  float* arr_s = pe_free + P;
-  int* app_s = reinterpret_cast<int*>(arr_s + J);
-  unsigned* done = reinterpret_cast<unsigned*>(app_s + J);
-  // DTPM only, after the static layout
-  float* lastfin = reinterpret_cast<float*>(done + J);    // J: latest committed finish
-  float* pwr_s = lastfin + J;                              // (P, K)
-  float* freq_s = pwr_s + P * K;                           // (C, K)
-  int* nopp_s = reinterpret_cast<int*>(freq_s + C * K);    // C
-  int* dnode_s = nopp_s + C;                               // C
-  float* dcpu_s = reinterpret_cast<float*>(dnode_s + C);   // C
-  int* pdom_s = reinterpret_cast<int*>(dcpu_s + C);        // P
-  float* iscpu_s = reinterpret_cast<float*>(pdom_s + P);   // P
-  int* node_s = reinterpret_cast<int*>(iscpu_s + P);       // P
-  float* pidle_s = reinterpret_cast<float*>(node_s + P);   // P
-  int* oppidx_s = reinterpret_cast<int*>(pidle_s + P);     // C: the lane's OPP per domain
-  float* rc_s = reinterpret_cast<float*>(oppidx_s + C);    // 32: A (4x4), then B
-  // the carry: next window end, peak, makespan, temps[4]; then lo, hi
-  float* st_f = rc_s + 32;
-  int* st_i = reinterpret_cast<int*>(st_f + 7);
-
-  // the design's tables, once
-  if constexpr (DTPM) {
-    for (int i = tid; i < A * T * P * K; i += THREADS)
-      exec_s[i] = dp.exec_opp[(long long)d * A * T * P * K + i];
-    for (int i = tid; i < P * K; i += THREADS) pwr_s[i] = dp.pwr_opp[(long long)d * P * K + i];
-    for (int i = tid; i < C * K; i += THREADS) freq_s[i] = dp.opp_freq[(long long)d * C * K + i];
-    for (int i = tid; i < C; i += THREADS) {
-      nopp_s[i] = dp.num_opp[(long long)d * C + i];
-      dnode_s[i] = dp.domain_node[(long long)d * C + i];
-      dcpu_s[i] = dp.domain_cpu[(long long)d * C + i];
-      oppidx_s[i] = 0;                        // ondemand starts at fmin
-    }
-    for (int i = tid; i < P; i += THREADS) {
-      pdom_s[i] = dp.pe_domain[(long long)d * P + i];
-      iscpu_s[i] = dp.pe_is_cpu[(long long)d * P + i];
-      node_s[i] = dp.node_of_pe[(long long)d * P + i];
-      pidle_s[i] = dp.power_idle[(long long)d * P + i];
-    }
-    for (int i = tid; i < 32; i += THREADS) rc_s[i] = dp.rc[lane * 32 + i];
-    for (int j = tid; j < J; j += THREADS) lastfin[j] = 0.f;
-    if (tid == 0) {
-      const float amb = dp.rc_consts[4];
-      st_f[0] = dp.window[lane];               // next_w
-      st_f[1] = amb;                          // peak
-      st_f[2] = 0.f;                          // makespan
-      for (int i = 0; i < 4; ++i) st_f[3 + i] = amb;
-      st_i[0] = 0;                            // lo
-      st_i[1] = 0;                            // hi
-    }
-  } else {
-    for (int i = tid; i < A * T * P; i += THREADS) exec_s[i] = p.exec_us[(long long)d * A * T * P + i];
-  }
-  for (int i = tid; i < A * T * T; i += THREADS) ebytes_s[i] = p.ebytes[(long long)d * A * T * T + i];
-  for (int i = tid; i < P * P; i += THREADS) mult_s[i] = p.comm_mult[(long long)d * P * P + i];
-  for (int i = tid; i < A * T; i += THREADS) {
-    pred_s[i] = p.pred_bits[(long long)d * A * T + i];
-    tpe_s[i] = p.table_pe[(long long)d * A * T + i];
-  }
-  for (int i = tid; i < A; i += THREADS) valid_s[i] = p.valid_bits[(long long)d * A + i];
-  for (int i = tid; i < P; i += THREADS) pe_free[i] = 0.f;
-  if (tid == 0) stop = 0;
-  __syncthreads();
-
-  const unsigned all = T == 32 ? 0xffffffffu : ((1u << T) - 1u);
-  const long long row0 = lane * J;             // this lane's first job
-  float* fin_g = p.finish + row0 * T;
-  int* onpe_g = p.onpe + row0 * T;
-  for (int j = tid; j < J; j += THREADS) {
-    arr_s[j] = p.arrival[row0 + j];
-    const int a = p.app_idx[row0 + j];
-    app_s[j] = a;
-    done[j] = ~(unsigned)valid_s[a] & all;     // a task that does not exist is done
-  }
-  float* start_g = p.start + row0 * T;
-  int* onopp_g = DTPM ? dp.onopp + row0 * T : nullptr;
-  for (int c = tid; c < J * T; c += THREADS) {
-    p.start[row0 * T + c] = 0.f;
-    fin_g[c] = 0.f;
-    onpe_g[c] = 0;
-    if constexpr (DTPM) onopp_g[c] = 0;
-  }
-  const float startup = p.comm_startup[d], inv_bw = p.comm_inv_bw[d];
-  __syncthreads();
-
-  // DTPM: one sampling window [next_w - window, next_w), run by the 32 lanes
-  // of warp 0 (the reference's _window_step, simkernel_jax.py:271-316)
-  float window = 0.f, up = 0.f, cap = 0.f, scale_b = 0.f, scale_e = 0.f;
-  double back_b = 0.0, back_e = 0.0;
-  if constexpr (DTPM) {
-    window = dp.window[lane];
-    up = dp.up[lane];
-    cap = dp.cap[lane];
-    const int sb = dp.quanta[lane * 2], se = dp.quanta[lane * 2 + 1];
-    scale_b = pow2f(sb);
-    scale_e = pow2f(se);
-    back_b = pow2d(-sb);
-    back_e = pow2d(-se);
-  }
-  auto window_step = [&]() {
-    const float w1 = st_f[0];
-    const float w0 = __fsub_rn(w1, window);
-    if (lane_id == 0) {                       // jobs below lo add nothing again
-      int lo = st_i[0];
-      while (lo < st_i[1] && done[lo] == all && !(lastfin[lo] > w0)) ++lo;
-      st_i[0] = lo;
-    }
-    for (int i = lane_id; i < 2 * P; i += 32) bins[i] = 0ull;
-    __syncwarp();
-    // the committed cells that overlap the window: exact fixed-point sums
-    const int hi = st_i[1];
-    for (int j = st_i[0] + lane_id; j < hi; j += 32) {
-      if (!(lastfin[j] > w0)) continue;
-      unsigned m = done[j] & (unsigned)valid_s[app_s[j]];
-      while (m) {
-        const int t = __ffs(m) - 1;
-        m &= m - 1;
-        const long long c = (long long)j * T + t;
-        const float ov = fminf(fmaxf(__fsub_rn(fminf(fin_g[c], w1), fmaxf(start_g[c], w0)), 0.f),
-                               window);
-        if (ov > 0.f) {
-          const int pe = onpe_g[c];
-          const float e = __fmul_rn(ov, pwr_s[pe * K + onopp_g[c]]);
-          atomicAdd(&bins[pe], (unsigned long long)__float2ll_rn(__fmul_rn(ov, scale_b)));
-          atomicAdd(&bins[P + pe], (unsigned long long)__float2ll_rn(__fmul_rn(e, scale_e)));
-        }
-      }
-    }
-    __syncwarp();
-    // a lane per PE: its window power, active at the latched OPPs + idle
-    float p_pe = 0.f;
-    if (lane_id < P) {
-      const float busy = fixed_to_f32(bins[lane_id], back_b);
-      const float e_act = fixed_to_f32(bins[P + lane_id], back_e);
-      const float idle = __fsub_rn(1.f, fminf(fmaxf(div_rn(busy, window), 0.f), 1.f));
-      p_pe = __fadd_rn(div_rn(e_act, window), __fmul_rn(pidle_s[lane_id], idle));
-    }
-    // per node: a fixed tree over the 32 lanes (the plain version's order)
-    float u[4];
-#pragma unroll
-    for (int n = 0; n < NODES; ++n) {
-      float x = (lane_id < P && node_s[lane_id] == n) ? p_pe : 0.f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_down_sync(FULL_MASK, x, o));
-      u[n] = div_rn(__shfl_sync(FULL_MASK, x, 0), dp.rc_consts[n]);
-    }
-    u[3] = dp.rc_consts[3];
-    // a lane per domain: utilisation -> the ondemand proposal
-    int proposed = 0;
-    if (lane_id < C) {
-      unsigned long long busy_q = 0;
-      for (int pe = 0; pe < P; ++pe)
-        if (pdom_s[pe] == lane_id && iscpu_s[pe] != 0.f) busy_q += bins[pe];
-      const float busy_dom = fixed_to_f32(busy_q, back_b);
-      const float util =
-          div_rn(busy_dom, fmaxf(__fmul_rn(window, dcpu_s[lane_id]), 1e-9f));
-      const int top = nopp_s[lane_id] - 1;
-      const float* fr = freq_s + lane_id * K;
-      const float target = div_rn(__fmul_rn(fr[top], fmaxf(util, 0.f)), up);
-      const float slack = __fsub_rn(target, 1e-9f);
-      int down = 0;                           // no level covers: argmax of all-false
-      for (int k = 0; k < K; ++k)
-        if (fr[k] >= slack) { down = k; break; }
-      proposed = util > up ? top : down;
-    }
-    // lanes 0-3: a row each of A @ temps + B @ u, left to right
-    float r = 0.f;
-    if (lane_id < 4) {
-      const float* Ar = rc_s + lane_id * 4;
-      const float* Br = rc_s + 16 + lane_id * 4;
-      float a = __fmul_rn(Ar[0], st_f[3]);
-      float b = __fmul_rn(Br[0], u[0]);
-#pragma unroll
-      for (int k = 1; k < 4; ++k) {
-        a = __fadd_rn(a, __fmul_rn(Ar[k], st_f[3 + k]));
-        b = __fadd_rn(b, __fmul_rn(Br[k], u[k]));
-      }
-      r = __fadd_rn(a, b);
-    }
-    float temps[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) temps[i] = __shfl_sync(FULL_MASK, r, i);
-    // a domain's node temperature, from the lane holding that row (a runtime
-    // index into temps[] would put the array on the stack)
-    const float t_dom = __shfl_sync(FULL_MASK, r, lane_id < C ? dnode_s[lane_id] : 0);
-    __syncwarp();                             // every lane has read the carry
-    if (lane_id == 0) {
-      st_f[0] = __fadd_rn(w1, window);
-      st_f[1] = fmaxf(st_f[1], fmaxf(fmaxf(temps[0], temps[1]), temps[2]));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st_f[3 + i] = temps[i];
-    }
-    // the throttle: a domain hotter than the cap drops to its lowest OPP
-    if (lane_id < C) oppidx_s[lane_id] = t_dom > cap ? 0 : proposed;
-    __syncwarp();
-  };
-
-  while (true) {
-    // 1-2. eligible tasks of this thread's jobs and their ready times
-    unsigned long long best = NONE;
-    for (int j = tid; j < J; j += THREADS) {
-      const unsigned dn = done[j];
-      if (dn == all) continue;
-      const int* pr = pred_s + app_s[j] * T;
-      const float arr = arr_s[j];
-      const float* fin_row = fin_g + (long long)j * T;
-      unsigned open = ~dn & all;
-      while (open) {
-        const int t = __ffs(open) - 1;
-        open &= open - 1;
-        unsigned m = (unsigned)pr[t];
-        if (m & ~dn) continue;               // a predecessor is not committed yet
-        float ready = arr;
-        while (m) {
-          const int q = __ffs(m) - 1;
-          m &= m - 1;
-          ready = fmaxf(ready, fin_row[q]);
-        }
-        const unsigned long long key =
-            ((unsigned long long)order_bits(ready) << 32) | (unsigned)(j * T + t);
-        best = key < best ? key : best;
-      }
-    }
-    // 3. the least (ready, flat index) of the block
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-      best = other < best ? other : best;
-    }
-    if (lane_id == 0) red[warp] = best;
-    __syncthreads();
-
-    if (warp == 0) {
-      best = lane_id < WARPS ? red[lane_id] : NONE;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-        best = other < best ? other : best;
-      }
-      const float rmin = from_order_bits((unsigned)(best >> 32));
-      if (best == NONE || !(rmin < BIG * 0.5f)) {
-        if (lane_id == 0) stop = 1;          // nothing left: the rest are no-ops
-      } else {
-        const int flat = (int)(best & 0xffffffffu);
-        const int j = flat / T, t = flat % T;
-        const int at = app_s[j] * T + t;
-        const unsigned pm = (unsigned)pred_s[at];
-        const float* eb = ebytes_s + at * T;
-        const float* ex_row = exec_s + at * P * K;
-        // 3b. DTPM: the windows that closed by this epoch (lazy advance)
-        if constexpr (DTPM) {
-          while (st_f[0] <= rmin) window_step();
-        }
-        const float* fin_row = fin_g + (long long)j * T;
-        const int* pe_row = onpe_g + (long long)j * T;
-        const int tpe = tpe_s[at];
-        // 4-5. a lane per PE; keep the first minimum of the policy's value
-        const float inf = __int_as_float(0x7f800000);
-        float best_v = inf, best_s = 0.f, best_f = 0.f;
-        int best_pe = 0x7fffffff;
-        for (int pe = lane_id; pe < P; pe += 32) {
-          float dr = rmin;
-          unsigned m = pm;
-          while (m) {
-            const int q = __ffs(m) - 1;
-            m &= m - 1;
-            // no contraction: multiply, then add, as the reference rounds
-            const float base = __fadd_rn(startup, __fmul_rn(eb[q], inv_bw));
-            const float comm = __fmul_rn(mult_s[pe_row[q] * P + pe], base);
-            dr = fmaxf(dr, __fadd_rn(fin_row[q], comm));
-          }
-          const float ex = DTPM ? ex_row[pe * K + oppidx_s[pdom_s[pe]]] : ex_row[pe];
-          const float st = fmaxf(dr, pe_free[pe]);
-          const float fn = st + ex;      // one add: nothing to contract
-          const float v = p.policy == ETF ? fn : p.policy == MET ? ex
-                                                 : (pe == tpe ? 0.f : inf);
-          if (v < best_v) { best_v = v; best_pe = pe; best_s = st; best_f = fn; }
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(FULL_MASK, best_v, o);
-          const int op = __shfl_xor_sync(FULL_MASK, best_pe, o);
-          const float os = __shfl_xor_sync(FULL_MASK, best_s, o);
-          const float of = __shfl_xor_sync(FULL_MASK, best_f, o);
-          if (ov < best_v || (ov == best_v && op < best_pe)) {
-            best_v = ov; best_pe = op; best_s = os; best_f = of;
-          }
-        }
-        // 6. commit
-        if (lane_id == 0) {
-          const long long c = (long long)j * T + t;
-          p.start[row0 * T + c] = best_s;
-          fin_g[c] = best_f;
-          onpe_g[c] = best_pe;
-          pe_free[best_pe] = best_f;
-          done[j] |= 1u << t;
-          if constexpr (DTPM) {               // latch the OPP the task runs at
-            onopp_g[c] = oppidx_s[pdom_s[best_pe]];
-            lastfin[j] = fmaxf(lastfin[j], best_f);
-            st_i[1] = max(st_i[1], j + 1);
-            st_f[2] = fmaxf(st_f[2], best_f);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (stop) break;
-  }
-
-  if constexpr (DTPM) {
-    if (warp == 0) {
-      // drain the windows between the last decision epoch and the makespan
-      while (__fsub_rn(st_f[0], window) < st_f[2]) window_step();
-      if (lane_id < C) dp.opp_idx[lane * C + lane_id] = oppidx_s[lane_id];
-      if (lane_id == 0) dp.peak[lane] = st_f[1];
-    }
-  }
-  for (int c = tid; c < J * T; c += THREADS)
-    p.scheduled[row0 * T + c] = (unsigned char)((done[c / T] >> (c % T)) & 1u);
-}
-
-Params make_params(const void* exec_us, const void* pred_bits, const void* ebytes,
-                   const void* valid_bits, const void* comm_mult, const void* comm_startup,
-                   const void* comm_inv_bw, const void* table_pe, const void* arrival,
-                   const void* app_idx, void* scheduled, void* start, void* finish, void* onpe,
-                   int D, int S, int J, int A, int T, int P, int policy) {
-  Params p;
-  p.exec_us = static_cast<const float*>(exec_us);
-  p.pred_bits = static_cast<const int*>(pred_bits);
-  p.ebytes = static_cast<const float*>(ebytes);
-  p.valid_bits = static_cast<const int*>(valid_bits);
-  p.comm_mult = static_cast<const float*>(comm_mult);
-  p.comm_startup = static_cast<const float*>(comm_startup);
-  p.comm_inv_bw = static_cast<const float*>(comm_inv_bw);
-  p.table_pe = static_cast<const int*>(table_pe);
-  p.arrival = static_cast<const float*>(arrival);
-  p.app_idx = static_cast<const int*>(app_idx);
-  p.scheduled = static_cast<unsigned char*>(scheduled);
-  p.start = static_cast<float*>(start);
-  p.finish = static_cast<float*>(finish);
-  p.onpe = static_cast<int*>(onpe);
-  p.D = D; p.S = S; p.J = J; p.A = A; p.T = T; p.P = P; p.policy = policy;
-  return p;
-}
-
-bool bad_sizes(int D, int S, int J, int A, int T, int P, int policy) {
-  return D < 1 || S < 1 || J < 1 || A < 1 || P < 1 || T < 1 || T > MAX_TASKS ||
-         policy < ETF || policy > TABLE || (long long)J * T >= (1LL << 31) ||
-         (long long)D * S >= (1LL << 31);
-}
-
-template <bool DTPM>
-int launch(const Params& p, const DtpmParams& dp, void* stream) {
-  const long long bytes = 4 * shared_words(p.J, p.A, p.T, p.P, DTPM ? dp.C : 0, DTPM ? dp.K : 0);
-  if (bytes > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        epoch_scan_kernel<DTPM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  epoch_scan_kernel<DTPM><<<(unsigned)((long long)p.D * p.S), THREADS, (size_t)bytes,
-                            static_cast<cudaStream_t>(stream)>>>(p, dp);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// K1, the DS3 epoch scan for sm_90a: the fault-free programs, static
+// governors (epoch_scan_kernel<false, false>) and closed-loop DTPM
+// (<true, false>), with a plain C interface.  The kernel and its design
+// notes are in epoch_scan.cuh; the fail-stop programs are built apart, in
+// epoch_scan_faults.cu, under a launch bound of their own, so that nothing of
+// theirs touches these kernels' code.
+#define K1_LAUNCH_BOUNDS(DTPM) __launch_bounds__(THREADS)
+#include "epoch_scan.cuh"
 
 // Tables of D designs (exec_us (D,A,T,P) f32, pred_bits (D,A,T) i32, ebytes
 // (D,A,T,T) f32, valid_bits (D,A) i32, comm_mult (D,P,P) f32, comm_startup and
@@ -597,7 +25,7 @@ extern "C" int repro_epoch_scan(const void* exec_us, const void* pred_bits, cons
   const Params p = make_params(exec_us, pred_bits, ebytes, valid_bits, comm_mult, comm_startup,
                                comm_inv_bw, table_pe, arrival, app_idx, scheduled, start, finish,
                                onpe, D, S, J, A, T, P, policy);
-  return launch<false>(p, DtpmParams{}, stream);
+  return launch<false, false>(p, DtpmParams{}, FaultParams{}, stream);
 }
 
 // The DTPM program: the static arguments (exec_us is not read), then the
@@ -621,52 +49,24 @@ extern "C" int repro_epoch_scan_dtpm(
     const void* cap, const void* rc, const void* quanta, const void* rc_consts, void* onopp,
     void* opp_idx, void* peak, int D, int S, int J, int A, int T, int P, int policy, int C,
     int K, void* stream) {
-  if (bad_sizes(D, S, J, A, T, P, policy) || P > MAX_DTPM || C < 1 || C > MAX_DTPM || K < 1 ||
-      K > MAX_DTPM)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(D, S, J, A, T, P, policy) || bad_dtpm(P, C, K)) return (int)cudaErrorInvalidValue;
   const Params p = make_params(exec_us, pred_bits, ebytes, valid_bits, comm_mult, comm_startup,
                                comm_inv_bw, table_pe, arrival, app_idx, scheduled, start, finish,
                                onpe, D, S, J, A, T, P, policy);
-  DtpmParams dp;
-  dp.exec_opp = static_cast<const float*>(exec_opp);
-  dp.pwr_opp = static_cast<const float*>(pwr_opp);
-  dp.opp_freq = static_cast<const float*>(opp_freq);
-  dp.num_opp = static_cast<const int*>(num_opp);
-  dp.domain_node = static_cast<const int*>(domain_node);
-  dp.domain_cpu = static_cast<const float*>(domain_cpu);
-  dp.pe_domain = static_cast<const int*>(pe_domain);
-  dp.pe_is_cpu = static_cast<const float*>(pe_is_cpu);
-  dp.node_of_pe = static_cast<const int*>(node_of_pe);
-  dp.power_idle = static_cast<const float*>(power_idle);
-  dp.window = static_cast<const float*>(window);
-  dp.up = static_cast<const float*>(up);
-  dp.cap = static_cast<const float*>(cap);
-  dp.rc = static_cast<const float*>(rc);
-  dp.quanta = static_cast<const int*>(quanta);
-  dp.rc_consts = static_cast<const float*>(rc_consts);
-  dp.onopp = static_cast<int*>(onopp);
-  dp.opp_idx = static_cast<int*>(opp_idx);
-  dp.peak = static_cast<float*>(peak);
-  dp.C = C; dp.K = K;
-  return launch<true>(p, dp, stream);
+  const DtpmParams dp = make_dtpm_params(exec_opp, pwr_opp, opp_freq, num_opp, domain_node,
+                                         domain_cpu, pe_domain, pe_is_cpu, node_of_pe,
+                                         power_idle, window, up, cap, rc, quanta, rc_consts,
+                                         onopp, opp_idx, peak, C, K);
+  return launch<true, false>(p, dp, FaultParams{}, stream);
 }
 
-// Threads per block, resident blocks per SM and dynamic shared bytes of one
-// launch at (J, A, T, P), of the DTPM kernel (with C, K) when dtpm != 0.
-// Returns 0 or a cudaError_t.
+// Threads per block, resident blocks per SM, dynamic shared bytes, registers
+// a thread and local (stack and spill) bytes a thread of one launch at (J, A,
+// T, P), of the DTPM kernel (with C, K) when dtpm != 0: out[0..4].  Returns 0
+// or a cudaError_t.
 extern "C" int repro_epoch_scan_info(int J, int A, int T, int P, int C, int K, int dtpm,
                                      int* out) {
-  const long long bytes = 4 * (dtpm ? shared_words(J, A, T, P, C, K) : shared_words(J, A, T, P));
-  const void* kernel = dtpm ? (const void*)epoch_scan_kernel<true>
-                            : (const void*)epoch_scan_kernel<false>;
-  int per_sm = 0;
-  cudaError_t rc = cudaSuccess;
-  if (bytes > 48 * 1024)
-    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, (size_t)bytes);
-  out[0] = THREADS; out[1] = per_sm; out[2] = (int)bytes;
-  return (int)rc;
+  return kernel_info<false>(J, A, T, P, C, K, dtpm, out);
 }
 
 extern "C" const char* repro_epoch_scan_error(int code) {

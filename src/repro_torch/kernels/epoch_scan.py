@@ -2,21 +2,39 @@
 
 Replaces ``_epoch_scan`` of ``src/repro/core/simkernel_jax.py`` (``:321``), a
 ``lax.scan`` that XLA compiles (no Pallas original), for the ``etf``, ``met``
-and ``table`` schedulers, in two programs as the reference's: static
-governors (``gov=None``) and closed-loop DTPM (``gov`` a
-``core.dvfs.PolicyLanes``: ondemand and throttle).  Each step picks the ready
-task with the least (ready time, job, task), finds its data-ready time on
-every PE from its predecessors' finishes and PEs, lets the policy pick a PE
-and commits the task to that PE's queue.  The kernel is ``csrc/epoch_scan.cu``
-(design notes at its top): one block of 256 threads per lane, the small tables
-and the per-job done masks in shared memory, the (J, T) schedule in global
-memory; DTPM is a compile-time variant of it.
+and ``table`` schedulers, in the reference's four programs: static governors
+(``gov=None``) and closed-loop DTPM (``gov`` a ``core.dvfs.PolicyLanes``:
+ondemand and throttle), each without faults or, under etf and met, with
+fail-stop faults (``faults``: (L, P) f32 fail times, ``inf`` never).  Each
+step picks the ready task with the least (ready time, job, task), finds its
+data-ready time on every PE from its predecessors' finishes and PEs, lets the
+policy pick a PE and commits the task to that PE's queue.  The kernel is
+``csrc/epoch_scan.cuh`` (design notes at its top): one block of 256 threads
+per lane, the small tables and the per-job done masks in shared memory, the
+(J, T) schedule in global memory; DTPM and faults are compile-time variants
+of it, four instantiations in all, the fault-free ones built from
+``csrc/epoch_scan.cu``, the fail-stop ones from ``csrc/epoch_scan_faults.cu``.
 
 ``epoch_scan`` launches the kernel for CUDA tensors or raises; only CPU
 tensors go to ``epoch_scan_plain``.  ``launches`` counts calls, one launch
-each.  Both return ``scheduled``, ``start``, ``finish`` and ``onpe``, each
-(L, J, T), and under DTPM also ``onopp`` (L, J, T), ``opp_idx`` (L, C) and
-``peak_temp_c`` (L,), equal bit for bit.
+each, and ``variant_launches`` the same calls by instantiation, keyed (DTPM,
+FAULTS).  Both return ``scheduled``, ``start``, ``finish`` and ``onpe``, each
+(L, J, T), under DTPM also ``onopp`` (L, J, T), ``opp_idx`` (L, C) and
+``peak_temp_c`` (L,), and with faults last ``counts`` (L, 2) int32 (the steps
+a lane took and the tasks it committed, re-commits included), equal bit for
+bit.
+
+Fail-stop faults, the reference's ``apply_faults`` (``:402-435``) and its
+``fired`` / ``floor`` carry (``:372-376``): a step whose least ready time
+crosses a PE's fail time first rolls back, as one union over the PEs firing
+together, the committed tasks on those PEs that finish after the fail time
+and their committed descendants; the queues drain at the surviving finishes;
+a rolled-back task none of whose preds was lost waits out the fail time
+(``floor``), one with a lost pred drops its floor.  The step's pick is then
+skipped if a pred of it was rolled back, else placed at the pre-rollback
+ready time, dead PEs taking ``inf`` in the policy's argmin (every PE dead:
+PE 0, as ``argmin``).  The scan runs until no task is left, at most
+``scenario.faults.fault_scan_steps`` steps.
 
 DTPM, the reference's ``_window_step`` (``:271``): before each commit the
 sampling windows that closed by the pick's ready time run (the lazy advance,
@@ -45,6 +63,11 @@ Three traps, handled where named:
   ``torch.min(dim=...)``, whose choice among ties is not documented).
 * ``table_pe`` is -1 where the offline table has no entry (a JAX index of -1
   wraps to the last PE); a valid task without an entry raises before launch.
+* Faults: the fire test reads the least ready time from before the rollback,
+  the PE choice the schedule from after it; a dead PE is ``inf`` in the
+  argmin (not excluded through the queues: the reference recomputes them only
+  when a task was lost); a task whose pred was lost gets floor 0 even if an
+  earlier fault had set one.
 """
 from __future__ import annotations
 
@@ -59,13 +82,16 @@ from . import _build
 
 BIG = 1e30            # finite on purpose, as the reference's BIG
 POLICIES = ("etf", "met", "table")
-THREADS = 256         # threads per block (csrc/epoch_scan.cu)
+THREADS = 256         # threads per block (csrc/epoch_scan.cuh)
 MAX_TASKS = 32        # T: a job's done set is one 32-bit mask
 MAX_SHARED = 232448   # dynamic shared bytes a block may use on Hopper
 MAX_PES_DTPM = 32     # DTPM: a lane of warp 0 per PE, domain and OPP level
 QUANTUM_BITS = 47     # a window's fixed-point term is below 2**47
 
 launches = 0
+# launches by instantiation: (DTPM, FAULTS) -> count, each also in `launches`
+variant_launches = dict.fromkeys(((False, False), (True, False),
+                                  (False, True), (True, True)), 0)
 _fn = None
 _prepared = weakref.WeakKeyDictionary()   # tables -> (pred bits, valid bits)
 
@@ -246,29 +272,39 @@ def _rc_rows(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
-                     app_idx: torch.Tensor, gov=None):
+                     app_idx: torch.Tensor, gov=None, faults=None):
     """The epoch scan as a Python loop over its six steps, vectorised over
     lanes.  ``arrival`` (L, J) f32, ``app_idx`` (L, J) int on the tables'
     device; ``gov`` a ``core.dvfs.PolicyLanes`` of L lanes runs the DTPM
-    program.  Returns (scheduled, start, finish, onpe), each (L, J, T), and
-    under DTPM also (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,)).
+    program; ``faults`` (L, P) f32 fail times (``inf``: never) the fail-stop
+    program.  Returns (scheduled, start, finish, onpe), each (L, J, T), under
+    DTPM then (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,)), and with
+    faults last ``counts`` (L, 2) int32: the steps each lane took and the
+    tasks it committed, re-commits included.
 
     Without faults every step commits one task while any is left, so the
     loop runs the largest count of valid tasks of any lane; a lane with
     nothing left commits into a spare slot past its last cell and PE, which
-    is dropped at the end (the reference's padding steps).  Under DTPM the
-    windows of each step run until no lane has one due; a lane whose next
-    window is not due is masked.
+    is dropped at the end (the reference's padding steps).  With faults a
+    step may roll back (:func:`_roll_back`) and skip its stale pick, which
+    also commits into the spare slot; the loop runs until no lane has a task
+    left, at most ``fault_scan_steps(J, T, n)`` steps for the most finite
+    fail times ``n`` of a lane (the reference's bound, which never binds).
+    Under DTPM the windows of each step run until no lane has one due; a
+    lane whose next window is not due is masked.
     """
     _check_policy(policy)
-    _check_table(tables, policy)
     dev = tables.exec_us.device
     arrival = arrival.to(dev, torch.float32)
     app_idx = app_idx.to(dev, torch.long)
     L, J = arrival.shape
     T, P = tables.t_max, tables.num_pes
+    if faults is not None:
+        faults = _check_faults(faults, policy, L, P).to(dev)
+    _check_table(tables, policy)
     JT = J * T
     dtpm = gov is not None
+    faulted = faults is not None
     lanes = torch.arange(L, device=dev)
     pred_j = tables.pred[app_idx]                      # (L, J, T, T)
     ebytes_j = tables.ebytes[app_idx]                  # (L, J, T, T)
@@ -301,14 +337,25 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
     def cells(x):
         return x[:, :JT].view(L, J, T)
 
-    for _ in range(int(valid_j.sum(dim=(1, 2)).max()) if L else 0):
+    min_steps = int(valid_j.sum(dim=(1, 2)).max()) if L else 0
+    steps = min_steps
+    if faulted:
+        from ..scenario.faults import fault_scan_steps   # scenario imports core
+        fired = torch.zeros((L, P), dtype=torch.bool, device=dev)
+        floor = torch.zeros((L, J, T), dtype=torch.float32, device=dev)
+        counts = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+        steps = fault_scan_steps(J, T, int(torch.isfinite(faults).sum(1).max()))
+    for step in range(steps):
         sched, fin = cells(scheduled), cells(finish)
         # 1. eligibility: tasks whose preds are all committed
         preds_open = (pred_j & ~sched[:, :, None, :]).any(dim=-1)
         eligible = ~sched & ~preds_open
-        # 2. epoch time: max(arrival, max pred finish); no preds -> arrival
+        # 2. epoch time: max(arrival, max pred finish); no preds -> arrival;
+        # a rolled-back fault victim also waits out its fail time (floor)
         pf = torch.where(pred_j, fin[:, :, None, :], -big)
         ready = torch.maximum(arrival[:, :, None], pf.amax(dim=-1))
+        if faulted:
+            ready = torch.maximum(ready, floor)
         ready = torch.where(eligible, ready, big)
         # 3. lexicographic argmin (ready, job, task): the first flat index
         rmin = ready.amin(dim=(1, 2))                               # (L,)
@@ -318,6 +365,20 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
         # a lane with nothing left has no pick: any in-range index will do
         pick = torch.where(do_commit, pick, 0)
         j, t = pick // T, pick % T
+        if faulted:
+            if step >= min_steps and not bool(do_commit.any()):
+                break                   # nothing left anywhere: no-ops follow
+            counts[:, 0] += do_commit
+            # 3a. the fail times this epoch crosses fire first, as one union
+            # rollback a lane; a pick whose pred was rolled back is skipped
+            fire = ~fired & (faults <= rmin[:, None]) & do_commit[:, None]
+            if bool(fire.any()):
+                _roll_back(fire, faults, fired, floor, pred_j, valid_j,
+                           sched, fin, cells(start), cells(onpe), pe_free,
+                           cells(onopp) if dtpm else None)
+                stale = (pred_j[lanes, j, t] & ~sched[lanes, j]).any(dim=-1)
+                do_commit = do_commit & ~stale
+            counts[:, 1] += do_commit
         if dtpm:
             # 3b. the windows closed by this epoch, then latency at the OPPs
             now = torch.where(do_commit, rmin, -big)
@@ -335,11 +396,13 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
             rmin[:, None], (pf_row[:, :, None] + comm).amax(dim=1))  # (L, P)
         start_c = torch.maximum(data_ready, pe_free[:, :P])
         fin_c = start_c + ex
-        # 5. policy: the first minimum
+        # 5. policy: the first minimum; a dead PE is inf (all dead: PE 0)
         if policy == "etf":
-            pe = torch.argmin(fin_c, dim=1)
+            pe = torch.argmin(torch.where(fired, math.inf, fin_c) if faulted
+                              else fin_c, dim=1)
         elif policy == "met":
-            pe = torch.argmin(ex, dim=1)
+            pe = torch.argmin(torch.where(fired, math.inf, ex) if faulted
+                              else ex, dim=1)
         else:
             pe = table_j[lanes, j, t]
         # 6. commit; a lane with nothing left writes its spare slots
@@ -355,13 +418,64 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
             onopp[lanes, cell] = win.opp_pe[lanes, pe]
     out = (cells(scheduled).contiguous(), cells(start).contiguous(),
            cells(finish).contiguous(), cells(onpe).to(torch.int32))
-    if not dtpm:
-        return out
-    # drain the windows between the last decision epoch and the makespan
-    makespan = torch.where(valid_j, cells(finish), 0.0).amax(dim=(1, 2))
-    win.advance(lambda: win.next_w - win.window < makespan, *window_cells())
-    return out + (cells(onopp).to(torch.int32), win.opp_idx.to(torch.int32),
-                  win.peak)
+    if dtpm:
+        # drain the windows between the last decision epoch and the makespan
+        makespan = torch.where(valid_j, cells(finish), 0.0).amax(dim=(1, 2))
+        win.advance(lambda: win.next_w - win.window < makespan, *window_cells())
+        out += (cells(onopp).to(torch.int32), win.opp_idx.to(torch.int32),
+                win.peak)
+    return out + (counts,) if faulted else out
+
+
+def _roll_back(fire, faults, fired, floor, pred_j, valid_j, sched, fin,
+               start, onpe, pe_free, onopp=None):
+    """The reference's ``apply_faults`` (``simkernel_jax.py:402-435``) on the
+    lanes where ``fire`` (L, P) holds, in place on the (L, J, T) cell views
+    and the (L, P + 1) queues; a lane where nothing fires is left as it was.
+    The committed tasks on a firing PE that finish after its fail time, and
+    their committed descendants (closed over T rounds), are reset; each
+    lane's queues are recomputed from its surviving schedule if it lost a
+    task; a lost task none of whose preds was lost (a root) waits out its
+    fail time, one with a lost pred (committed or not) drops its floor."""
+    L, J, T = sched.shape
+    P = fire.shape[1]
+    committed = sched & valid_j
+    pe_cells = onpe.reshape(L, J * T)
+    ftime = faults.gather(1, pe_cells).view(L, J, T)
+    inv = committed & fire.gather(1, pe_cells).view(L, J, T) & (fin > ftime)
+    for _ in range(T):
+        inv = inv | (committed & (pred_j & inv[:, :, None, :]).any(dim=-1))
+    any_pred_inv = (pred_j & inv[:, :, None, :]).any(dim=-1)
+    roots = inv & ~any_pred_inv
+    sched &= ~inv
+    fin.masked_fill_(inv, 0.0)
+    start.masked_fill_(inv, 0.0)
+    onpe.masked_fill_(inv, 0)
+    if onopp is not None:
+        onopp.masked_fill_(inv, 0)
+    survivors = torch.where(sched & valid_j, fin, 0.0).reshape(L, J * T)
+    recomputed = torch.zeros((L, P), dtype=torch.float32, device=fin.device) \
+        .scatter_reduce_(1, pe_cells, survivors, "amax")
+    lost = inv.flatten(1).any(dim=1, keepdim=True)
+    pe_free[:, :P] = torch.where(lost, recomputed, pe_free[:, :P])
+    floor.copy_(torch.where(roots, ftime, torch.where(any_pred_inv, 0.0, floor)))
+    fired |= fire
+
+
+def _check_faults(faults, policy: str, L: int, P: int) -> torch.Tensor:
+    """(L, P) f32 fail-time plans; the table policy pins each task to its
+    PE and cannot route around a dead one (the reference raises too)."""
+    if policy == "table":
+        raise ValueError(
+            "fail-stop injection needs a PE-masking scheduler; the table "
+            "policy pins static assignments — use met/etf (DESIGN.md §14)")
+    faults = torch.as_tensor(faults)
+    if faults.shape != (L, P):
+        raise ValueError(f"epoch_scan: fault plans {tuple(faults.shape)}, "
+                         f"{L} lanes of {P} PEs need {(L, P)}")
+    if bool(torch.isnan(faults).any()):
+        raise ValueError("epoch_scan: a fail time is NaN")
+    return faults.to(torch.float32)
 
 
 def _bits(mask: torch.Tensor) -> torch.Tensor:
@@ -432,54 +546,78 @@ def _kernel():
         fn_dtpm.restype = ctypes.c_int
         fn_dtpm.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
-        err = lib.repro_epoch_scan_error
+        # the fail-stop entries (their own library, csrc/epoch_scan_faults.cu):
+        # the same arguments, then the plans, the floor scratch, the counts
+        # and the step cap
+        lib = _build.load("epoch_scan_faults")
+        fn_faults = lib.repro_epoch_scan_faults
+        fn_faults.restype = ctypes.c_int
+        fn_faults.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn_dtpm_faults = lib.repro_epoch_scan_dtpm_faults
+        fn_dtpm_faults.restype = ctypes.c_int
+        fn_dtpm_faults.argtypes = [ctypes.c_void_p] * 36 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        err = lib.repro_epoch_scan_faults_error
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _fn = (fn, fn_dtpm, err)
+        _fn = {(False, False): fn, (True, False): fn_dtpm,
+               (False, True): fn_faults, (True, True): fn_dtpm_faults,
+               "error": err}
     return _fn
 
 
 def shared_bytes(J: int, A: int, T: int, P: int, C: int = 0,
-                 K: int = 0) -> int:
-    """Dynamic shared memory of one block (csrc/epoch_scan.cu's layout);
-    ``K`` > 0 (with ``C``) sizes the DTPM variant."""
+                 K: int = 0, faults: bool = False) -> int:
+    """Dynamic shared memory of one block (csrc/epoch_scan.cuh's layout);
+    ``K`` > 0 (with ``C``) sizes the DTPM variant, ``faults`` the
+    fail-stop one."""
     words = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + A + P \
         + 3 * J + 2 * (THREADS // 32)
     if K:
         # window bins (2P int64), per-job latest finish, the OPP and domain
         # tables, the lane's OPP indices, RC matrices and carry
         words += 4 * P + J + P * K + C * K + 4 * C + 4 * P + 32 + 9
+    if faults:
+        # fail times, dead and firing PEs, recomputed queues, per-job floor
+        # masks, the rollback's scalars
+        words += 4 * P + J + 8
     return 4 * words
 
 
 def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
-                K: int = 0) -> dict:
-    """Threads per block, resident blocks per SM and dynamic shared bytes of
-    one launch at these sizes (``K`` > 0: the DTPM variant)."""
-    lib = _build.load("epoch_scan")
-    out = (ctypes.c_int * 3)()
+                K: int = 0, faults: bool = False) -> dict:
+    """Threads per block, resident blocks per SM, dynamic shared bytes,
+    registers a thread and local (stack, spill) bytes a thread of one launch
+    at these sizes (``K`` > 0: the DTPM variant; ``faults``: the fail-stop
+    one)."""
+    lib = _build.load("epoch_scan_faults" if faults else "epoch_scan")
+    info_fn = lib.repro_epoch_scan_faults_info if faults else lib.repro_epoch_scan_info
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = lib.repro_epoch_scan_info(J, A, T, P, C, K, int(K > 0), out)
+        rc = info_fn(J, A, T, P, C, K, int(K > 0), out)
     if rc != 0:
-        raise RuntimeError(f"epoch_scan info failed: {_kernel()[2](rc).decode()}")
-    info = dict(zip(("threads", "blocks_per_sm", "shared_bytes"), out))
-    if (info["threads"], info["shared_bytes"]) != (THREADS,
-                                                   shared_bytes(J, A, T, P, C, K)):
-        raise RuntimeError(f"epoch_scan: csrc/epoch_scan.cu's geometry {info} "
+        raise RuntimeError(f"epoch_scan info failed: {_kernel()['error'](rc).decode()}")
+    info = dict(zip(("threads", "blocks_per_sm", "shared_bytes", "registers",
+                     "local_bytes"), out))
+    if (info["threads"], info["shared_bytes"]) != (
+            THREADS, shared_bytes(J, A, T, P, C, K, faults)):
+        raise RuntimeError(f"epoch_scan: csrc/epoch_scan.cuh's geometry {info} "
                            "differs from epoch_scan.py's")
     return info
 
 
 def epoch_scan(tables, policy: str, arrival: torch.Tensor,
-               app_idx: torch.Tensor, gov=None):
+               app_idx: torch.Tensor, gov=None, faults=None):
     """(L, J) lanes of one table set -> (scheduled, start, finish, onpe), each
-    (L, J, T), and with ``gov`` (a ``core.dvfs.PolicyLanes`` of L lanes) the
-    DTPM program's (onopp, opp_idx, peak_temp_c) after them.  CPU tensors
-    take the plain version; CUDA tensors one launch."""
+    (L, J, T), with ``gov`` (a ``core.dvfs.PolicyLanes`` of L lanes) the
+    DTPM program's (onopp, opp_idx, peak_temp_c) after them, and with
+    ``faults`` ((L, P) f32 fail times) the fail-stop program's counts (L, 2)
+    last.  CPU tensors take the plain version; CUDA tensors one launch."""
     _check_policy(policy)
     dev = tables.exec_us.device
     if dev.type == "cpu":
-        return epoch_scan_plain(tables, policy, arrival, app_idx, gov)
+        return epoch_scan_plain(tables, policy, arrival, app_idx, gov, faults)
     if dev.type != "cuda":
         raise ValueError(f"epoch_scan: no kernel for device {dev}")
     if arrival.device != dev or app_idx.device != dev:
@@ -498,7 +636,12 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
         raise ValueError("epoch_scan: no lanes or no jobs")
     if gov is not None:
         _check_dtpm(tables, gov, L)
-    nbytes = shared_bytes(J, A, T, P, C, K)
+    if faults is not None:
+        faults = _check_faults(faults, policy, L, P)
+        if faults.device != dev:
+            raise ValueError(f"epoch_scan: fault plans on {faults.device}, "
+                             f"tables on {dev}")
+    nbytes = shared_bytes(J, A, T, P, C, K, faults is not None)
     if nbytes > MAX_SHARED:
         raise ValueError(f"epoch_scan: {J} jobs of {T} tasks on {P} PEs need "
                          f"{nbytes} bytes of shared memory a block; the card "
@@ -519,14 +662,24 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     static_args = [f32[0], prep["pred_bits"], f32[1], prep["valid_bits"],
                    f32[2], f32[3], f32[4], table_pe, arrival, app_idx,
                    scheduled, start, finish, onpe]
-    fn, fn_dtpm, err = _kernel()
+    fns = _kernel()
+    fn = fns[gov is not None, faults is not None]
+    fault_args, fault_outs, cap = [], (), []
+    if faults is not None:
+        from ..scenario.faults import fault_scan_steps   # scenario imports core
+        # the floor is scratch: a task's is read only once a rollback set it
+        fault_outs = (torch.empty((L, 2), dtype=torch.int32, device=dev),)
+        fault_args = [faults.contiguous(),
+                      torch.empty((L, J, T), dtype=torch.float32, device=dev),
+                      fault_outs[0]]
+        cap = [fault_scan_steps(J, T, int(torch.isfinite(faults).sum(1).max()))]
     global launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if gov is None:
             # one design (D = 1): its L lanes are the (1, S) lane grid
-            rc = fn(*[t.data_ptr() for t in static_args], 1, L, J, A, T, P,
-                    POLICIES.index(policy), stream)
+            rc = fn(*[t.data_ptr() for t in static_args + fault_args], *cap,
+                    1, L, J, A, T, P, POLICIES.index(policy), stream)
             outs = ()
         else:
             *dtpm_tables, rc_consts, p_max = prep["dtpm"]
@@ -537,11 +690,12 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
             outs = (torch.empty((L, J, T), dtype=torch.int32, device=dev),
                     torch.empty((L, C), dtype=torch.int32, device=dev),
                     torch.empty((L,), dtype=torch.float32, device=dev))
-            rc = fn_dtpm(*[t.data_ptr() for t in
-                           static_args + dtpm_tables + lanes + [rc_consts]
-                           + list(outs)],
-                         1, L, J, A, T, P, POLICIES.index(policy), C, K, stream)
+            rc = fn(*[t.data_ptr() for t in
+                      static_args + dtpm_tables + lanes + [rc_consts]
+                      + list(outs) + fault_args],
+                    *cap, 1, L, J, A, T, P, POLICIES.index(policy), C, K, stream)
     if rc != 0:
-        raise RuntimeError(f"epoch_scan launch failed: {err(rc).decode()}")
+        raise RuntimeError(f"epoch_scan launch failed: {fns['error'](rc).decode()}")
     launches += 1
-    return (scheduled, start, finish, onpe) + outs
+    variant_launches[gov is not None, faults is not None] += 1
+    return (scheduled, start, finish, onpe) + outs + fault_outs

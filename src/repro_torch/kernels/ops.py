@@ -59,10 +59,13 @@ def rg_lru(a, x, h0=None):
     return _lru.rg_lru(a, x)
 
 
-def epoch_scan(tables, policy: str, arrival, app_idx, gov=None):
+def epoch_scan(tables, policy: str, arrival, app_idx, gov=None, faults=None):
     """K1: the epoch scan of ``L`` lanes of one table set.
     arrival (L, J) f32, app_idx (L, J) int on the tables' device ->
     (scheduled, start, finish, onpe), each (L, J, T); with ``gov`` (a
     ``core.dvfs.PolicyLanes`` of L lanes) the DTPM program, which adds
-    (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,))."""
-    return _scan.epoch_scan(tables, policy, arrival, app_idx, gov=gov)
+    (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,)); with ``faults``
+    ((L, P) f32 fail times) the fail-stop program, which adds counts
+    (L, 2) int32 (steps taken, tasks committed)."""
+    return _scan.epoch_scan(tables, policy, arrival, app_idx, gov=gov,
+                            faults=faults)

@@ -10,9 +10,9 @@ The kernels consume faults in two forms:
 * the reference kernel takes the ``(pe_id, fail_time_us)`` pairs directly
   (last one wins per PE, matching its historical dict semantics);
 * the epoch scan takes a dense **fault plan** — a ``(P,)`` float32 vector of
-  fail times, ``+inf`` meaning "never fails".  The port's scan does not take
-  one yet (ROADMAP.md queue 1, item 4); ``scenario.run(backend="torch")``
-  uses the plan only to tell a no-op fault spec from a real one.
+  fail times, ``+inf`` meaning "never fails" — or stacked ``(L, P)`` lane
+  plans (:func:`stack_fault_plans`), one per lane of a batch, with the scan
+  length :func:`fault_scan_steps` bounds.
 
 ``fail_time_us`` is quantised to float32 at construction so the reference
 kernel's python-float comparisons and the scan's f32 comparisons agree
@@ -122,6 +122,35 @@ def fault_plan(failures: Sequence[FaultSpec], num_pes: int,
         plan[f.pe_id] = np.float32(f.fail_time_us)
         fired = fired or not f.is_noop
     return plan if fired else None
+
+
+def stack_fault_plans(fault_sets: Sequence[Sequence[FaultSpec]],
+                      num_pes: int, width: Optional[int] = None
+                      ) -> Tuple[Optional[np.ndarray], int]:
+    """Stacked ``(F, P)`` lane plans, one per fault set.
+
+    Returns ``(plans, max_faults)`` where ``max_faults`` is the widest
+    finite-fault count across lanes (it bounds the extra scan steps every
+    lane may need).  ``plans`` is ``None`` when every lane is a no-op: the
+    lanes then take the exact fault-free program.
+    """
+    width = width or num_pes
+    rows = [fault_plan(fs, num_pes, width) for fs in fault_sets]
+    if all(r is None for r in rows):
+        return None, 0
+    plans = np.stack([np.full(width, np.inf, np.float32) if r is None
+                      else r for r in rows])
+    max_faults = int(np.isfinite(plans).sum(axis=1).max())
+    return plans, max_faults
+
+
+def fault_scan_steps(num_jobs: int, t_max: int, max_faults: int) -> int:
+    """Epoch-scan length under ``max_faults`` fail-stop events.
+
+    Each fault can roll back every committed task (≤ J·T re-commits) and
+    costs at most one skipped epoch, so ``J·T·(1 + F) + F`` steps always
+    suffice (DESIGN.md §14)."""
+    return num_jobs * t_max * (1 + max_faults) + max_faults
 
 
 def pe_loss_faults(pe_ids: Iterable[int], fail_time_us: float = 0.0,

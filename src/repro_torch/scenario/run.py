@@ -4,8 +4,9 @@
 device and runs the epoch scan (K1 on a CUDA device, its plain version on the
 CPU): for a static governor with the binned RC peak temperature, for a
 dynamic one (ondemand, throttle) as the closed DTPM loop whose inline RC
-network gives the peak temperature; ``backend="ref"`` materialises the
-scenario and calls the port's event-heap oracle.  Tables are cached on the
+network gives the peak temperature, and under either with the scenario's
+fail-stop faults rolled back inside the scan; ``backend="ref"`` materialises
+the scenario and calls the port's event-heap oracle.  Tables are cached on the
 (frozen, hashable) scenario minus its trace, and on the device, so repeated
 runs over different workloads reuse them.
 
@@ -94,8 +95,11 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
     userspace / ``"design"``) bake one OPP into the tables and report the
     binned RC co-simulation's peak temperature; the ondemand family runs the
     closed DTPM loop inside the scan and reports the peak temperature of its
-    inline RC feedback.  Fail-stop faults and telemetry raise
-    :class:`BackendCapabilityError` (each a later slice).
+    inline RC feedback.  ``scenario.failures`` run as the reference's
+    fail-stop program under met and etf, static or dynamic (a spec that can
+    never fire takes the fault-free program); with the ``table`` scheduler
+    they raise :class:`BackendCapabilityError`, as in the reference.
+    Telemetry raises :class:`BackendCapabilityError` (a later slice).
     ``backend="ref"``: the event-heap reference kernel on the host — all
     governors and fail-stop injection; ``device`` is not read.
 
@@ -122,11 +126,13 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
 
     # no-op fault specs (empty / all-inf) normalise to plan=None: the
     # fault-free program, as in the reference
-    if _faults.fault_plan(scenario.failures, scenario.design.num_pes) is not None:
+    plan = _faults.fault_plan(scenario.failures, scenario.design.num_pes)
+    if plan is not None and scenario.scheduler == "table":
         raise BackendCapabilityError(
-            "fail-stop fault injection", "torch", "backend='ref'",
-            detail="faults in the epoch scan are not ported yet "
-                   "(ROADMAP.md queue 1, item 4)")
+            "fail-stop injection with the 'table' scheduler", "torch",
+            "backend='ref'",
+            detail="the offline ILP table pins tasks to PEs, so dead-PE "
+                   "fallback needs the runtime schedulers (met/etf)")
     dev = resolve_device(device)
     tables = tables_for(scenario, device=dev)
     trace = trace_override or scenario.job_trace()
@@ -134,11 +140,12 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
     if pol.dynamic:
         out = _torchk.simulate_torch_dtpm(tables, scenario.scheduler,
                                           trace.arrival_us, trace.app_index,
-                                          pol)
+                                          pol, faults=plan)
         peak = out["peak_temp_c"]
     else:
         out = _torchk.simulate_torch(tables, scenario.scheduler,
-                                     trace.arrival_us, trace.app_index)
+                                     trace.arrival_us, trace.app_index,
+                                     faults=plan)
         peak = _peak_temp_single(out, _cached_nodes(scenario.design, dev),
                                  tables.power_active, tables.power_idle,
                                  bins=scenario.thermal.bins,

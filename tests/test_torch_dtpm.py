@@ -269,8 +269,8 @@ def test_kernel_table_and_window_guards():
     with pytest.raises(ValueError, match="2 policies for 1 lanes"):
         skt.simulate_batch_dtpm(dyn, "etf", args[0][None], args[1][None],
                                 [ondemand, ondemand])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        skt.simulate_torch_dtpm(dyn, "etf", *args, ondemand,
+    with pytest.raises(ValueError, match="PE-masking"):
+        skt.simulate_torch_dtpm(dyn, "table", *args, ondemand,
                                 faults=np.full(db.num_pes, np.inf, np.float32))
     # the reference's own guards on the same inputs
     with pytest.raises(ValueError, match="positive"):
@@ -280,10 +280,17 @@ def test_kernel_table_and_window_guards():
 
 
 def test_run_torch_still_refuses_faults_and_telemetry_under_dtpm():
+    """Faults under DTPM run (tests/test_torch_faults.py holds them to the
+    reference); with the table scheduler, or with telemetry, they raise."""
     from repro_torch.scenario import BackendCapabilityError, FaultSpec
-    scn = Scenario(governor="throttle")
-    with pytest.raises(BackendCapabilityError, match="item 4"):
-        run(scn.replace(failures=(FaultSpec(0, 100.0),)), device="cpu")
+    scn = Scenario(governor="throttle",
+                   trace=TraceSpec(rate_jobs_per_ms=25.0, num_jobs=12, seed=3))
+    faulted = scn.replace(failures=(FaultSpec(0, 100.0),))
+    assert run(faulted, device="cpu").raw["steps"] > 0
+    with pytest.raises(BackendCapabilityError, match="'table' scheduler"):
+        run(faulted.replace(scheduler="table"), device="cpu")
+    with pytest.raises(BackendCapabilityError, match="item 9"):
+        run(faulted.replace(telemetry=True), device="cpu")
     with pytest.raises(BackendCapabilityError, match="item 9"):
         run(scn.replace(telemetry=True), device="cpu")
 

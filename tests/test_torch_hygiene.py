@@ -151,7 +151,8 @@ def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.sources()]
     assert names == ["decode_attention.cu", "epoch_scan.cu",
-                     "flash_attention.cu", "rg_lru.cu", "ssd_scan.cu"]
+                     "epoch_scan_faults.cu", "flash_attention.cu", "rg_lru.cu",
+                     "ssd_scan.cu"]
     for src in _build.sources():
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text

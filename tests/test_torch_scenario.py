@@ -153,7 +153,9 @@ def test_run_torch_runs_dynamic_governors(governor):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(failures=(FaultSpec(0, 100.0),)), "item 4"),
+    # faults run (tests/test_torch_faults.py); not with the table scheduler
+    (dict(failures=(FaultSpec(0, 100.0),), scheduler="table"),
+     "'table' scheduler"),
     (dict(telemetry=True), "item 9"),
 ])
 def test_run_torch_raises_for_what_is_not_ported(change, match):

@@ -169,9 +169,14 @@ def test_the_static_scan_refuses_dynamic_tables_faults_and_bad_tables():
     with pytest.raises(ValueError, match="dynamic governor"):
         skt.simulate_torch(dyn, "etf", trace.arrival_us, trace.app_index)
     tt = port_tables(build_tables(db, [wifi_tx()]))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        skt.simulate_torch(tt, "etf", trace.arrival_us, trace.app_index,
+    # faults run under met and etf; the table policy cannot route around a
+    # dead PE, and a plan must have one fail time a PE
+    with pytest.raises(ValueError, match="PE-masking"):
+        skt.simulate_torch(tt, "table", trace.arrival_us, trace.app_index,
                            faults=np.full(db.num_pes, np.inf, np.float32))
+    with pytest.raises(ValueError, match="faults"):
+        skt.simulate_torch(tt, "etf", trace.arrival_us, trace.app_index,
+                           faults=np.full(db.num_pes + 1, np.inf, np.float32))
     with pytest.raises(ValueError, match="unknown policy"):
         skt.simulate_torch(tt, "heft", trace.arrival_us, trace.app_index)
     # tables built without an offline table: every valid task_pe is -1

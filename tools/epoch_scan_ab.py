@@ -3,7 +3,7 @@
 
     python3 tools/epoch_scan_ab.py [SRC_DIR] [--rates 32] [--seeds 32]
         [--jobs 1000] [--check-every 16] [--verbose] [--sweep]
-        [--governor ondemand|throttle]
+        [--governor ondemand|throttle] [--faults]
 
 Builds the kernels of ``SRC_DIR`` (default: this checkout's ``src``; with
 ``--verbose`` prints ptxas's report of ``epoch_scan_kernel``), then for each
@@ -23,7 +23,11 @@ grid prints windows a lane beside the steps, its check takes every
 ``check-every``-th lane of the highest rate only (the plain loop runs the
 longest checked lane's windows, ~20,000 at 1 job/ms), and ``--sweep`` prints
 a lone block's µs per step (the static kernel on the same lanes) and µs per
-window (what DTPM adds, over the windows of a lane).  Two versions are
+window (what DTPM adds, over the windows of a lane).  ``--faults`` runs K1's
+fail-stop instantiation (etf and met) on 1 + P copies of the grid: none, and
+each of the P PEs lost at each lane's arrival of job ``jobs / 2`` (as
+``chip_smoke.py`` builds its fault grid), and prints re-commits beside the
+time; its check takes the last fault set's highest-rate lanes.  Two versions are
 compared inside ONE job on one card, in turns:
 
     for t in parent/src src src parent/src; do python3 tools/epoch_scan_ab.py $t; done
@@ -78,6 +82,8 @@ def main():
                          "and rate, instead of the A/B run")
     ap.add_argument("--governor", choices=sorted(GOVERNORS),
                     help="run K1's DTPM variant under this governor")
+    ap.add_argument("--faults", action="store_true",
+                    help="run K1's fail-stop variant over single-PE losses")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("epoch_scan_ab.py: no CUDA device")
@@ -120,20 +126,38 @@ def main():
     out_keys = ("scheduled", "start", "finish", "onpe")
     if gov_name:
         out_keys += ("onopp", "opp_idx", "peak_temp_c")
-    for policy in ("etf", "met", "table"):
+    fault_kw, plain_kw = {}, {}
+    if args.faults:
+        # lanes (1 + P fault sets) x traces: none, then PE p lost at job J/2
+        P = base.design.num_pes
+        N = L
+        plans = torch.full((P + 1, N, P), float("inf"), device=dev)
+        half = arrival[:, J // 2]
+        for pe in range(P):
+            plans[pe + 1, :, pe] = half
+        plans = plans.reshape(-1, P)
+        arrival, app_idx = arrival.repeat(P + 1, 1), app_idx.repeat(P + 1, 1)
+        L = arrival.shape[0]
+        fault_kw = {"faults": plans}
+        out_keys += ("counts",)
+    for policy in ("etf", "met") if args.faults else ("etf", "met", "table"):
         tables = tables_for(base.replace(scheduler=policy), device=dev)
         A, T, P = tables.exec_us.shape
         C, K = tables.opp_freq.shape if gov_name else (0, 0)
         # a parent tree's K1 takes neither C, K nor gov=
         dtpm_kw = {"C": C, "K": K} if gov_name else {}
-        info = k1.kernel_info(J, A, T, P, dev, **dtpm_kw)
+        info = k1.kernel_info(J, A, T, P, dev, **dtpm_kw,
+                              **({"faults": True} if args.faults else {}))
         launch_kw = {"gov": policy_lanes(pol, L)} if gov_name else {}
+        launch_kw.update(fault_kw)
         if gov_name:
             out = simkernel_torch.simulate_batch_dtpm(tables, policy, arrival,
-                                                      app_idx, pol)
+                                                      app_idx, pol, **fault_kw)
         else:
             out = simkernel_torch.simulate_batch(tables, policy, arrival,
-                                                 app_idx)
+                                                 app_idx, **fault_kw)
+        if args.faults:
+            out["counts"] = torch.stack([out["steps"], out["commits"]], dim=1)
         torch.cuda.synchronize()
         if not bool(out["scheduled"].all()):
             raise AssertionError(f"{policy}: a task was left unscheduled")
@@ -142,7 +166,9 @@ def main():
             # DTPM: the highest rate's lanes only (fewest windows)
             first = L - args.seeds if gov_name else 0
             lanes = torch.arange(first, L, args.check_every, device=dev)
-            sub = [policy_lanes(pol, len(lanes))] if gov_name else []
+            sub = [policy_lanes(pol, len(lanes)) if gov_name else None]
+            if args.faults:
+                sub.append(plans[lanes])
             t0 = time.perf_counter()
             plain = k1.epoch_scan_plain(tables, policy, arrival[lanes],
                                         app_idx[lanes], *sub)
@@ -166,6 +192,11 @@ def main():
             w = windows_per_lane(out["makespan_us"], pol.sample_window_us)
             windows = (f", {float(w.float().mean()):.0f} windows a lane on "
                        f"average, {int(w.max())} at most")
+        if args.faults:
+            nbytes += 4 * (L * P + L * J * T + 2 * L)  # plans, floor, counts
+            windows += (f", {int(out['commits'].sum()) - tasks} re-commits, "
+                        f"{info['registers']} registers, "
+                        f"{info['local_bytes']} local bytes")
         bound = 1e3 * nbytes / PEAK_BYTES_S
         print(f"{policy}{'/' + gov_name if gov_name else ''}: L={L} J={J} "
               f"T={T} P={P}: K1 {ms:.4f} ms a launch, "
