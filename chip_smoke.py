@@ -5,10 +5,10 @@
 
 Drives the port's main paths — ``ServeEngine`` -> prefill -> decode for
 gemma2-2b, recurrentgemma-2b and mamba2-130m, and the DS3 scenario path
-``Scenario`` -> ``run`` / ``simulate_batch`` -> the epoch scan — through the
-entry points a user would call, and holds every CUDA kernel of those paths
-against its plain PyTorch version.  Needs one CUDA device; without one it exits non-zero at
-once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
+``Scenario`` -> ``run`` / ``simulate_batch`` / ``sweep`` -> the epoch scan —
+through the entry points a user would call, and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Needs one CUDA device;
+without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
 1. card    the ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -73,9 +73,9 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            plain scan; (c) the comm-free integer trace (window 50 us, etf and
            met) equal to the event-heap oracle on finish, PE and latched
            frequency; (d) the full grid under ondemand and throttle per
-           scheduler, K1 timed as above, windows a lane printed, two lanes
-           (seed 0 of the middle and of the highest rate: the plain loop
-           pays each checked lane's windows) equal to the plain scan.  The
+           scheduler, K1 timed as above, windows a lane printed, one lane
+           (seed 0 of the highest rate: the plain loop pays each checked
+           lane's windows) equal to the plain scan.  The
            host oracle runs at 20 and 60 jobs/ms only.  Then fail-stop
            faults through K1's two faulted instantiations: (a) wifi_tx x
            {etf, met} at 2, 20, 60 jobs/ms, 80 jobs, through
@@ -100,7 +100,34 @@ once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
            ``onopp``, ``opp_idx``, steps and commits bit for bit, peak and
            energy within 1e-5).  K1's SASS, all four instantiations, holds
            no FFMA.  Launch counts are set to 0 before each part and must be
-           exact, by instantiation (10, 3, 18, 1, 2, 6, 36, 12, 2 + 2, 72, 2).
+           exact, by instantiation (10, 3, 18, 1, 2, 6, 36, 12, 2 + 2, 72, 2);
+7. sweep   ``repro_torch.scenario.sweep`` as a user calls it, one K1 launch
+           per scheduler over design-major lanes (the designs are K1's D
+           axis): (a) small sweeps of 80 jobs — {3 designs of 8, 13 and 19
+           PEs} x {2, 20, 60 jobs/ms} (wifi_tx+wifi_rx), {etf, met, table} x
+           rate (wifi_tx), 9 ondemand and 9 throttle parameterisations x the
+           3 designs, 4 fault sets x the 3 designs x {20, 60 jobs/ms} x {etf,
+           met}, static and ondemand — every lane equal to ``run(backend=
+           "torch")`` of its point (makespan bit for bit, latency,
+           throughput, energy and busy time within 1e-6 relative, peak
+           1e-5) and to the same sweep on ``backend="ref"`` within 1e-4 /
+           1e-3, and K1's lanes equal to the plain scan on the same stacked
+           tables bit for bit (every output); (b) every valid design of
+           ``DesignSpace().grid()`` (1,080, padded to 19 PEs) x 4 seeds of
+           1,000 jobs of the five-app mix at 20 jobs/ms, static, etf and
+           met (D = 1,080, 4,320 lanes a launch); (c) 64 LHS designs x 16
+           ondemand policies, etf and met (D = 64, 1,024 lanes); (d) 8
+           fault sets (none; PE 0-6 lost at 500 us) x 16 designs of more
+           than 7 PEs x 8 seeds, etf.  For (b)-(d): the sweep's wall time,
+           split from inside the sweep into the host table builds (cold),
+           the K1 launches (CUDA events) and the epilogue plus thermal; K1
+           again on the same inputs (median of 5); design points a second;
+           device memory held; four lanes of each of the sweep's launches,
+           spread over the designs, equal to ONE plain call over those
+           lanes, and the sweep's makespans of them equal to their
+           schedules'.  Launch counts exact,
+           by instantiation, and equal to the scans the sweeps started (4,
+           2, 2, 2 small; 2; 2; 1).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -117,6 +144,8 @@ line before both.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import importlib
 import json
 import shutil
 import statistics
@@ -141,11 +170,12 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
 from repro_torch.core.applications import wifi_tx  # noqa: E402
 from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E402
-                                   policy_lanes)
+                                   policy_lanes, stack_policies)
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
 from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
 from repro_torch.core.schedulers import get_scheduler  # noqa: E402
-from repro_torch.dse import DesignPoint  # noqa: E402
+from repro_torch.dse import DesignPoint, DesignSpace, stack_traces  # noqa: E402
+from repro_torch.dse import batch as dse_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
 from repro_torch.kernels import epoch_scan as k1  # noqa: E402
@@ -156,9 +186,13 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
-                                  pe_loss_faults, run, tables_for)
-from repro_torch.scenario.faults import fault_scan_steps  # noqa: E402
+                                  pe_loss_faults, run, sweep, tables_for)
+from repro_torch.scenario.faults import (fault_scan_steps,  # noqa: E402
+                                         normalize_failures, stack_fault_plans)
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
+
+# the module (the package's `sweep` attribute is the function)
+sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
 
 DEV = torch.device("cuda", 0)
 # NVIDIA H100 SXM data sheet (dense rates): the peaks every bound is stated against
@@ -1149,13 +1183,15 @@ def scan_bound_ms(tables, L, J, dtpm=False, faults=False):
     matrices, two exponents) and the latched OPPs (L, J, T), final OPPs and
     peaks; with faults also the (L, P) plans read once, the (L, J, T) floor
     written once and the (L, 2) counts.  The scan itself is a chain of
-    dependent steps, and under DTPM of windows, that no rate bounds."""
-    A, T, P = tables.exec_us.shape
-    table_bytes = 4 * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
+    dependent steps, and under DTPM of windows, that no rate bounds.  Over
+    the tables of D stacked designs every table counts D times."""
+    *lead, A, T, P = tables.exec_us.shape
+    D = lead[0] if lead else 1
+    table_bytes = 4 * D * (A * T * P + 2 * A * T + A * T * T + A + P * P + 2)
     nbytes = table_bytes + 8 * L * J + 13 * L * J * T
     if dtpm:
-        C, K = tables.opp_freq.shape
-        nbytes += 4 * (A * T * P * (K - 1) + P * K + C * K + 3 * C + 4 * P
+        C, K = tables.opp_freq.shape[-2:]
+        nbytes += 4 * (D * (A * T * P * (K - 1) + P * K + C * K + 3 * C + 4 * P)
                        + 37 * L + L * J * T + L * C + L)
     if faults:
         nbytes += 4 * (L * P + L * J * T + 2 * L)
@@ -1459,10 +1495,10 @@ def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx):
     n_launches += 6
     # the plain loop runs its longest lane's steps (~6,800 here, ~1 ms each)
     # and one masked window step for each window of each of its lanes (they
-    # seldom close together; ~20,000 / rate a lane, ~1 ms each): so two
-    # lanes, seed 0 of the middle rate and of the highest, where most jobs
-    # are in flight, the window walk's hardest case
-    check_idx = (SCAN_RATES // 2, SCAN_RATES - 1)
+    # seldom close together; ~20,000 / rate a lane, ~1 ms each): so one lane,
+    # seed 0 of the highest rate, where most jobs are in flight, the window
+    # walk's hardest case
+    check_idx = (SCAN_RATES - 1,)
     checked = torch.tensor([r * SCAN_SEEDS for r in check_idx], device=DEV)
     check_rates = " and ".join(f"{np.linspace(1.0, 80.0, SCAN_RATES)[r]:.2f}"
                                for r in check_idx)
@@ -1845,6 +1881,400 @@ def phase_scenario_faults(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+
+# (a) small sweeps of 80 jobs at phase 6's rates, over three designs of 8,
+# 13 and 19 PEs (the first without a big core: a lower peak power)
+SWEEP_JOBS, SWEEP_RATES = 80, (2.0, 20.0, 60.0)
+SWEEP_DESIGNS = (DesignPoint(0, 4, 1, 2, 1), DesignPoint(2, 4, 2, 4, 1),
+                 DesignPoint(4, 8, 2, 4, 1))
+# 9 ondemand / throttle parameterisations: 3 up thresholds x 3 windows
+SWEEP_PARAMS = tuple((("up_threshold", u), ("sample_window_us", w))
+                     for u in (0.6, 0.8, 0.95) for w in (25.0, 50.0, 100.0))
+# four fault sets: none, one PE mid-trace, two at once, one at t = 0; at the
+# two higher rates (at 2 jobs/ms the plain loop's windows cost the most)
+SWEEP_FAULTS = ((), (FaultSpec(0, 300.0),),
+                (FaultSpec(1, 500.0), FaultSpec(2, 500.0)), (FaultSpec(3, 0.0),))
+SWEEP_FAULT_RATES = SWEEP_RATES[1:]
+# (b)-(d): the five-app mix, 1,000 Poisson jobs at 20 jobs/ms; (b) every valid
+# design of DesignSpace().grid() x 4 seeds, (c) 64 LHS designs x 16 ondemand
+# policies (4 up thresholds x 4 windows), (d) 8 fault sets x 16 designs of
+# more than 7 PEs x 8 seeds
+GRID_JOBS, GRID_RATE, GRID_SEEDS = 1000, 20.0, 4
+GRID_DTPM_DESIGNS = 64
+GRID_DTPM_PARAMS = tuple((("up_threshold", u), ("sample_window_us", w))
+                         for u in (0.6, 0.7, 0.8, 0.9)
+                         for w in (25.0, 50.0, 100.0, 200.0))
+GRID_FAULT_DESIGNS, GRID_FAULT_SEEDS = 16, 8
+
+
+def take_designs(tables, idx):
+    """The designs ``idx`` of a stack, as a stack of their own."""
+    idx = torch.as_tensor(idx, device=tables.device)
+    return dataclasses.replace(tables, **{
+        name: getattr(tables, name)[idx] for name in simkernel_torch.ARRAY_FIELDS
+        if getattr(tables, name) is not None})
+
+
+def sweep_scans() -> int:
+    return sum(sweep_mod.scan_calls.values())
+
+
+def assert_sweep_is_runs(sr, base, axes: dict, what: str):
+    """Every lane of a sweep against run(backend="torch") of its point
+    (makespan bit for bit, latency, throughput, energy and per-PE busy time
+    within 1e-6 relative, peak within 1e-5) and against the same sweep on
+    backend="ref" (phase 6's 1e-4 on latency and makespan, 1e-3 on
+    energy)."""
+    names = list(axes)
+    for idx in np.ndindex(*sr.shape):
+        scn = sweep_mod._apply_axes(base, names, [axes[n][i] for n, i in zip(names, idx)])
+        res = run(scn, backend="torch")
+        if sr.makespan_us[idx] != res.makespan_us:
+            raise AssertionError(f"{what} {idx}: makespan {sr.makespan_us[idx]} "
+                                 f"vs run {res.makespan_us}")
+        P = res.utilization.shape[0]
+        for name, got, want, tol in (
+                ("avg_latency_us", sr.avg_latency_us[idx], res.avg_latency_us, 1e-6),
+                ("throughput", sr.throughput_jobs_per_ms[idx],
+                 res.throughput_jobs_per_ms, 1e-6),
+                ("energy_j", sr.energy_j[idx], res.energy_j, 1e-6),
+                ("peak_temp_c", sr.peak_temp_c[idx], res.peak_temp_c, 1e-5)):
+            if abs(got - want) > tol * abs(want):
+                raise AssertionError(f"{what} {idx}: {name} {got} vs run {want}")
+        np.testing.assert_allclose(sr.utilization[idx][:P], res.utilization,
+                                   rtol=1e-6, atol=1e-12, err_msg=f"{what} {idx}")
+        if np.any(sr.busy_per_pe_us[idx][P:] != 0):
+            raise AssertionError(f"{what} {idx}: a padded PE is busy")
+    ref = sweep(base, axes, backend="ref")
+    np.testing.assert_allclose(sr.avg_latency_us, ref.avg_latency_us, rtol=1e-4,
+                               err_msg=f"{what} vs ref")
+    np.testing.assert_allclose(sr.makespan_us, ref.makespan_us, rtol=1e-4,
+                               err_msg=f"{what} vs ref")
+    np.testing.assert_allclose(sr.energy_j, ref.energy_j, rtol=1e-3,
+                               err_msg=f"{what} vs ref")
+
+
+def grid_vs_plain(tables, policy, arrival, app_idx, gov=None, fplans=None,
+                  what=""):
+    """One K1 launch of a grid's design-major lanes (a comparison launch,
+    after the main path's counts were read) and K1's plain version on the
+    same stacked tables and lanes: every output bit for bit."""
+    la, lp, pols, plans, _ = dse_batch.grid_lanes(tables, arrival, app_idx, gov,
+                                                  fplans)
+    got = k1.epoch_scan(tables, policy, la, lp, pols, plans)
+    want = k1.epoch_scan_plain(tables, policy, la, lp, pols, plans)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: K1 and its plain version differ in "
+                                 f"output {k} on the stacked tables")
+    return la.shape[0]
+
+
+def lanes_vs_plain(tables, scan, policy, arrival, app_idx, picks, lanes_per_design,
+                   gov=None, plans=None, what=""):
+    """Lanes of one K1 launch against ONE plain call over just those lanes:
+    ``picks`` (design, lane within its design) pairs; the plain scan runs on
+    a stack of the picked designs, one lane each (so its cost is the plain
+    loop's steps, not its lanes).  Returns the plain call's seconds."""
+    lanes = [d * lanes_per_design + k for d, k in picks]
+    sub = take_designs(tables, [d for d, _ in picks])
+    pols = None if gov is None else gov.take(torch.tensor(lanes))
+    fp = None if plans is None else plans[lanes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = k1.epoch_scan_plain(sub, policy, arrival[lanes], app_idx[lanes], pols, fp)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for k, (g, w) in enumerate(zip(scan, want)):
+        if not torch.equal(g[lanes], w):
+            raise AssertionError(f"{what}: K1 and its plain version differ in "
+                                 f"output {k} on lanes {lanes}")
+    return plain_s
+
+
+@torch.no_grad()
+def phase_sweep(smi: str) -> dict:
+    """``repro_torch.scenario.sweep`` on the card: (a) small sweeps of every
+    axis kind against run(), backend="ref" and the plain scan, (b) the full
+    static design grid, (c) a dynamic design x policy grid, (d) a fault x
+    design grid, each one K1 launch per scheduler.  Returns K1's launches by
+    instantiation name and the measured numbers for the `kernels` line."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(K1_VARIANTS.values(), 0)
+    measured = {}
+
+    def main_path(base, axes, want: dict, what: str):
+        """The sweep as a user calls it, with the launch counts set to 0 just
+        before and read just after."""
+        counts_zero()
+        n0 = sweep_scans()
+        sr = sweep(base, axes)
+        torch.cuda.synchronize()
+        assert_counts(want, what)
+        if sweep_scans() - n0 != sum(want.values()):
+            raise AssertionError(f"{what}: {sweep_scans() - n0} scans started, "
+                                 f"{sum(want.values())} launches")
+        for name, n in want.items():
+            launches[name] += n
+        return sr
+
+    # -- (a) small sweeps: every lane = run(), = ref within phase 6's
+    # tolerances; K1 = the plain scan on the stacked tables
+    mix = Scenario(apps=("wifi_tx", "wifi_rx"),
+                   trace=TraceSpec(rate_jobs_per_ms=20.0, num_jobs=SWEEP_JOBS, seed=1))
+    one = Scenario(apps=("wifi_tx",),
+                   trace=TraceSpec(rate_jobs_per_ms=20.0, num_jobs=SWEEP_JOBS, seed=2))
+    designs = [(p,) for p in SWEEP_DESIGNS]
+    rate_arr, rate_app = stack_traces([mix.at_rate(r).job_trace() for r in SWEEP_RATES], DEV)
+    small_lanes, plain_lanes = 0, 0
+    # design x rate
+    axes = {"design": SWEEP_DESIGNS, "rate": SWEEP_RATES}
+    sr = main_path(mix, axes, {"epoch_scan": 1}, "sweep design x rate")
+    assert_sweep_is_runs(sr, mix, axes, "sweep design x rate")
+    tables, _ = sweep_mod._design_lanes(mix, ["design"], designs, None, DEV)
+    if tuple(tables.exec_us.shape[:1]) + (tables.num_pes,) != (3, 19):
+        raise AssertionError(f"sweep design x rate: stacked tables "
+                             f"{tuple(tables.exec_us.shape)}, expected D = 3, P = 19")
+    plain_lanes += grid_vs_plain(tables, "etf", rate_arr, rate_app,
+                                 what="sweep design x rate")
+    small_lanes += sr.num_points
+    # scheduler x rate
+    axes = {"scheduler": ("etf", "met", "table"), "rate": SWEEP_RATES}
+    sr = main_path(one, axes, {"epoch_scan": 3}, "sweep scheduler x rate")
+    assert_sweep_is_runs(sr, one, axes, "sweep scheduler x rate")
+    arr1, app1 = stack_traces([one.at_rate(r).job_trace() for r in SWEEP_RATES], DEV)
+    for policy in axes["scheduler"]:
+        tb, _ = sweep_mod._design_lanes(one.replace(scheduler=policy), [], [()], None, DEV)
+        plain_lanes += grid_vs_plain(tb, policy, arr1, app1,
+                                     what=f"sweep scheduler x rate ({policy})")
+    small_lanes += sr.num_points
+    # governor_params x design, ondemand and throttle
+    for gov, extra in DTPM_GOVERNORS.items():
+        params = tuple(extra + p for p in SWEEP_PARAMS)
+        base = mix.replace(governor=gov)
+        axes = {"governor_params": params, "design": SWEEP_DESIGNS}
+        sr = main_path(base, axes, {"epoch_scan_dtpm": 1}, f"sweep {gov} params x design")
+        assert_sweep_is_runs(sr, base, axes, f"sweep {gov} params x design")
+        tables, _ = sweep_mod._design_lanes(base.replace(governor_params=params[0]),
+                                            ["design"], designs, None, DEV)
+        pols = stack_policies([base.replace(governor_params=q).make_policy()
+                               for q in params])
+        arr0, app0 = stack_traces([mix.job_trace()], DEV)
+        plain_lanes += grid_vs_plain(tables, "etf", arr0, app0, gov=pols,
+                                     what=f"sweep {gov} params x design")
+        small_lanes += sr.num_points
+    # faults x design x rate x {etf, met}, static and ondemand
+    fault_sets = [normalize_failures(fs) for fs in SWEEP_FAULTS]
+    fault_arr, fault_app = stack_traces([mix.at_rate(r).job_trace()
+                                         for r in SWEEP_FAULT_RATES], DEV)
+    for gov in ("performance", "ondemand"):
+        base = mix.replace(governor=gov)
+        axes = {"faults": SWEEP_FAULTS, "design": SWEEP_DESIGNS,
+                "rate": SWEEP_FAULT_RATES, "scheduler": ("etf", "met")}
+        name = "epoch_scan_dtpm_faults" if gov == "ondemand" else "epoch_scan_faults"
+        sr = main_path(base, axes, {name: 2}, f"sweep {gov} faults x design x rate")
+        assert_sweep_is_runs(sr, base, axes, f"sweep {gov} faults x design x rate")
+        tables, _ = sweep_mod._design_lanes(base, ["design"], designs, None, DEV)
+        plans, _ = stack_fault_plans(fault_sets, 8, width=tables.num_pes)
+        pols = stack_policies([base.make_policy()]) if gov == "ondemand" else None
+        for policy in ("etf", "met"):
+            plain_lanes += grid_vs_plain(tables, policy, fault_arr, fault_app, gov=pols,
+                                         fplans=torch.from_numpy(plans),
+                                         what=f"sweep {gov} faults ({policy})")
+        small_lanes += sr.num_points
+    log(f"[sweep] (a) small: {small_lanes} points in 8 sweeps (design x rate; "
+        f"etf/met/table x rate; 9 ondemand and 9 throttle parameterisations x "
+        f"3 designs of 8, 13, 19 PEs padded to 19; 4 fault sets x 3 designs x 2 "
+        f"rates x etf/met, static and ondemand): every lane = run(backend='torch') "
+        f"(makespan bit for bit, sums 1e-6, peak 1e-5) and = backend='ref' within "
+        f"1e-4 / 1e-3; K1 = the plain scan bit for bit on the stacked tables "
+        f"({plain_lanes} lanes); launches {dict(launches)}")
+
+    # -- (b)-(d): the full grids, timed from inside the sweep
+    apps_base = Scenario(apps=APPS5, governor="design",
+                         trace=TraceSpec(rate_jobs_per_ms=GRID_RATE,
+                                         num_jobs=GRID_JOBS, seed=0))
+    space = DesignSpace()
+
+    def timed_sweep(base, axes, want, what):
+        """The sweep as a user calls it, with its parts timed from inside:
+        the host table builds (``_design_lanes``, cold: the table cache
+        emptied first), each K1 launch (CUDA events; its tables, lanes and
+        outputs kept for the checks), the grid program (K1 + epilogue) and
+        the thermal grid, each with a synchronise after it."""
+        rec = {"tables_s": 0.0, "grid_s": 0.0, "thermal_s": 0.0, "launches": []}
+        orig = {"design_lanes": sweep_mod._design_lanes, "scan": k1.epoch_scan,
+                "grid": sweep_mod.simulate_grid,
+                "thermal": sweep_mod.peak_temperature_grid}
+
+        def timed(key, fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                rec[key] += time.perf_counter() - t0
+                return out
+            return call
+
+        def scan(tables, policy, arrival, app_idx, gov=None, faults=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig["scan"](tables, policy, arrival, app_idx, gov, faults)
+            ev[1].record()
+            rec["launches"].append(dict(tables=tables, policy=policy, events=ev,
+                                        lanes=(arrival, app_idx, gov, faults), scan=out))
+            return out
+
+        importlib.import_module("repro_torch.scenario.run")._cached_tables.cache_clear()
+        sweep_mod._design_lanes = timed("tables_s", orig["design_lanes"])
+        sweep_mod.simulate_grid = timed("grid_s", orig["grid"])
+        sweep_mod.peak_temperature_grid = timed("thermal_s", orig["thermal"])
+        k1.epoch_scan = scan
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sr = main_path(base, axes, want, what)
+            wall = time.perf_counter() - t0
+            held = torch.cuda.max_memory_allocated() - held
+        finally:
+            sweep_mod._design_lanes = orig["design_lanes"]
+            sweep_mod.simulate_grid = orig["grid"]
+            sweep_mod.peak_temperature_grid = orig["thermal"]
+            k1.epoch_scan = orig["scan"]
+        for launch in rec["launches"]:
+            launch["in_sweep_ms"] = launch["events"][0].elapsed_time(launch["events"][1])
+        return sr, wall, held, rec
+
+    def check_and_time(rec, picks, lanes_per_design, sr_makespan, what):
+        """Per K1 launch of the sweep: four of its lanes against ONE plain
+        call over just those lanes (``picks``: (design, lane within it)), the
+        sweep's makespans of those lanes against the checked schedules, and
+        K1 timed again on the same inputs (CUDA events, median of 5; these
+        launches are not the main path's)."""
+        parts = []
+        for i, launch in enumerate(rec["launches"]):
+            tables, policy, scan = launch["tables"], launch["policy"], launch["scan"]
+            arrival, app_idx, gov, faults = launch["lanes"]
+            plain_s = lanes_vs_plain(tables, scan, policy, arrival, app_idx, picks,
+                                     lanes_per_design, gov=gov, plans=faults,
+                                     what=f"{what} {policy}")
+            for d, k in picks:
+                lane = d * lanes_per_design + k
+                want_mk = float(scan[2][lane].amax())
+                if sr_makespan(i, d, k) != want_mk:
+                    raise AssertionError(f"{what} {policy}: the sweep's makespan of "
+                                         f"lane {lane} is not its schedule's")
+            ms = eager_ms(lambda: k1.epoch_scan(tables, policy, arrival, app_idx,
+                                                gov, faults), iters=5, warm=0)
+            parts.append(dict(policy=policy, k1_ms=ms, in_sweep_ms=launch["in_sweep_ms"],
+                              plain_s=plain_s))
+        return parts
+
+    def report(tag, what, sr, wall, held, rec, parts, L, J, bound):
+        k1_s = sum(p["in_sweep_ms"] for p in parts) / 1e3
+        epi_s = rec["grid_s"] - k1_s + rec["thermal_s"]
+        rest = wall - rec["tables_s"] - rec["grid_s"] - rec["thermal_s"]
+        log(f"[sweep] {what}: {sr.num_points} points in {wall:.3f} s end to end "
+            f"({sr.num_points / wall:.1f} design points/s), device memory held "
+            f"{held / 2 ** 20:.1f} MiB; in the sweep: host tables {rec['tables_s']:.3f} s, "
+            f"K1 {k1_s:.3f} s ({len(parts)} launches), epilogue + thermal "
+            f"{epi_s:.3f} s (thermal {rec['thermal_s']:.3f}), the rest (traces, "
+            f"assembly) {rest:.3f} s; "
+            + "; ".join(f"{p['policy']}: K1 {p['k1_ms']:.3f} ms a launch of {L} lanes "
+                        f"(median of 5, CUDA events; {p['in_sweep_ms']:.3f} in the "
+                        f"sweep), 4 lanes = plain bit for bit ({p['plain_s']:.3f} s)"
+                        for p in parts)
+            + f"; byte bound {bound:.5f} ms  [{smi}]")
+        measured[tag] = dict(points=sr.num_points, wall_s=wall,
+                             points_per_s=sr.num_points / wall, held_bytes=held,
+                             tables_s=rec["tables_s"], k1_in_sweep_s=k1_s,
+                             epilogue_thermal_s=epi_s, thermal_s=rec["thermal_s"],
+                             lanes=L, jobs=J, bound_ms=bound,
+                             **{f"{k}_{p['policy']}": p[k] for p in parts
+                                for k in ("k1_ms", "in_sweep_ms", "plain_s")})
+
+    # (b) every valid design x 4 seeds, static, etf and met
+    points = space.grid()
+    seeds = list(range(GRID_SEEDS))
+    axes = {"scheduler": ("etf", "met"), "design": points, "seed": seeds}
+    sr, wall, held, rec = timed_sweep(apps_base, axes, {"epoch_scan": 2},
+                                      "sweep (b) static grid")
+    D, S = len(points), len(seeds)
+    tables = rec["launches"][0]["tables"]
+    if tables.exec_us.shape[0] != D or tables.num_pes != max(p.num_pes for p in points):
+        raise AssertionError(f"sweep (b): the stack is not {D} designs padded to the "
+                             "widest")
+    parts = check_and_time(rec, [(0, 0), (D // 3, 1), (2 * D // 3, 2), (D - 1, 3)], S,
+                           lambda i, d, k: sr.makespan_us[i, d, k], "sweep (b)")
+    report("static_grid", f"(b) static grid, {D} designs (P <= 19) x {S} seeds x "
+           f"{GRID_JOBS} jobs, D = {D}, makespan {sr.makespan_us.min() / 1e3:.1f}-"
+           f"{sr.makespan_us.max() / 1e3:.1f} ms", sr, wall, held, rec, parts, D * S,
+           GRID_JOBS, scan_bound_ms(tables, D * S, GRID_JOBS))
+    del rec, tables, sr
+    torch.cuda.empty_cache()
+
+    # (c) 64 LHS designs x 16 ondemand policies x 1 seed, etf and met
+    points = space.sample_lhs(GRID_DTPM_DESIGNS, seed=0)
+    base = apps_base.replace(governor="ondemand")
+    axes = {"scheduler": ("etf", "met"), "design": points,
+            "governor_params": GRID_DTPM_PARAMS}
+    sr, wall, held, rec = timed_sweep(base, axes, {"epoch_scan_dtpm": 2},
+                                      "sweep (c) ondemand design x policy grid")
+    D, G = len(points), len(GRID_DTPM_PARAMS)
+    tables = rec["launches"][0]["tables"]
+    # four designs under the policy of the longest window (200 us: the fewest
+    # window steps for the plain loop)
+    g = G - 1
+    parts = check_and_time(rec, [(0, g), (D // 3, g), (2 * D // 3, g), (D - 1, g)], G,
+                           lambda i, d, k: sr.makespan_us[i, d, k], "sweep (c)")
+    # windows a lane: the makespan over the lane's window, as the scan runs them
+    window = np.array([dict(q)["sample_window_us"] for q in GRID_DTPM_PARAMS])
+    windows = np.floor(sr.makespan_us / window) + 1
+    pes = [p.num_pes for p in points]
+    report("dtpm_grid", f"(c) ondemand grid, {D} LHS designs (P {min(pes)}-{max(pes)}) "
+           f"x {G} policies x {GRID_JOBS} jobs, D = {D}, windows a lane "
+           f"{windows.mean():.0f} on average, {int(windows.max())} at most, "
+           f"makespan {sr.makespan_us.min() / 1e3:.1f}-{sr.makespan_us.max() / 1e3:.1f} ms",
+           sr, wall, held, rec, parts, D * G, GRID_JOBS,
+           scan_bound_ms(tables, D * G, GRID_JOBS, dtpm=True))
+    del rec, tables, sr
+    torch.cuda.empty_cache()
+
+    # (d) 8 fault sets (none; PE 0-6 lost at 500 us) x 16 designs of more than
+    # 7 PEs x 8 seeds, etf
+    wide = [p for p in space.grid() if p.num_pes > 7]
+    points = wide[::len(wide) // GRID_FAULT_DESIGNS][:GRID_FAULT_DESIGNS]
+    fsets = ((),) + tuple((FaultSpec(pe, 500.0),) for pe in range(7))
+    seeds = list(range(GRID_FAULT_SEEDS))
+    axes = {"faults": fsets, "design": points, "seed": seeds}
+    sr, wall, held, rec = timed_sweep(apps_base, axes, {"epoch_scan_faults": 1},
+                                      "sweep (d) fault x design grid")
+    D, nf, S = len(points), len(fsets), len(seeds)
+    launch = rec["launches"][0]
+    tables, (la, lp, _, _), scan = launch["tables"], launch["lanes"], launch["scan"]
+    # four designs, each with a PE lost (sets 1, 3, 5, 7), seeds 0-3
+    parts = check_and_time(rec, [(0, 1 * S + 0), (D // 3, 3 * S + 1),
+                                 (2 * D // 3, 5 * S + 2), (D - 1, 7 * S + 3)], nf * S,
+                           lambda i, d, k: sr.makespan_us[k // S, d, k % S], "sweep (d)")
+    recommits = int(scan[4][:, 1].sum() - tables.valid[
+        k1.lane_designs(tables, la.shape[0], DEV)[:, None], lp.long()].sum())
+    report("fault_grid", f"(d) fault grid, {nf} fault sets x {D} designs (P "
+           f"{min(p.num_pes for p in points)}-{max(p.num_pes for p in points)}) x "
+           f"{S} seeds x {GRID_JOBS} jobs, D = {D}, {recommits} re-commits",
+           sr, wall, held, rec, parts, D * nf * S, GRID_JOBS,
+           scan_bound_ms(tables, D * nf * S, GRID_JOBS, faults=True))
+    del rec, tables, scan, launch, sr
+    torch.cuda.empty_cache()
+    log(f"[sweep] phase 7 took {time.perf_counter() - t_phase:.1f} s; K1 launches "
+        f"by instantiation {launches}")
+    return launches, measured
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -1881,6 +2311,13 @@ def main():
     measured.update(k1_measured)
     launches.update(k1_launches)
     log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
+    sweep_launches, sweep_measured = phase_sweep(smi)
+    for name, n in sweep_launches.items():
+        launches[name] += n
+    # the design-lane launches of phase 7 beside K1's phase-6 numbers
+    measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]
+    measured["epoch_scan_dtpm"]["sweep_dtpm_grid"] = sweep_measured["dtpm_grid"]
+    measured["epoch_scan_faults"]["sweep_fault_grid"] = sweep_measured["fault_grid"]
 
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
                "decode_attention": "src/repro/kernels/decode_attention.py:62",

@@ -18,8 +18,8 @@ construction, not by parallel maintenance (DESIGN.md §7).  In this port the
 policy is a plain frozen dataclass.  The epoch scan takes policies as
 per-lane tensors (:func:`policy_lanes`) and runs the transition through the
 tensor twins :func:`ondemand_index_torch` / :func:`throttle_index_torch`
-(its CUDA kernel repeats them op for op); the sweep's ``stack_policies`` is
-a later slice (ROADMAP.md queue 1, item 6).
+(its CUDA kernel repeats them op for op); :func:`stack_policies` stacks a
+sweep's G policies into such lanes.
 """
 from __future__ import annotations
 
@@ -156,13 +156,14 @@ def ondemand_index_torch(opp_freq: torch.Tensor, num_opp: torch.Tensor,
                          up_threshold: torch.Tensor,
                          util: torch.Tensor) -> torch.Tensor:
     """:func:`ondemand_index` on tensors, lanes first: ``opp_freq`` (C, K)
-    f32, ``num_opp`` (C,) int, ``up_threshold`` (L,) f32, ``util`` (L, C) f32
-    -> (L, C) int64.  Float32 op by op in the reference's order:
+    f32 and ``num_opp`` (C,) int (one design's, or (L, C, K) and (L, C), each
+    lane's design's), ``up_threshold`` (L,) f32, ``util`` (L, C) f32 ->
+    (L, C) int64.  Float32 op by op in the reference's order:
     ``fmax * max(util, 0) / up``, then ``opp_freq >= target - f32(1e-9)``;
     the first covering level, or level 0 where none covers (argmax of an
     all-false row), as ``jnp.argmax`` gives."""
-    top = num_opp.long() - 1                                     # (C,)
-    fmax = opp_freq.gather(1, top[:, None])[:, 0]                # (C,)
+    top = num_opp.long() - 1                                     # ([L,] C)
+    fmax = opp_freq.gather(-1, top[..., None])[..., 0]           # ([L,] C)
     up = up_threshold[:, None]
     target = fmax * torch.clamp(util, min=0.0) / up              # (L, C)
     # a fill on the device: a tensor copied from the host would synchronise
@@ -196,15 +197,39 @@ class PolicyLanes:
     def lanes(self) -> int:
         return int(self.window.shape[0])
 
+    def take(self, index: torch.Tensor) -> "PolicyLanes":
+        """The lanes ``index`` (a (L',) int tensor) picks, in its order."""
+        return PolicyLanes(*(getattr(self, f.name)[index]
+                             for f in dataclasses.fields(self)))
+
+
+def stack_policies(policies: Sequence[GovernorPolicy]) -> PolicyLanes:
+    """Stack G same-shape dynamic policies into (G,) lanes (the sweep's
+    policy-lane axis; the twin of the reference's ``stack_policies``, which
+    returns a policy with (G,) leaves).  Raises as the reference does for an
+    empty list, a static policy, or a non-positive window, threshold or RC
+    step."""
+    if not policies:
+        raise ValueError("empty policy list")
+    if not all(p.dynamic for p in policies):
+        raise ValueError("only dynamic policies batch; static governors are "
+                         "compiled into the tables (DESIGN.md §7)")
+    return policy_lanes(list(policies), len(policies))
+
 
 def policy_lanes(policies, lanes: int) -> PolicyLanes:
     """One dynamic :class:`GovernorPolicy` for every lane, or a sequence of
-    ``lanes`` of them, as :class:`PolicyLanes` on the host.  Raises for a
+    ``lanes`` of them, as :class:`PolicyLanes` on the host (a
+    :class:`PolicyLanes` of ``lanes`` lanes passes as it is).  Raises for a
     static policy or a non-positive window, threshold or RC step, as the
     reference's ``simulate_jax_dtpm`` does.  The RC matrices are computed
     once per distinct ``thermal_dt_s`` by ``dse.thermal_torch.
     exact_step_matrices``, in float32 on the CPU."""
     from ..dse.thermal_torch import exact_step_matrices
+    if isinstance(policies, PolicyLanes):
+        if policies.lanes != lanes:
+            raise ValueError(f"{policies.lanes} policy lanes for {lanes} lanes")
+        return policies
     pols = ([policies] * lanes if isinstance(policies, GovernorPolicy)
             else list(policies))
     if len(pols) != lanes:

@@ -19,7 +19,9 @@ schedulers route around dead PEs (not ``table``, which raises).
   :func:`tables_from_numpy`.
 * The epoch scan is K1 (``kernels/epoch_scan.py``): on a CUDA tensor one
   launch of ``csrc/epoch_scan.cuh`` over all lanes, on a CPU tensor its plain
-  version :func:`epoch_scan_plain`.
+  version :func:`epoch_scan_plain`.  The batched entry points also take the
+  tables of D designs stacked on a leading axis (``dse.batch.stack_tables``)
+  with (D*S, J) lanes, design-major: lane l runs on design l // S.
 * :func:`_epilogue` derives latency, energy and per-PE busy time from the
   scan's schedule (under DTPM the energy at each task's latched OPP); both
   routes share it, so they differ only in the scan.
@@ -34,7 +36,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels import ops as _ops
-from ..kernels.epoch_scan import epoch_scan_plain
+from ..kernels.epoch_scan import epoch_scan_plain, lane_designs, per_design
 from .applications import Application
 from .dvfs import (Governor, MAX_OPP_LEVELS, PerformanceGovernor,
                    padded_ladder, policy_lanes)
@@ -275,8 +277,11 @@ def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
     reference's post-scan arithmetic (``simkernel_jax.py:533-571``), lanes
     first.  Its sums run in torch's order, not XLA's (tolerance in the tests);
     the schedule arrays pass through as they are.  ``onopp`` (DTPM) prices
-    each task's busy time at its latched OPP's active power."""
-    valid_j = tables.valid[app_idx.long()]                              # (L, J, T)
+    each task's busy time at its latched OPP's active power.  Each lane reads
+    its own design's tables (stacked tables: lane l, design l // S)."""
+    L = app_idx.shape[0]
+    design = lane_designs(tables, L, app_idx.device)                    # (L,)
+    valid_j = per_design(tables, "valid")[design[:, None], app_idx.long()]  # (L, J, T)
     busy = torch.where(valid_j, finish - start, 0.0)
     fin_valid = torch.where(valid_j, finish, 0.0)
     makespan = fin_valid.amax(dim=(1, 2))                               # (L,)
@@ -286,14 +291,18 @@ def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
     # busy · power of its PE is the reference's busy · onehot · power (the
     # one-hot factor is exactly 1 or 0); per-PE sums one PE at a time keep the
     # order fixed (no atomics) without an (L, J, T, P) one-hot
+    cell_pe = onpe.long().flatten(1)                                    # (L, J*T)
     if onopp is None:
-        p_task = tables.power_active[onpe.long()]
+        p_task = per_design(tables, "power_active")[design].gather(1, cell_pe)
     else:
-        p_task = tables.power_active_opp[onpe.long(), onopp.long()]
+        K = tables.power_active_opp.shape[-1]
+        p_task = per_design(tables, "power_active_opp")[design].flatten(1) \
+            .gather(1, cell_pe * K + onopp.long().flatten(1))
+    p_task = p_task.view(onpe.shape)
     e_active = (busy * p_task).sum(dim=(1, 2))
     busy_per_pe = torch.stack([torch.where(onpe == pe, busy, 0.0).sum(dim=(1, 2))
                                for pe in range(tables.num_pes)], dim=1)  # (L, P)
-    e_idle = (tables.power_idle
+    e_idle = (per_design(tables, "power_idle")[design]
               * torch.clamp(makespan[:, None] - busy_per_pe, min=0.0)).sum(dim=1)
     energy_j = (e_active + e_idle) * 1e-6                               # W·us -> J
     return dict(finish=finish, start=start, onpe=onpe, scheduled=scheduled,
@@ -339,7 +348,8 @@ def _check_static(tables: SimTables):
 def simulate_batch(tables: SimTables, policy: str, arrival, app_idx,
                    faults=None) -> Dict[str, torch.Tensor]:
     """Batched simulation: ``arrival`` / ``app_idx`` (L, J), one simulation
-    per lane (seed × rate × mix), in one K1 launch on a CUDA device.  Every
+    per lane (seed × rate × mix; over stacked tables (D*S, J), design-major),
+    in one K1 launch on a CUDA device.  Every
     output has the lane axis first.  ``faults``: a (P,) fail-time plan for
     every lane or an (L, P) one per lane; the output then gains ``steps``
     (L,), the scan steps a lane took, and ``commits`` (L,), the tasks it
@@ -366,9 +376,11 @@ def simulate_torch(tables: SimTables, policy: str, arrival, app_idx,
 
 def simulate_batch_dtpm(tables: SimTables, policy: str, arrival, app_idx,
                         gov, faults=None) -> Dict[str, torch.Tensor]:
-    """Batched closed-loop DTPM simulation: ``arrival`` / ``app_idx`` (L, J),
-    ``gov`` one dynamic ``GovernorPolicy`` for every lane or a sequence of L
-    of them (lanes with different policies share one K1 launch).  The output
+    """Batched closed-loop DTPM simulation: ``arrival`` / ``app_idx`` (L, J)
+    (over stacked tables (D*S, J), design-major), ``gov`` one dynamic
+    ``GovernorPolicy`` for every lane, a sequence of L of them or
+    ``PolicyLanes`` of L lanes (lanes with different policies share one K1
+    launch).  The output
     dict gains ``onopp`` (L, J, T), the OPP index latched per task,
     ``opp_idx`` (L, C), each domain's final OPP, and ``peak_temp_c`` (L,), the
     peak of the inline RC loop.  ``faults`` as :func:`simulate_batch`'s."""

@@ -1,7 +1,8 @@
 """RC thermal co-simulation of a realised schedule, on PyTorch.
 
 The twin of ``src/repro/dse/thermal_jax.py`` (``steady_state``,
-``binned_power_trace``, ``peak_temperature``): the same lumped network —
+``binned_power_trace``, ``peak_temperature``, ``peak_temperature_grid``):
+the same lumped network —
 nodes [big, LITTLE, accel fabric] coupled through a board node to ambient —
 in float32 on the schedule's device.  Plain tensor code: the JAX package
 computes these with ``jnp`` outside any Pallas kernel.
@@ -14,10 +15,16 @@ Pipeline:
      workload: warm-start from the analytical steady state of the period-mean
      power, then step a few periods by the exact linear-RC update to capture
      the intra-period ripple.
+
+Each function also takes leading lane axes (one schedule per lane, each
+with its own bin width and RC step): ``peak_temperature_grid`` runs both
+steps for a whole sweep grid at once, in chunks of lanes, where the
+reference vmaps them.  ``run`` takes the same function at one lane, so a
+sweep lane and its ``run`` share one code path.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,10 +36,12 @@ def _const(value, device) -> torch.Tensor:
 
 
 def steady_state(power_w: torch.Tensor) -> torch.Tensor:
-    """Analytical steady state for constant (3,) node power -> (4,) temps."""
+    """Analytical steady state for constant (..., 3) node power -> (..., 4)
+    temps."""
     dev = power_w.device
-    tb = _const(_ref.T_AMBIENT_C, dev) + _const(_ref.R_BOARD_AMB, dev) * power_w.sum()
-    return torch.cat([tb + _const(_ref.R_TO_BOARD, dev) * power_w, tb[None]])
+    tb = (_const(_ref.T_AMBIENT_C, dev)
+          + _const(_ref.R_BOARD_AMB, dev) * power_w.sum(dim=-1))[..., None]
+    return torch.cat([tb + _const(_ref.R_TO_BOARD, dev) * power_w, tb], dim=-1)
 
 
 def binned_power_trace(start_us: torch.Tensor, finish_us: torch.Tensor,
@@ -40,28 +49,31 @@ def binned_power_trace(start_us: torch.Tensor, finish_us: torch.Tensor,
                        node_of_pe: torch.Tensor, power_active: torch.Tensor,
                        power_idle: torch.Tensor, makespan_us: torch.Tensor,
                        bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-node power trace of one realised schedule.
+    """Per-node power trace of realised schedules.
 
-    Args (one simulation): start/finish/valid (J, T); onpe (J, T) int;
-    node_of_pe (P,) int; power_active/power_idle (P,).
-    Returns ((bins, 3) node power in W, bin width in seconds).
+    Args (one simulation, or leading lane axes ``...`` on every argument):
+    start/finish/valid (..., J, T); onpe (..., J, T) int; node_of_pe (..., P)
+    int; power_active/power_idle (..., P); makespan_us (...).
+    Returns ((..., bins, 3) node power in W, (...) bin width in seconds).
     """
-    P = power_active.shape[0]
+    P = power_active.shape[-1]
     dev = power_active.device
-    dt_us = torch.clamp(makespan_us, min=1e-6) / bins
-    edges = torch.arange(bins, dtype=torch.float32, device=dev) * dt_us   # (K,)
-    s = torch.where(valid, start_us, 0.0)[..., None]                      # (J,T,1)
+    dt_us = torch.clamp(makespan_us, min=1e-6) / bins                    # (...)
+    dt = dt_us[..., None, None, None]                                     # (...,1,1,1)
+    edges = torch.arange(bins, dtype=torch.float32, device=dev) * dt      # (...,1,1,K)
+    s = torch.where(valid, start_us, 0.0)[..., None]                      # (...,J,T,1)
     f = torch.where(valid, finish_us, 0.0)[..., None]
-    overlap = (torch.minimum(f, edges + dt_us)
-               - torch.maximum(s, edges))                                 # (J,T,K)
-    overlap = torch.minimum(torch.clamp(overlap, min=0.0), dt_us)
+    overlap = (torch.minimum(f, edges + dt)
+               - torch.maximum(s, edges))                                 # (...,J,T,K)
+    overlap = torch.minimum(torch.clamp(overlap, min=0.0), dt)
     pe_onehot = torch.nn.functional.one_hot(onpe.long(), P).to(torch.float32)
-    pe_onehot = pe_onehot * valid[..., None]                              # (J,T,P)
-    busy = torch.einsum("jtk,jtp->kp", overlap, pe_onehot)                # (K,P)
-    util = torch.clamp(busy / dt_us, 0.0, 1.0)
-    power_pe = power_active * util + power_idle * (1.0 - util)            # (K,P)
+    pe_onehot = pe_onehot * valid[..., None]                              # (...,J,T,P)
+    busy = torch.einsum("...jtk,...jtp->...kp", overlap, pe_onehot)      # (...,K,P)
+    util = torch.clamp(busy / dt_us[..., None, None], 0.0, 1.0)
+    power_pe = (power_active[..., None, :] * util
+                + power_idle[..., None, :] * (1.0 - util))                # (...,K,P)
     node_onehot = torch.nn.functional.one_hot(
-        node_of_pe.long(), _ref.NUM_NODES).to(torch.float32)              # (P,3)
+        node_of_pe.long(), _ref.NUM_NODES).to(torch.float32)              # (...,P,3)
     return power_pe @ node_onehot, dt_us * 1e-6
 
 
@@ -69,10 +81,11 @@ def exact_step_matrices(dt_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     """(A, B) of the exact piecewise-constant update x' = A x + B u, as
     A = Σ e^{λ_j·dt} P_j and B = Σ (e^{λ_j·dt}−1)/λ_j P_j over the host's
     float64 spectral decomposition of the RC matrix (``core.thermal.
-    _rc_spectral``), summed in the reference's order."""
+    _rc_spectral``), summed in the reference's order.  ``dt_s`` () or
+    (...,) per lane -> (..., 4, 4) each."""
     lam, proj = _ref._rc_spectral()
     dev = dt_s.device
-    dt = dt_s.to(torch.float32)
+    dt = dt_s.to(torch.float32)[..., None, None]
     A = B = None
     for j in range(len(lam)):
         lam_j = _const(lam[j], dev)
@@ -87,7 +100,8 @@ def exact_step_matrices(dt_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 def peak_temperature(power_trace_w: torch.Tensor, dt_s: torch.Tensor,
                      repeats: int = 3) -> torch.Tensor:
-    """Peak on-chip temperature under a sustained periodic (K, 3) trace.
+    """Peak on-chip temperature under a sustained periodic (..., K, 3)
+    trace, ``dt_s`` the bin width () or (...) per lane -> (...).
 
     Power is constant within a bin, so each bin advances by the exact
     linear-RC solution x' = e^{M·dt} x + M⁻¹(e^{M·dt} − I) u, stable for any
@@ -95,15 +109,60 @@ def peak_temperature(power_trace_w: torch.Tensor, dt_s: torch.Tensor,
     """
     dev = power_trace_w.device
     power_trace_w = power_trace_w.to(torch.float32)
-    A, B = exact_step_matrices(dt_s)
+    A, B = exact_step_matrices(dt_s)                         # (..., 4, 4)
     amb_drive = _const(_ref.T_AMBIENT_C, dev) / (
         _const(_ref.R_BOARD_AMB, dev) * _const(_ref.C_BOARD, dev))
     c_node = _const(_ref.C_NODE, dev)
-    t0 = steady_state(power_trace_w.mean(dim=0))
-    K = power_trace_w.shape[0]
-    temps, peak = t0, t0[:3].max()
+    t0 = steady_state(power_trace_w.mean(dim=-2))            # (..., 4)
+    K = power_trace_w.shape[-2]
+    amb = amb_drive.expand(t0.shape[:-1] + (1,))
+    temps, peak = t0, t0[..., :3].amax(dim=-1)
     for i in range(K * repeats):
-        u = torch.cat([power_trace_w[i % K] / c_node, amb_drive[None]])
-        temps = A @ temps + B @ u
-        peak = torch.maximum(peak, temps[:3].max())
+        u = torch.cat([power_trace_w[..., i % K, :] / c_node, amb], dim=-1)
+        temps = (A @ temps[..., None] + B @ u[..., None])[..., 0]
+        peak = torch.maximum(peak, temps[..., :3].amax(dim=-1))
     return peak
+
+
+# device bytes a chunk of lanes of peak_temperature_grid may take (its
+# (lanes, J, T, bins) overlaps and (lanes, J, T, P) one-hots, a few of each)
+GRID_CHUNK_BYTES = 1 << 30
+
+
+def peak_temperature_grid(sim_out: Dict, node_of_pe: torch.Tensor,
+                          power_active: torch.Tensor,
+                          power_idle: torch.Tensor, bins: int = 32,
+                          repeats: int = 3) -> torch.Tensor:
+    """(..., D, S) peak temperatures of a batch of schedules.
+
+    ``sim_out`` has the schedule (``start``, ``finish``, ``onpe``,
+    ``scheduled``: (..., D, S, J, T)) and ``makespan_us`` (..., D, S), the
+    design axis D second to last (a fault axis may lead, as in the
+    reference's vmap over fault lanes); ``node_of_pe`` / ``power_active`` /
+    ``power_idle`` are (D, P), each design's.  Every lane gets its own bin
+    width and RC step matrices; lanes run in chunks that keep each chunk's
+    working set near ``GRID_CHUNK_BYTES``.
+    """
+    makespan = sim_out["makespan_us"]
+    lead = tuple(makespan.shape)
+    D, S = lead[-2:]
+    J, T = sim_out["start"].shape[-2:]
+    P = power_active.shape[-1]
+    L = makespan.numel()
+    if tuple(power_active.shape) != (D, P):
+        raise ValueError(f"peak_temperature_grid: power tables "
+                         f"{tuple(power_active.shape)} for a {lead} grid")
+    flat = {k: sim_out[k].reshape(L, J, T)
+            for k in ("start", "finish", "onpe", "scheduled")}
+    design = (torch.arange(L, device=makespan.device) // S) % D
+    per_lane = 4 * J * T * (4 * bins + 2 * P)
+    chunk = max(1, GRID_CHUNK_BYTES // per_lane)
+    peaks = []
+    for lo in range(0, L, chunk):
+        sl, d = slice(lo, lo + chunk), design[lo:lo + chunk]
+        trace, dt_s = binned_power_trace(
+            flat["start"][sl], flat["finish"][sl], flat["onpe"][sl],
+            flat["scheduled"][sl], node_of_pe[d], power_active[d],
+            power_idle[d], makespan.reshape(L)[sl], bins=bins)
+        peaks.append(peak_temperature(trace, dt_s, repeats=repeats))
+    return torch.cat(peaks).reshape(lead)

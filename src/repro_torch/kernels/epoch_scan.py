@@ -15,6 +15,15 @@ per lane, the small tables and the per-job done masks in shared memory, the
 of it, four instantiations in all, the fault-free ones built from
 ``csrc/epoch_scan.cu``, the fail-stop ones from ``csrc/epoch_scan_faults.cu``.
 
+The tables are one design's (``exec_us`` (A, T, P)) or a stack of D designs
+padded to one shape (every field with a leading design axis, ``exec_us``
+(D, A, T, P); ``dse.batch.stack_tables``).  Lanes are design-major, (D*S,
+J): lane l reads design l // S, in the kernel and in the plain version
+alike, and every per-lane input (arrival, app index, policy, fail times) is
+laid out in that order.  Each lane's window sums take their fixed-point
+exponents from its own design's largest active power (:func:`quanta`), so a
+lane of a stack equals the same lane run on its design alone.
+
 ``epoch_scan`` launches the kernel for CUDA tensors or raises; only CPU
 tensors go to ``epoch_scan_plain``.  ``launches`` counts calls, one launch
 each, and ``variant_launches`` the same calls by instantiation, keyed (DTPM,
@@ -101,9 +110,44 @@ def _check_policy(policy: str):
         raise ValueError(f"unknown policy {policy!r}; have {POLICIES}")
 
 
+def designs(tables) -> int:
+    """D of stacked tables (``exec_us`` (D, A, T, P)); 0 for one design's."""
+    return int(tables.exec_us.shape[0]) if tables.exec_us.ndim == 4 else 0
+
+
+def per_design(tables, name: str) -> torch.Tensor:
+    """Field ``name`` with a leading design axis: as it is for stacked tables,
+    a (1, ...) view for one design's."""
+    x = getattr(tables, name)
+    return x if designs(tables) else x.unsqueeze(0)
+
+
+def lanes_per_design(tables, L: int) -> int:
+    """S of L = D*S design-major lanes (L for one design's tables)."""
+    D = max(designs(tables), 1)
+    if L % D:
+        raise ValueError(f"epoch_scan: {L} lanes do not split evenly over "
+                         f"{D} designs (lanes are (D*S, J), design-major)")
+    return L // D
+
+
+def lane_designs(tables, L: int, device=None) -> torch.Tensor:
+    """(L,) int64: the design each lane reads, l // S for L = D*S
+    design-major lanes (all 0 for one design's tables)."""
+    return torch.arange(L, device=device) // max(lanes_per_design(tables, L), 1)
+
+
+def lane_p_max(tables, L: int) -> list:
+    """Each lane's design's largest active power (the DTPM tables'
+    ``power_active_opp``), the scale :func:`quanta` takes per lane."""
+    p_max = per_design(tables, "power_active_opp").flatten(1).amax(1).tolist()
+    return [p_max[d] for d in lane_designs(tables, L).tolist()]
+
+
 def _check_table(tables, policy: str):
     """A valid task the table does not assign would read PE -1; the reference
-    wraps that index to the last PE.  Raise instead (once per table set)."""
+    wraps that index to the last PE.  Raise instead (once per table set; per
+    design of a stack, elementwise)."""
     if policy == "table":
         pe = tables.table_pe
         if bool((tables.valid & ((pe < 0) | (pe >= tables.num_pes))).any()):
@@ -122,21 +166,26 @@ def rc_consts() -> np.ndarray:
                      thermal.T_AMBIENT_C], np.float32)
 
 
-def quanta(window: torch.Tensor, p_max: float) -> torch.Tensor:
+def quanta(window: torch.Tensor, p_max) -> torch.Tensor:
     """(L, 2) int32 exponents ``(s_busy, s_energy)`` of each lane's window
-    sums: a term ``x`` (an overlap, at most the window; or an overlap times
-    an active power, at most ``window * p_max``) counts as
+    sums, ``p_max`` one active power for every lane or a sequence of L (each
+    lane's design's, :func:`lane_p_max`): a term ``x`` (an overlap, at most
+    the window; or an overlap times an active power, at most ``window *
+    p_max``) counts as
     ``round(x * 2**s)``, below ``2**QUANTUM_BITS``.  Tasks on one PE do not
     overlap, so a PE's window sum stays below ``2**(QUANTUM_BITS + 1)`` (the
     roundings add at most half a unit a term) and a domain's of at most 32
     PEs below 2**53: exact in int64 and in a double, in any order."""
+    windows = window.tolist()
+    if isinstance(p_max, (int, float)):
+        p_max = [p_max] * len(windows)
     out = []
-    for w in window.tolist():
+    for w, p in zip(windows, p_max):
         out.append((QUANTUM_BITS - math.frexp(w)[1],
-                    QUANTUM_BITS - math.frexp(w * p_max)[1]))
+                    QUANTUM_BITS - math.frexp(w * p)[1]))
     if any(abs(s) > 126 for pair in out for s in pair):
-        raise ValueError(f"epoch_scan: a window of {window.tolist()} us or an "
-                         f"active power of {p_max} W is out of the f32 range "
+        raise ValueError(f"epoch_scan: a window of {windows} us or an "
+                         f"active power of {max(p_max)} W is out of the f32 range "
                          "the window sums take")
     return torch.tensor(out, dtype=torch.int32).reshape(-1, 2)
 
@@ -148,7 +197,7 @@ def _check_dtpm(tables, gov, L: int):
     if gov.lanes != L:
         raise ValueError(f"epoch_scan: policies for {gov.lanes} lanes, "
                          f"{L} lanes of jobs")
-    C, K = tables.opp_freq.shape
+    C, K = tables.opp_freq.shape[-2:]
     if max(tables.num_pes, C, K) > MAX_PES_DTPM:
         raise ValueError(f"epoch_scan: DTPM takes at most {MAX_PES_DTPM} PEs, "
                          f"domains and OPP levels; have {tables.num_pes}, "
@@ -169,22 +218,27 @@ def fixed_sums(terms: torch.Tensor, scales: torch.Tensor,
 class _Windows:
     """The DTPM carry of the plain scan, all lanes at once: per-domain OPP
     index (and its gather per PE), the next window's end, the RC
-    temperatures and their peak.  :meth:`step` runs one sampling window on
-    the lanes of a mask, in the kernel's arithmetic (see the module's
-    docstring).  Every constant is made on the device once: a tensor made
+    temperatures and their peak.  Each lane reads its own design's tables
+    (``design``: (L,) its index into the stack).  :meth:`step` runs one
+    sampling window on the lanes of a mask, in the kernel's arithmetic (see
+    the module's docstring).  Every constant is made on the device once: a tensor made
     from host data on each call would synchronise the stream."""
 
-    def __init__(self, tables, gov, L: int, dev):
+    def __init__(self, tables, gov, design: torch.Tensor, dev):
         from ..core import dvfs, thermal
         self.ondemand_index = dvfs.ondemand_index_torch
         self.throttle_index = dvfs.throttle_index_torch
-        C, K = tables.opp_freq.shape
+        L = design.shape[0]
+        C, K = tables.opp_freq.shape[-2:]
         P = tables.num_pes
-        self.tables, self.K = tables, K
+        self.K, self.P = K, P
+
+        def lane(name):
+            return per_design(tables, name)[design]               # (L, ...)
         self.window = gov.window.to(dev)
         self.up, self.cap = gov.up.to(dev), gov.cap.to(dev)
         self.A_rc, self.B_rc = gov.A_rc.to(dev), gov.B_rc.to(dev)
-        q = quanta(gov.window, float(tables.power_active_opp.max())).tolist()
+        q = quanta(gov.window, lane_p_max(tables, L)).tolist()
         # 2**s in f32 (exact) scales a term in; 2**-s in f64 a sum back out
         self.scales = torch.tensor([[[2.0 ** sb], [2.0 ** se]] for sb, se in q],
                                    dtype=torch.float32, device=dev)  # (L, 2, 1)
@@ -193,20 +247,23 @@ class _Windows:
         rc = torch.from_numpy(rc_consts()).to(dev)
         self.c_node, self.amb_drive = rc[:3], rc[3:4]
         self.floor = torch.tensor(np.float32(1e-9), device=dev)
-        self.power_opp = tables.power_active_opp.reshape(-1)         # (P*K,)
-        pe_domain = tables.pe_domain.long()
-        # CPU PEs -> their domain as a 0/1 f64 matrix: the integer busy sums
-        # (each below 2**48, at most 32 of them) add exactly in f64
-        self.cpu_dom = ((pe_domain[:, None] == torch.arange(C, device=dev))
-                        & (tables.pe_is_cpu != 0)[:, None]).double()  # (P, C)
-        node = torch.full((MAX_PES_DTPM,), -1, dtype=torch.long, device=dev)
-        node[:P] = tables.node_of_pe.long()
-        self.node_mask = (node == torch.arange(thermal.NUM_NODES, device=dev)
-                          [:, None]).float()                         # (3, 32)
+        self.power_opp = lane("power_active_opp").reshape(L, P * K)  # (L, P*K)
+        self.power_idle = lane("power_idle")                          # (L, P)
+        self.opp_freq, self.num_opp = lane("opp_freq"), lane("num_opp")
+        self.domain_cpu = lane("domain_cpu")                          # (L, C)
+        pe_domain = lane("pe_domain").long()                          # (L, P)
+        # CPU PEs -> their domain as 0/1 f64: the integer busy sums (each
+        # below 2**48, at most 32 of them) add exactly in f64
+        self.cpu_dom = ((pe_domain[:, :, None] == torch.arange(C, device=dev))
+                        & (lane("pe_is_cpu") != 0)[:, :, None]).double()  # (L, P, C)
+        node = torch.full((L, MAX_PES_DTPM), -1, dtype=torch.long, device=dev)
+        node[:, :P] = lane("node_of_pe").long()
+        self.node_mask = (node[:, None, :] == torch.arange(
+            thermal.NUM_NODES, device=dev)[:, None]).float()          # (L, 3, 32)
         self.pe_domain = pe_domain
-        self.domain_node = tables.domain_node.long()
+        self.domain_node = lane("domain_node").long()                 # (L, C)
         self.opp_idx = torch.zeros((L, C), dtype=torch.long, device=dev)
-        self.opp_pe = self.opp_idx[:, pe_domain]                     # (L, P)
+        self.opp_pe = self.opp_idx.gather(1, pe_domain)               # (L, P)
         self.next_w = self.window.clone()
         self.temps = torch.full((L, 4), float(rc[4]), device=dev)
         self.peak = torch.full((L,), float(rc[4]), device=dev)
@@ -215,7 +272,7 @@ class _Windows:
         """One window ``[next_w - window, next_w)`` on the lanes where
         ``due``; the cells (L, N): ``committed`` (scheduled and valid), their
         start, finish, PE and latched OPP."""
-        tb, L = self.tables, due.shape[0]
+        L = due.shape[0]
         window = self.window[:, None]
         w1 = self.next_w[:, None]
         ov = torch.minimum(torch.clamp(torch.minimum(finish, w1)
@@ -224,19 +281,21 @@ class _Windows:
         ov = torch.where(committed, ov, 0.0)
         # exact per-PE sums of busy time and of active energy at the
         # latched OPP
-        p_cell = self.power_opp[onpe * self.K + onopp]
+        p_cell = self.power_opp.gather(1, onpe * self.K + onopp)
         acc = fixed_sums(torch.stack([ov, ov * p_cell], dim=1), self.scales,
-                         onpe[:, None, :], tb.num_pes).double()     # (L, 2, P)
+                         onpe[:, None, :], self.P).double()         # (L, 2, P)
         busy_pe, e_act = (acc * self.backs).float().unbind(1)         # (L, P)
-        busy_dom = ((acc[:, 0] @ self.cpu_dom) * self.backs[:, 0]).float()
+        busy_dom = ((acc[:, 0, :, None] * self.cpu_dom).sum(dim=1)
+                    * self.backs[:, 0]).float()                       # (L, C)
         # the governor: utilisation -> ondemand proposal
-        util = busy_dom / torch.maximum(window * tb.domain_cpu, self.floor)
-        proposed = self.ondemand_index(tb.opp_freq, tb.num_opp, self.up, util)
+        util = busy_dom / torch.maximum(window * self.domain_cpu, self.floor)
+        proposed = self.ondemand_index(self.opp_freq, self.num_opp, self.up,
+                                       util)
         # realised window power per PE, then per node by a fixed tree over
         # 32 slots (times 1 or 0: exact), as the kernel's warp shuffles
         idle_frac = 1.0 - torch.clamp(busy_pe / window, 0.0, 1.0)
-        p_pe = e_act / window + tb.power_idle * idle_frac
-        x = torch.nn.functional.pad(p_pe, (0, MAX_PES_DTPM - tb.num_pes))
+        p_pe = e_act / window + self.power_idle * idle_frac
+        x = torch.nn.functional.pad(p_pe, (0, MAX_PES_DTPM - self.P))
         x = x[:, None, :] * self.node_mask                            # (L, 3, 32)
         while x.shape[2] > 1:
             half = x.shape[2] // 2
@@ -246,9 +305,10 @@ class _Windows:
                        self.amb_drive.expand(L, 1)], dim=1)           # (L, 4)
         temps = _rc_rows(self.A_rc, self.temps) + _rc_rows(self.B_rc, u)
         peak = torch.maximum(self.peak, temps[:, :3].amax(dim=1))
-        opp = self.throttle_index(proposed, temps[:, self.domain_node], self.cap)
+        opp = self.throttle_index(proposed, temps.gather(1, self.domain_node),
+                                  self.cap)
         self.opp_idx = torch.where(due[:, None], opp, self.opp_idx)
-        self.opp_pe = self.opp_idx[:, self.pe_domain]
+        self.opp_pe = self.opp_idx.gather(1, self.pe_domain)
         self.temps = torch.where(due[:, None], temps, self.temps)
         self.peak = torch.where(due, peak, self.peak)
         self.next_w = torch.where(due, self.next_w + self.window, self.next_w)
@@ -275,8 +335,9 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
                      app_idx: torch.Tensor, gov=None, faults=None):
     """The epoch scan as a Python loop over its six steps, vectorised over
     lanes.  ``arrival`` (L, J) f32, ``app_idx`` (L, J) int on the tables'
-    device; ``gov`` a ``core.dvfs.PolicyLanes`` of L lanes runs the DTPM
-    program; ``faults`` (L, P) f32 fail times (``inf``: never) the fail-stop
+    device (design-major over stacked tables: lane l reads design l // S);
+    ``gov`` a ``core.dvfs.PolicyLanes`` of L lanes runs the DTPM program;
+    ``faults`` (L, P) f32 fail times (``inf``: never) the fail-stop
     program.  Returns (scheduled, start, finish, onpe), each (L, J, T), under
     DTPM then (onopp (L, J, T), opp_idx (L, C), peak_temp_c (L,)), and with
     faults last ``counts`` (L, 2) int32: the steps each lane took and the
@@ -306,10 +367,16 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
     dtpm = gov is not None
     faulted = faults is not None
     lanes = torch.arange(L, device=dev)
-    pred_j = tables.pred[app_idx]                      # (L, J, T, T)
-    ebytes_j = tables.ebytes[app_idx]                  # (L, J, T, T)
-    valid_j = tables.valid[app_idx]                    # (L, J, T)
-    table_j = tables.table_pe[app_idx].long()          # (L, J, T)
+    # each lane's tables, gathered by (its design, the job's app)
+    design = lane_designs(tables, L, dev)               # (L,)
+    lane_app = (design[:, None], app_idx)
+    pred_j = per_design(tables, "pred")[lane_app]      # (L, J, T, T)
+    ebytes_j = per_design(tables, "ebytes")[lane_app]  # (L, J, T, T)
+    valid_j = per_design(tables, "valid")[lane_app]    # (L, J, T)
+    table_j = per_design(tables, "table_pe")[lane_app].long()   # (L, J, T)
+    comm_mult = per_design(tables, "comm_mult")         # (D, P, P)
+    startup = per_design(tables, "comm_startup")[design][:, None]   # (L, 1)
+    inv_bw = per_design(tables, "comm_inv_bw")[design][:, None]
     flat_order = torch.arange(JT, device=dev).view(1, J, T)
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
 
@@ -323,7 +390,8 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
     pe_free = torch.zeros((L, P + 1), dtype=torch.float32, device=dev)
     if dtpm:
         _check_dtpm(tables, gov, L)
-        win = _Windows(tables, gov, L, dev)
+        win = _Windows(tables, gov, design, dev)
+        exec_opp = per_design(tables, "exec_opp")
         onopp = torch.zeros_like(onpe)
         valid_cells = valid_j.view(L, JT)
         ar_p = torch.arange(P, device=dev)
@@ -332,7 +400,7 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
             return (scheduled[:, :JT] & valid_cells, start[:, :JT],
                     finish[:, :JT], onpe[:, :JT], onopp[:, :JT])
     else:
-        exec_j = tables.exec_us[app_idx]               # (L, J, T, P)
+        exec_j = per_design(tables, "exec_us")[lane_app]   # (L, J, T, P)
 
     def cells(x):
         return x[:, :JT].view(L, J, T)
@@ -383,13 +451,13 @@ def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,
             # 3b. the windows closed by this epoch, then latency at the OPPs
             now = torch.where(do_commit, rmin, -big)
             win.advance(lambda: win.next_w <= now, *window_cells())
-            ex = tables.exec_opp[app_idx[lanes, j][:, None], t[:, None],
-                                 ar_p, win.opp_pe]                  # (L, P)
+            ex = exec_opp[design[:, None], app_idx[lanes, j][:, None],
+                          t[:, None], ar_p, win.opp_pe]             # (L, P)
         else:
             ex = exec_j[lanes, j, t]                                # (L, P)
         # 4. per-PE data-ready with comm from the producer PEs, op by op
-        mult = tables.comm_mult[cells(onpe)[lanes, j]]              # (L, T, P)
-        base = tables.comm_startup + ebytes_j[lanes, j, t] * tables.comm_inv_bw
+        mult = comm_mult[design[:, None], cells(onpe)[lanes, j]]    # (L, T, P)
+        base = startup + ebytes_j[lanes, j, t] * inv_bw
         comm = mult * base[:, :, None]
         pf_row = torch.where(pred_j[lanes, j, t], fin[lanes, j], -big)
         data_ready = torch.maximum(
@@ -487,33 +555,42 @@ def _bits(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
 
 
+def _check_shapes(tables, shapes: dict, lead: tuple, what: str):
+    for name, shape in shapes.items():
+        if tuple(getattr(tables, name).shape) != lead + shape:
+            raise ValueError(f"epoch_scan: tables.{name} is "
+                             f"{tuple(getattr(tables, name).shape)}, {what} "
+                             f"needs {lead + shape}")
+
+
 def _prepare(tables, policy: str):
-    """Per table set, once: the shapes checked, pred and valid bit masks on
-    the device, and the table check per policy."""
+    """Per table set, once: the shapes checked (with the leading design axis
+    of stacked tables), pred and valid bit masks on the device, and the
+    table check per policy."""
     hit = _prepared.get(tables)
     if hit is None:
-        A, T, P = tables.exec_us.shape
-        shapes = {"pred": (A, T, T), "ebytes": (A, T, T), "valid": (A, T),
-                  "table_pe": (A, T), "comm_mult": (P, P)}
-        for name, shape in shapes.items():
-            if tuple(getattr(tables, name).shape) != shape:
-                raise ValueError(f"epoch_scan: tables.{name} is "
-                                 f"{tuple(getattr(tables, name).shape)}, "
-                                 f"exec_us {(A, T, P)} needs {shape}")
+        *lead, A, T, P = tables.exec_us.shape
+        lead = tuple(lead)
+        if len(lead) > 1:
+            raise ValueError(f"epoch_scan: tables.exec_us is "
+                             f"{tuple(tables.exec_us.shape)}; (A, T, P) or "
+                             "(D, A, T, P)")
+        _check_shapes(tables, {"pred": (A, T, T), "ebytes": (A, T, T),
+                               "valid": (A, T), "table_pe": (A, T),
+                               "comm_mult": (P, P), "comm_startup": (),
+                               "comm_inv_bw": ()},
+                      lead, f"exec_us {lead + (A, T, P)}")
         hit = _prepared[tables] = {"pred_bits": _bits(tables.pred).contiguous(),
                                    "valid_bits": _bits(tables.valid).contiguous(),
                                    "table_ok": set()}
         if tables.exec_opp is not None:
-            (C, K), i32 = tables.opp_freq.shape, torch.int32
-            shapes = {"exec_opp": (A, T, P, K), "power_active_opp": (P, K),
-                      "num_opp": (C,), "domain_node": (C,), "domain_cpu": (C,),
-                      "pe_domain": (P,), "pe_is_cpu": (P,), "node_of_pe": (P,),
-                      "power_idle": (P,)}
-            for name, shape in shapes.items():
-                if tuple(getattr(tables, name).shape) != shape:
-                    raise ValueError(f"epoch_scan: tables.{name} is "
-                                     f"{tuple(getattr(tables, name).shape)}, "
-                                     f"opp_freq {(C, K)} needs {shape}")
+            (C, K), i32 = tables.opp_freq.shape[-2:], torch.int32
+            _check_shapes(tables, {
+                "exec_opp": (A, T, P, K), "power_active_opp": (P, K),
+                "opp_freq": (C, K), "num_opp": (C,), "domain_node": (C,),
+                "domain_cpu": (C,), "pe_domain": (P,), "pe_is_cpu": (P,),
+                "node_of_pe": (P,), "power_idle": (P,)},
+                lead, f"opp_freq {lead + (C, K)}")
             # the DTPM tables in the kernel's argument order
             hit["dtpm"] = [
                 tables.exec_opp.float().contiguous(),
@@ -526,8 +603,7 @@ def _prepare(tables, policy: str):
                 tables.pe_is_cpu.float().contiguous(),
                 tables.node_of_pe.to(i32).contiguous(),
                 tables.power_idle.float().contiguous(),
-                torch.from_numpy(rc_consts()).to(tables.exec_opp.device),
-                float(tables.power_active_opp.max())]
+                torch.from_numpy(rc_consts()).to(tables.exec_opp.device)]
     if policy not in hit["table_ok"]:
         _check_table(tables, policy)
         hit["table_ok"].add(policy)
@@ -613,7 +689,9 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     (L, J, T), with ``gov`` (a ``core.dvfs.PolicyLanes`` of L lanes) the
     DTPM program's (onopp, opp_idx, peak_temp_c) after them, and with
     ``faults`` ((L, P) f32 fail times) the fail-stop program's counts (L, 2)
-    last.  CPU tensors take the plain version; CUDA tensors one launch."""
+    last.  Over the tables of D stacked designs the lanes are (D*S, J),
+    design-major, and the launch is D*S blocks.  CPU tensors take the plain
+    version; CUDA tensors one launch."""
     _check_policy(policy)
     dev = tables.exec_us.device
     if dev.type == "cpu":
@@ -627,13 +705,15 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
         raise ValueError(f"epoch_scan: arrival {tuple(arrival.shape)}, app_idx "
                          f"{tuple(app_idx.shape)}; both (L, J)")
     L, J = arrival.shape
-    A, T, P = tables.exec_us.shape
-    C, K = tables.opp_freq.shape if gov is not None else (0, 0)
+    A, T, P = tables.exec_us.shape[-3:]
+    C, K = tables.opp_freq.shape[-2:] if gov is not None else (0, 0)
     if not 1 <= T <= MAX_TASKS:
         raise ValueError(f"epoch_scan: {T} tasks a job; the kernel takes "
                          f"1..{MAX_TASKS}")
     if L == 0 or J == 0:
         raise ValueError("epoch_scan: no lanes or no jobs")
+    S = lanes_per_design(tables, L)
+    D = L // S
     if gov is not None:
         _check_dtpm(tables, gov, L)
     if faults is not None:
@@ -653,7 +733,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     app_idx = app_idx.to(torch.int32).contiguous()
     f32 = [t.to(torch.float32).contiguous() for t in
            (tables.exec_us, tables.ebytes, tables.comm_mult,
-            tables.comm_startup.reshape(1), tables.comm_inv_bw.reshape(1))]
+            tables.comm_startup.reshape(D), tables.comm_inv_bw.reshape(D))]
     table_pe = tables.table_pe.to(torch.int32).contiguous()
     scheduled = torch.empty((L, J, T), dtype=torch.bool, device=dev)
     start = torch.empty((L, J, T), dtype=torch.float32, device=dev)
@@ -677,15 +757,14 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if gov is None:
-            # one design (D = 1): its L lanes are the (1, S) lane grid
             rc = fn(*[t.data_ptr() for t in static_args + fault_args], *cap,
-                    1, L, J, A, T, P, POLICIES.index(policy), stream)
+                    D, S, J, A, T, P, POLICIES.index(policy), stream)
             outs = ()
         else:
-            *dtpm_tables, rc_consts, p_max = prep["dtpm"]
+            *dtpm_tables, rc_consts = prep["dtpm"]
             lanes = [gov.window, gov.up, gov.cap,
                      torch.stack([gov.A_rc, gov.B_rc], dim=1),   # (L, 2, 4, 4)
-                     quanta(gov.window, p_max)]
+                     quanta(gov.window, lane_p_max(tables, L))]
             lanes = [x.to(dev).contiguous() for x in lanes]
             outs = (torch.empty((L, J, T), dtype=torch.int32, device=dev),
                     torch.empty((L, C), dtype=torch.int32, device=dev),
@@ -693,7 +772,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
             rc = fn(*[t.data_ptr() for t in
                       static_args + dtpm_tables + lanes + [rc_consts]
                       + list(outs) + fault_args],
-                    *cap, 1, L, J, A, T, P, POLICIES.index(policy), C, K, stream)
+                    *cap, D, S, J, A, T, P, POLICIES.index(policy), C, K, stream)
     if rc != 0:
         raise RuntimeError(f"epoch_scan launch failed: {fns['error'](rc).decode()}")
     launches += 1

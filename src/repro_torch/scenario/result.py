@@ -3,8 +3,8 @@
 :class:`Result` is one simulation's metrics — latency, throughput, energy,
 peak temperature, utilization — whichever backend produced it; the
 backend-native output (``SimResult`` or the scan's output dict of tensors)
-stays reachable via ``raw``.  The batched ``SweepResult`` comes with
-``sweep`` (ROADMAP.md queue 1, item 6).
+stays reachable via ``raw``.  :class:`SweepResult` is the batched surface
+of ``sweep``: one array per metric, shaped like the swept axes.
 
 Peak temperature is backend-specific by necessity: for static governors the
 ``"torch"`` backend runs the binned RC co-simulation (DESIGN.md §6) while the
@@ -15,7 +15,7 @@ network.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,3 +82,45 @@ class Result:
                    peak_temp_c=float(peak_temp_c),
                    utilization=busy / max(makespan, 1e-9), raw=out,
                    telemetry=telemetry)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Metrics of a ``sweep()``: one ndarray per metric, shaped like the
+    cross-product of the sweep axes (in the axes-dict order)."""
+    base: Scenario
+    backend: str                       # "ref" | "torch"
+    axes: Dict[str, Tuple]             # axis name -> swept values
+    avg_latency_us: np.ndarray
+    throughput_jobs_per_ms: np.ndarray
+    makespan_us: np.ndarray
+    energy_j: np.ndarray
+    peak_temp_c: np.ndarray
+    busy_per_pe_us: np.ndarray         # shape + (padded num_pes,)
+    telemetry: Optional[np.ndarray] = None   # per-lane timelines (not ported yet)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(len(v) for v in self.axes.values())
+
+    @property
+    def num_points(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    @property
+    def utilization(self) -> np.ndarray:
+        return self.busy_per_pe_us / np.maximum(
+            self.makespan_us[..., None], 1e-9)
+
+    def iter_records(self) -> Iterator[Tuple[Dict[str, Any], Dict[str, float]]]:
+        """Yield (axis-coordinates, metrics) per sweep point, C order."""
+        names = list(self.axes)
+        for idx in np.ndindex(*self.shape):
+            coords = {n: self.axes[n][i] for n, i in zip(names, idx)}
+            yield coords, dict(
+                avg_latency_us=float(self.avg_latency_us[idx]),
+                throughput_jobs_per_ms=float(
+                    self.throughput_jobs_per_ms[idx]),
+                makespan_us=float(self.makespan_us[idx]),
+                energy_j=float(self.energy_j[idx]),
+                peak_temp_c=float(self.peak_temp_c[idx]))

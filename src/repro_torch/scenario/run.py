@@ -79,11 +79,13 @@ def _cached_nodes(design, device: torch.device) -> torch.Tensor:
 
 
 def _peak_temp_single(out, nodes, p_act, p_idle, bins: int, repeats: int):
-    """One schedule's RC peak temperature."""
-    power_trace, dt_s = _thermal_torch.binned_power_trace(
-        out["start"], out["finish"], out["onpe"], out["scheduled"], nodes,
-        p_act, p_idle, out["makespan_us"], bins=bins)
-    return _thermal_torch.peak_temperature(power_trace, dt_s, repeats=repeats)
+    """One schedule's RC peak temperature: ``peak_temperature_grid`` at one
+    lane, the code path of every lane of a ``sweep``."""
+    one = {k: out[k][None, None] for k in ("start", "finish", "onpe",
+                                           "scheduled", "makespan_us")}
+    return _thermal_torch.peak_temperature_grid(
+        one, nodes[None], p_act[None], p_idle[None], bins=bins,
+        repeats=repeats)[0, 0]
 
 
 def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
