@@ -57,7 +57,14 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            plain version bit for bit (every output), to ``backend="ref"``
            within 1e-4 (latency, makespan) / 1e-3 (energy), the comm-free
            schedule equal to the event-heap oracle; K1's SASS holds no FFMA;
-           then the paper's five-app mix on ``DesignPoint(num_vit=1)`` (15
+           K1's block shapes (1, 2 and 4 lanes a block) in all four
+           instantiations equal to the plain scan bit for bit: three designs
+           of 8/13/19 PEs with S = 3 lanes each (blocks straddle designs, L
+           = 9 not a multiple of the lanes a block) of 100 jobs (not a
+           multiple of 32), and a two-task app at 1,100 jobs (more groups of
+           32 jobs than a warp has lanes), with each instantiation's lanes a
+           block, lanes an SM, registers and spill printed; then
+           the paper's five-app mix on ``DesignPoint(num_vit=1)`` (15
            PEs), 1,024 lanes (32 rates from 1 to 80 jobs/ms x 32 seeds) of
            1,000 Poisson jobs, one K1 launch per scheduler, every 16th lane
            equal to the plain scan bit for bit; K1's time (CUDA events, median
@@ -73,9 +80,9 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            plain scan; (c) the comm-free integer trace (window 50 us, etf and
            met) equal to the event-heap oracle on finish, PE and latched
            frequency; (d) the full grid under ondemand and throttle per
-           scheduler, K1 timed as above, windows a lane printed, one lane
-           (seed 0 of the highest rate: the plain loop pays each checked
-           lane's windows) equal to the plain scan.  The
+           scheduler, K1 timed as above, windows a lane printed, two lanes
+           (seed 0 of the middle and the highest rate: the plain loop pays
+           each checked lane's windows) equal to the plain scan.  The
            host oracle runs at 20 and 60 jobs/ms only.  Then fail-stop
            faults through K1's two faulted instantiations: (a) wifi_tx x
            {etf, met} at 2, 20, 60 jobs/ms, 80 jobs, through
@@ -168,13 +175,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
-from repro_torch.core.applications import wifi_tx  # noqa: E402
+from repro_torch.core.applications import _chain, wifi_tx  # noqa: E402
 from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E402
                                    policy_lanes, stack_policies)
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
 from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
 from repro_torch.core.schedulers import get_scheduler  # noqa: E402
-from repro_torch.dse import DesignPoint, DesignSpace, stack_traces  # noqa: E402
+from repro_torch.dse import (DesignPoint, DesignSpace, stack_tables,  # noqa: E402
+                             stack_traces)
 from repro_torch.dse import batch as dse_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
@@ -1198,6 +1206,87 @@ def scan_bound_ms(tables, L, J, dtpm=False, faults=False):
     return 1e3 * nbytes / PEAK_BYTES_S
 
 
+def k1_geometry(info: dict) -> str:
+    """K1's launch shape from ``kernel_info``, as the log lines print it."""
+    return (f"{info['lanes_per_block']} lanes ({info['threads']} threads) a "
+            f"block, {info['lanes_per_sm']} lanes an SM, {info['registers']} "
+            f"registers and {info['local_bytes']} local (spill) bytes a thread, "
+            f"{info['shared_bytes']} bytes of shared memory a block")
+
+
+@torch.no_grad()
+def phase_k1_geometry(smi: str):
+    """K1 against the plain scan, bit for bit on every output, in all four
+    instantiations: (a) three designs of 8, 13 and 19 PEs padded to 19 with
+    S = 3 lanes each (odd, so neighbouring blocks read different designs) of
+    100 jobs (not a multiple of 32); (b) one two-task app at 1,100 jobs, L = 3
+    (35 groups of 32 jobs: more than a warp's lanes).  Then each
+    instantiation's shape at phase 6's sizes."""
+    t0 = time.perf_counter()
+    counts_zero()
+    programs = {"epoch_scan": (None, False), "epoch_scan_dtpm": ("ondemand", False),
+                "epoch_scan_faults": (None, True),
+                "epoch_scan_dtpm_faults": ("ondemand", True)}
+    tiny = _chain("tiny", ["scrambler_encoder", "crc"])
+    checked = 0
+    for name, (gov, faulted) in programs.items():
+        policy = "met" if gov or faulted else "etf"
+        # (a) the stacked designs
+        scns = [Scenario(design=p, apps=("wifi_tx", "wifi_rx"), scheduler=policy,
+                         governor=gov or "performance") for p in SWEEP_DESIGNS]
+        stack = stack_tables([tables_for(s, pad_pes=19) for s in scns])
+        traces = [poisson_trace(r, 100, ("wifi_tx", "wifi_rx"), seed=k)
+                  for k, r in enumerate((10.0, 40.0, 80.0))]
+        arr, app = stack_traces(traces)
+        arr, app = arr.repeat(3, 1), app.repeat(3, 1)
+        plans = None
+        if faulted:
+            plans = torch.full((9, 19), float("inf"), device=DEV)
+            plans[:, 1], plans[:, 0] = 150.0, 400.0
+        cases = [("3 designs x S=3, J=100", stack, arr, app, plans,
+                  scns[0].make_policy() if gov else None)]
+        # (b) the two-task app
+        governor = OndemandGovernor() if gov else None
+        tb = simkernel_torch.build_tables(make_soc_table2(), [tiny], governor=governor)
+        traces = [poisson_trace(r, 1100, ["tiny"], seed=k)
+                  for k, r in enumerate((20.0, 60.0, 100.0))]
+        arr, app = stack_traces(traces)
+        plans = None
+        if faulted:
+            plans = torch.full((3, tb.num_pes), float("inf"), device=DEV)
+            plans[:, 0], plans[:, 1] = 5000.0, 9000.0
+        cases.append(("one design, J=1100", tb, arr, app, plans,
+                      governor.policy() if gov else None))
+        for what, tb, arr, app, plans, pol in cases:
+            lanes = None if pol is None else policy_lanes(pol, arr.shape[0])
+            want = k1.epoch_scan_plain(tb, policy, arr, app, lanes, plans)
+            got = k1.epoch_scan(tb, policy, arr, app, gov=lanes, faults=plans)
+            torch.cuda.synchronize()
+            for k, (g, w) in enumerate(zip(got, want)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(f"K1 geometry {name} {what}: output {k} "
+                                         "differs from the plain scan")
+            checked += 1
+    geometry_counts = k1_counts()
+    if geometry_counts != dict.fromkeys(programs, len(cases)):
+        raise AssertionError(f"K1 geometry: launches {geometry_counts}, expected "
+                             f"{len(cases)} per instantiation")
+    log(f"[scenario] K1 geometry: {checked} launches (4 instantiations x 2 cases: "
+        f"3 designs of 8/13/19 PEs x S=3 lanes of 100 jobs; a two-task app at "
+        f"1,100 jobs x 3 lanes) = the plain scan bit for bit on every output; "
+        f"launches by instantiation {geometry_counts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # each instantiation's shape at phase 6's sizes (five apps, T=8, P=15)
+    tb = tables_for(Scenario(design=DesignPoint(num_vit=1), apps=APPS5,
+                             governor="ondemand"))
+    A, T, P = tb.exec_us.shape
+    C, K = tb.opp_freq.shape
+    for name, (gov, faulted) in programs.items():
+        CK = (C, K) if gov else (0, 0)
+        info = k1.kernel_info(SCAN_JOBS, A, T, P, DEV, *CK, faults=faulted)
+        log(f"[scenario] K1 {name} at J={SCAN_JOBS}: {k1_geometry(info)}  [{smi}]")
+
+
 @torch.no_grad()
 def phase_scenario(smi: str):
     """K1 through the DS3 scenario path: small cases against the plain scan
@@ -1257,6 +1346,7 @@ def phase_scenario(smi: str):
         + "; ".join(f"{name} {c['fmul_fadd']} FMUL/FADD, {c['dfma']} DFMA, "
                     f"{c['instructions']} instructions" for name, c in sass.items())
         + " (DFMA: the DTPM divisions' f64 refinement)")
+    phase_k1_geometry(smi)
 
     # -- full size: the paper's five-app mix, 1,024 lanes of 1,000 jobs
     rates = np.linspace(1.0, 80.0, SCAN_RATES)
@@ -1335,11 +1425,8 @@ def phase_scenario(smi: str):
         entry.setdefault("max_abs_err", err)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     for name, inf in (("K1", info), ("K1 faults", info_f)):
-        log(f"[scenario] {name}: {inf['threads']} threads a block, "
-            f"{inf['registers']} registers and {inf['local_bytes']} local bytes "
-            f"a thread, {inf['shared_bytes']} bytes of shared memory, "
-            f"{inf['blocks_per_sm']} blocks per SM ({inf['blocks_per_sm'] * sms} "
-            f"resident on {sms} SMs) for {L} lanes")
+        log(f"[scenario] {name}: {k1_geometry(inf)} ({inf['lanes_per_sm'] * sms} "
+            f"lanes resident on {sms} SMs) for {L} lanes")
     entry.update(ms=entry["ms_etf"], plain_ms=1e3 * entry[f"plain_s_{len(checked)}_lanes_etf"],
                  plain_note=f"etf, the plain loop over {len(checked)} of the {L} lanes",
                  bound_ms=scan_bound_ms(tables["etf"], L, J), bound_by="bytes",
@@ -1495,10 +1582,10 @@ def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx):
     n_launches += 6
     # the plain loop runs its longest lane's steps (~6,800 here, ~1 ms each)
     # and one masked window step for each window of each of its lanes (they
-    # seldom close together; ~20,000 / rate a lane, ~1 ms each): so one lane,
-    # seed 0 of the highest rate, where most jobs are in flight, the window
-    # walk's hardest case
-    check_idx = (SCAN_RATES - 1,)
+    # seldom close together; ~20,000 / rate a lane, ~1 ms each): so two lanes,
+    # seed 0 of the middle and of the highest rate, where most jobs are in
+    # flight and each PE's commit list is longest
+    check_idx = (SCAN_RATES // 2, SCAN_RATES - 1)
     checked = torch.tensor([r * SCAN_SEEDS for r in check_idx], device=DEV)
     check_rates = " and ".join(f"{np.linspace(1.0, 80.0, SCAN_RATES)[r]:.2f}"
                                for r in check_idx)
@@ -1543,10 +1630,7 @@ def phase_scenario_dtpm(smi: str, entry: dict, traces, arrival, app_idx):
         dent[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)
         dent[f"windows_mean_{gov}_{policy}"] = float(windows.mean())
         dent[f"bound_ms_{gov}_{policy}"] = bound
-    log(f"[scenario] K1 DTPM: {info['threads']} threads a block, "
-        f"{info['registers']} registers and {info['local_bytes']} local bytes a "
-        f"thread, {info['shared_bytes']} bytes of shared memory, "
-        f"{info['blocks_per_sm']} blocks per SM for {L} lanes; the DTPM part "
+    log(f"[scenario] K1 DTPM: {k1_geometry(info)} for {L} lanes; the DTPM part "
         f"took {time.perf_counter() - t_phase:.1f} s")
     dent.update(shape=entry["shape"] + ", ondemand", ms=dent["ms_ondemand_etf"],
                 plain_ms=1e3 * dent[f"plain_s_{len(checked)}_lanes_ondemand_etf"],
@@ -1861,9 +1945,7 @@ def phase_scenario_faults(smi: str) -> dict:
             f"{float(o['peak_temp_c'].max()):.3f} C, holds "
             f"{o['held_bytes'] / 2 ** 20:.1f} MiB; plain {plain_s:.3f} s for lanes "
             f"{checked.tolist()} (= K1 bit for bit); byte bound {bound:.5f} ms; "
-            f"{info['registers']} registers, {info['local_bytes']} local bytes, "
-            f"{info['shared_bytes']} bytes of shared memory, "
-            f"{info['blocks_per_sm']} blocks per SM  [{smi}]")
+            f"{k1_geometry(info)}  [{smi}]")
         dent[f"ms_{gov}_{policy}"] = ms
         dent[f"plain_s_2_lanes_{gov}_{policy}"] = plain_s
         dent[f"tasks_per_s_{gov}_{policy}"] = valid / (ms * 1e-3)

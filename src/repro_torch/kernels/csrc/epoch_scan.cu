@@ -2,9 +2,10 @@
 // governors (epoch_scan_kernel<false, false>) and closed-loop DTPM
 // (<true, false>), with a plain C interface.  The kernel and its design
 // notes are in epoch_scan.cuh; the fail-stop programs are built apart, in
-// epoch_scan_faults.cu, under a launch bound of their own, so that nothing of
-// theirs touches these kernels' code.
-#define K1_LAUNCH_BOUNDS(DTPM) __launch_bounds__(THREADS)
+// epoch_scan_faults.cu.  The bound is the block of one warp (a lane);
+// ptxas may then take up to 255 registers a thread, and even that leaves 8
+// warps (lanes) an SM, so shared memory, not registers, sets the lanes an SM.
+#define K1_LAUNCH_BOUNDS(DTPM) __launch_bounds__(32)
 #include "epoch_scan.cuh"
 
 // Tables of D designs (exec_us (D,A,T,P) f32, pred_bits (D,A,T) i32, ebytes
@@ -12,8 +13,8 @@
 // comm_inv_bw (D,) f32, table_pe (D,A,T) i32, each valid task's entry in 0..P-1 for the table
 // policy), lanes (D*S, J) of arrival f32 and app_idx
 // i32 in 0..A-1; outputs (D*S, J, T): scheduled (bool bytes), start, finish
-// f32, onpe i32, all contiguous.  policy: 0 etf, 1 met, 2 table.  One launch
-// of D*S blocks.  Returns 0 or a cudaError_t.
+// f32, onpe i32, all contiguous.  policy: 0 etf, 1 met, 2 table.  One launch of
+// D*S blocks of one warp, a lane each.  Returns 0 or a cudaError_t.
 extern "C" int repro_epoch_scan(const void* exec_us, const void* pred_bits, const void* ebytes,
                                 const void* valid_bits, const void* comm_mult,
                                 const void* comm_startup, const void* comm_inv_bw,
@@ -36,8 +37,9 @@ extern "C" int repro_epoch_scan(const void* exec_us, const void* pred_bits, cons
 // (window, up, cap (D*S,) f32, window > 0 and up > 0; rc (D*S,2,4,4) f32, the
 // exact RC step's A and B; quanta (D*S,2) i32, the window sums' fixed-point
 // exponents), rc_consts (5,) f32 (C_NODE, ambient drive, ambient), and the
-// outputs onopp (D*S,J,T) i32, opp_idx (D*S,C) i32, peak (D*S,) f32.
-// P, C, K <= 32.  Returns 0 or a cudaError_t.
+// outputs onopp (D*S,J,T) i32, opp_idx (D*S,C) i32, peak (D*S,) f32, and the
+// scratch next_cell (D*S,J,T) i32 (no initial value needed).  P, C, K <= 32.
+// Returns 0 or a cudaError_t.
 extern "C" int repro_epoch_scan_dtpm(
     const void* exec_us, const void* pred_bits, const void* ebytes, const void* valid_bits,
     const void* comm_mult, const void* comm_startup, const void* comm_inv_bw,
@@ -47,23 +49,24 @@ extern "C" int repro_epoch_scan_dtpm(
     const void* domain_cpu, const void* pe_domain, const void* pe_is_cpu,
     const void* node_of_pe, const void* power_idle, const void* window, const void* up,
     const void* cap, const void* rc, const void* quanta, const void* rc_consts, void* onopp,
-    void* opp_idx, void* peak, int D, int S, int J, int A, int T, int P, int policy, int C,
-    int K, void* stream) {
-  if (bad_sizes(D, S, J, A, T, P, policy) || bad_dtpm(P, C, K)) return (int)cudaErrorInvalidValue;
+    void* opp_idx, void* peak, void* next_cell, int D, int S, int J, int A, int T, int P,
+    int policy, int C, int K, void* stream) {
+  if (bad_sizes(D, S, J, A, T, P, policy) || bad_dtpm(P, C, K))
+    return (int)cudaErrorInvalidValue;
   const Params p = make_params(exec_us, pred_bits, ebytes, valid_bits, comm_mult, comm_startup,
                                comm_inv_bw, table_pe, arrival, app_idx, scheduled, start, finish,
                                onpe, D, S, J, A, T, P, policy);
   const DtpmParams dp = make_dtpm_params(exec_opp, pwr_opp, opp_freq, num_opp, domain_node,
                                          domain_cpu, pe_domain, pe_is_cpu, node_of_pe,
                                          power_idle, window, up, cap, rc, quanta, rc_consts,
-                                         onopp, opp_idx, peak, C, K);
+                                         onopp, opp_idx, peak, next_cell, C, K);
   return launch<true, false>(p, dp, FaultParams{}, stream);
 }
 
-// Threads per block, resident blocks per SM, dynamic shared bytes, registers
-// a thread and local (stack and spill) bytes a thread of one launch at (J, A,
-// T, P), of the DTPM kernel (with C, K) when dtpm != 0: out[0..4].  Returns 0
-// or a cudaError_t.
+// Threads a block, lanes a block, resident lanes an SM, dynamic shared bytes,
+// registers a thread and local (stack and spill) bytes a thread of one launch
+// at (J, A, T, P), of the DTPM kernel (with C, K) when dtpm != 0: out[0..5].
+// Returns 0 or a cudaError_t.
 extern "C" int repro_epoch_scan_info(int J, int A, int T, int P, int C, int K, int dtpm,
                                      int* out) {
   return kernel_info<false>(J, A, T, P, C, K, dtpm, out);

@@ -16,36 +16,43 @@
 // Bound on an H100: neither bytes nor operations.  The scan is a chain of J*T
 // dependent steps a lane (each commit moves the next step's ready times and
 // PE queues); a lane's whole state is a few (J, T) arrays, so the card's
-// memory rate and peak are far away, and what a step costs is its latency:
-// a walk over the lane's open jobs, a block reduction and one commit.
+// memory rate and peak are far away, and what a step costs is its latency.
+// So a step does only what the commit changed, in one warp, with no block
+// barrier.
 //
-// Design (a first form that is right; speed is for later):
-//   * Grid: one block of THREADS threads per lane, lanes laid out (D, S): the
-//     tables carry a leading design axis of D, and lane l reads design l / S.
-//   * Shared memory for the whole scan: the design's small tables (exec_us
-//     (A,T,P), ebytes (A,T,T), comm_mult (P,P), table_pe and each task's
-//     predecessors as a T-bit mask (A,T), each app's valid tasks as a mask),
-//     pe_free[P], and per job its arrival, app and `done` mask (T <= 32: one
-//     32-bit word a job; the wrapper and the C entry refuse a larger T).  The
+// Design:
+//   * Grid: one block of one warp per lane, lane = blockIdx.x; lanes are laid
+//     out (D, S) and lane l reads design l / S.  The kernel has no block
+//     barrier: __syncwarp and shuffles only.
+//   * Shared memory: the design's small tables (exec_us (A,T,P), ebytes
+//     (A,T,T), comm_mult (P,P), table_pe and each task's predecessors as a
+//     T-bit mask (A,T), each app's valid tasks as a mask), loaded by the warp;
+//     then the lane's slice: per job its `done` mask (T <= 32: one 32-bit
+//     word) and its key, per group of 32 jobs the least key, pe_free[P].  The
 //     (J, T) schedule (start, finish, onpe) lives in global memory, which is
-//     the output; the L2 holds it, and __syncthreads makes one thread's writes
-//     visible to the block.
-//   * Each step, in the reference's order:
-//     1-2. a thread walks its jobs (j = tid, tid + THREADS, ...), skipping a
-//          job whose tasks are all done; a task is eligible when it is not
-//          done and its pred mask lies inside the job's done mask; its ready
-//          time is max(arrival, max over preds of finish) (no preds: arrival,
-//          as the reference's -BIG fill gives);
-//     3.   a block reduction takes the least (ready, j*T + t) as one 64-bit
-//          key (ready's order-preserving bits above the flat index): the
-//          reference's rmin, then the first flat index at rmin; nothing
-//          eligible, or rmin >= BIG/2, ends the scan (any_left);
-//     4.   warp 0, a lane per PE: data_ready = max(rmin, over preds of
-//          finish + comm), then start_c and fin_c;
+//     the output; a job's arrival and app are read from global memory for the
+//     one job a step touches.
+//   * The pick from per-job keys: key[j] is the least 64-bit (order bits of
+//     ready << 32 | j*T + t) over job j's eligible tasks (NONE if it has
+//     none): a task is eligible when it is not done and its pred mask lies
+//     inside the job's done mask, and its ready time is max(arrival, over
+//     preds of finish) (no preds: arrival, as the reference's -BIG fill
+//     gives).  A ready time depends only on its own job, so a commit in job j
+//     changes key[j] alone: a lane per task recomputes it, then the lanes of
+//     its group of 32 jobs gmin[j / 32].  A step's pick is the warp minimum
+//     over gmin (a lane takes groups g, g + 32, ...: any J).  The least key
+//     is the reference's rmin, then its first flat index at rmin, as a min
+//     over per-job minima is the min; nothing eligible, or rmin >= BIG/2,
+//     ends the scan (any_left).
+//   * Each step, in the reference's order, by the warp:
+//     3.   the pick from gmin;
+//     4.   a lane per PE: data_ready = max(rmin, over preds of finish +
+//          comm), then start_c and fin_c;
 //     5.   the policy's PE: etf the first argmin of fin_c, met of exec, table
 //          table_pe, by a warp reduction over (value, PE) that keeps the
 //          lower PE on ties;
-//     6.   lane 0 commits s0 and f0 to the task and the PE's queue.
+//     6.   lane 0 commits s0 and f0 to the task and the PE's queue; then the
+//          job's key and its group's minimum.
 //   * Stopping early: the scan ends at the first step with nothing left.  In
 //     the fault-free programs every later step of the reference's J*T is a
 //     no-op, so this is exact.  With faults too: a fault fires only while a
@@ -54,57 +61,58 @@
 //     launch's step cap, the reference's J*T*(1+n)+n for the most finite fail
 //     times n of a lane, which never binds (each firing rolls back at most
 //     J*T commits and skips at most one step).
-// Fail-stop faults (the body's `FAULTS` argument; simkernel_jax.py:372-376,
+// Fail-stop faults (the `FAULTS` argument; simkernel_jax.py:372-376,
 // :402-435, :446-447, :460-466, :499-506):
 //   * Per lane a fail time per PE; the carry adds the dead PEs, each task's
 //     re-enqueue floor (in global memory beside finish: 32 KB a lane at the
-//     full grid) and per job a T-bit "has a floor" mask in shared memory, so
-//     the common step reads nothing new: a task's ready time is max(arrival,
-//     pred finishes, its floor or 0).
-//   * After the pick's reduction warp 0 tests the fail times against rmin.
-//     If one crosses (at most once per distinct fail time a lane), it writes
-//     the firing PEs and the pick to shared memory and the step pauses at the
-//     barrier that ends every step; then the whole block rolls back, a thread
-//     per job (the closure over descendants stays inside a job), the queues'
-//     drain times recomputed as a block-wide max of the surviving finishes
-//     (integer atomicMax on their bits, exact), a barrier, and warp 0 skips
-//     the pick if a pred of it was rolled back or else places it at the
-//     pre-rollback rmin.  A step where nothing fires gains no barrier.
+//     full grid) and per job a T-bit "has a floor" mask, so a task's ready
+//     time is max(arrival, pred finishes, its floor or 0).
+//   * After the pick the warp tests the fail times against rmin.  If one
+//     crosses (at most once per distinct fail time a lane), the warp rolls
+//     back, a lane per job (the closure over descendants stays inside a job),
+//     and recomputes the key of each job it touched; the queues drain at the
+//     surviving finishes (a max over them, integer atomicMax on their bits,
+//     exact), every group's minimum is recomputed, and the step skips the
+//     pick if a pred of it was rolled back or else places it at the
+//     pre-rollback rmin.
 //   * The policy's argmin takes a dead PE as inf (an unsupported one is the
 //     finite BIG); when every candidate is inf it takes PE 0, as argmin does.
-//   * DTPM's carry repaired at a rollback: the window walk's `lo` moves back
-//     to the lowest re-opened job, and each touched job's latest finish and
-//     the makespan are recomputed from the surviving schedule (a rolled-back
-//     task may have held the largest finish).  A re-committed root may start
-//     in a window that already closed; closed windows are not revisited, as
-//     in the reference.
-// DTPM (the `DTPM` template argument; simkernel_jax.py:271-316, :377-391,
-// :471-480, :525-526, :535-543):
-//   * Shared memory adds the OPP-indexed latency exec_opp (A,T,P,K) in place
-//     of exec_us (A,T,P), the per-level active power (P,K), the domain ladders
-//     (C,K) and level counts, the domain and node maps, idle power, per job
-//     its latest committed finish, and the lane's carry: OPP index per domain,
-//     the next window's end, the 4 RC temperatures, their peak, the makespan so
-//     far.  Per lane the policy: window, up threshold, thermal cap, the exact
-//     RC matrices A and B (from the host, the plain version's f32 values) and
-//     the two fixed-point exponents of the window sums.
-//   * Before the commit of each step, warp 0 runs the windows that closed by
+//   * DTPM's carry repaired at a rollback: the makespan is recomputed from the
+//     surviving schedule (a rolled-back task may have held the largest
+//     finish) and each PE's commit list is relinked over its surviving cells.
+//     A re-committed root may start in a window that already closed; closed
+//     windows are not revisited, as in the reference.
+// DTPM (the `DTPM` argument; simkernel_jax.py:271-316, :377-391, :471-480,
+// :525-526, :535-543):
+//   * The tables add the OPP-indexed latency exec_opp (A,T,P,K) in place of
+//     exec_us (A,T,P), the per-level active power (P,K), the domain ladders
+//     (C,K) and level counts, the domain and node maps and idle power; the
+//     lane's slice adds the carry: OPP index per domain, the next window's
+//     end, the 4 RC temperatures, their peak, the makespan so far, and per PE
+//     the head and tail of its commit list.  Per lane the policy: window, up
+//     threshold, thermal cap, the exact RC matrices A and B (from the host,
+//     the plain version's f32 values) and the two fixed-point exponents of
+//     the window sums.
+//   * Before the commit of each step the warp runs the windows that closed by
 //     the pick's ready time (while next_w <= rmin); after the last step, the
-//     drain (while next_w - window < makespan).  A window walks only the jobs
-//     that can overlap it: from the first job not yet done or still running
-//     past the window's start (`lo`, which only moves forward) to the last job
-//     with a commit (`hi`), skipping a job whose latest finish is at or before
-//     the window's start (no commit lands before a closed window, so such a
-//     job adds nothing again).  Each overlap `ov` and its energy `ov * p` go
-//     into per-PE bins as 64-bit integers, round(x * 2^s): integer atomics
-//     add exactly, so the sums are the same bits in every order and equal the
-//     plain version's (kernels/epoch_scan.py, `quanta`).  A lane per PE then
-//     turns its bins into window power; the node power is a fixed shuffle tree
-//     over the 32 lanes; a lane per domain takes utilisation and the ondemand
-//     step; lanes 0-3 a row each of the RC step; the throttle last.
+//     drain (while next_w - window < makespan).
+//   * The window sums from per-PE commit lists: a PE's tasks start at or after
+//     its previous finish (st = max(data_ready, pe_free[pe])), so its commits,
+//     in commit order, are disjoint and sorted by start and by finish.  A
+//     commit appends its cell (next_cell, (L, J, T) int32 in global memory,
+//     links a PE's cells).  In a window [w0, w1) a lane per PE moves its head
+//     past the cells that finish by w0 (no later window sees them: w0 only
+//     grows) and walks on to the first cell that starts at or after w1.  Each
+//     overlap `ov` and its energy `ov * p` go into the lane's own bins as
+//     64-bit integers, round(x * 2^s): integer sums are the same bits in
+//     every order and equal the plain version's (kernels/epoch_scan.py,
+//     `quanta`).  A lane per PE then turns its bins into window power; the
+//     node power is a fixed shuffle tree over the 32 lanes; a lane per domain
+//     takes utilisation and the ondemand step; lanes 0-3 a row each of the RC
+//     step; the throttle last.
 //   * The pick's latency is exec_opp at its PEs' domain OPPs; the commit latches
-//     the OPP (onopp) and moves the job's latest finish, `hi` and the makespan.
-//   * DTPM needs P, C, K <= 32 (a lane of warp 0 each); the wrapper checks.
+//     the OPP (onopp) and moves the makespan.
+//   * DTPM needs P, C, K <= 32 (a lane each); the wrapper checks.
 // Numerics: f32 as the reference, op by op.  nvcc contracts a*b+c into one
 // fma by default and the build's flags do not turn that off, so the three
 // contractible spots are written with __fmul_rn / __fadd_rn, in the
@@ -129,14 +137,12 @@ using namespace repro;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_TASKS = 32;
 constexpr float BIG = 1e30f;
 constexpr int ETF = 0, MET = 1, TABLE = 2;
 constexpr unsigned long long NONE = ~0ull;
 
-constexpr int MAX_DTPM = 32;    // P, C and K under DTPM: a lane of warp 0 each
+constexpr int MAX_DTPM = 32;    // P, C and K under DTPM: a lane each
 constexpr int NODES = 3;        // thermal nodes with power (the 4th is the board)
 
 struct Params {
@@ -178,6 +184,7 @@ struct DtpmParams {
   int* onopp;                // (D*S, J, T)
   int* opp_idx;              // (D*S, C)
   float* peak;               // (D*S,)
+  int* next_cell;            // (D*S, J, T) scratch: the next cell on the same PE
   int C, K;
 };
 
@@ -189,21 +196,27 @@ struct FaultParams {
   int cap;                   // steps a lane may take (the reference's scan length)
 };
 
-// shared words of one block, in the order the kernel lays them out (K = 0:
-// the static kernel; faults: the fail-stop words after either layout)
-__host__ __device__ inline long long shared_words(int J, int A, int T, int P, int C = 0,
-                                                  int K = 0, bool faults = false) {
-  long long w = 2LL * WARPS + (long long)A * T * P * (K > 0 ? K : 1) + (long long)A * T * T +
-                (long long)P * P + 2LL * A * T + A + P + 3LL * J;
-  if (K > 0) w += 4LL * P + J + (long long)P * K + (long long)C * K + 4LL * C + 4LL * P + 32 + 9;
-  if (faults) w += 4LL * P + J + 8;
-  return w;
+// 32-bit words of a design's tables (K = 0: the static kernel),
+// and of one lane's slice (64-bit words first), each rounded up to an even
+// count so that every slice starts 8-byte aligned
+__host__ __device__ inline long long table_words(int A, int T, int P, int C, int K) {
+  long long w = (long long)A * T * P * (K > 0 ? K : 1) + (long long)A * T * T +
+                (long long)P * P + 2LL * A * T + A;
+  if (K > 0) w += (long long)P * K + (long long)C * K + 3LL * C + 4LL * P;
+  return (w + 1) & ~1LL;
 }
-
-// the fail-stop carry's scalars (fst[]): a rollback is pending, it lost a
-// task, the pick and rmin it interrupted, the lowest re-opened job and the
-// surviving makespan's bits (DTPM)
-constexpr int F_PENDING = 0, F_ANY_INV = 1, F_FLAT = 2, F_RMIN = 3, F_LO = 4, F_MK = 5;
+__host__ __device__ inline long long lane_words(int J, int P, int C, int K, bool faults) {
+  const long long G = (J + 31) / 32;
+  long long w = 2 * G + 2LL * J + P + J;   // gmin, key, pe_free, done
+  if (K > 0) w += 2LL * P + 2LL * P + C + 32 + 7;   // bins; head, tail, OPPs, RC, carry
+  if (faults) w += 4LL * P + J;                     // fail times, PE masks, queues, floors
+  return (w + 1) & ~1LL;
+}
+// shared words of one block: the tables, then the lane's slice
+__host__ __device__ inline long long shared_words(int J, int A, int T, int P, int C, int K,
+                                                  bool faults) {
+  return table_words(A, T, P, C, K) + lane_words(J, P, C, K, faults);
+}
 
 // order-preserving bits of a float (not NaN), -0 taken as +0
 __device__ __forceinline__ unsigned order_bits(float x) {
@@ -213,6 +226,14 @@ __device__ __forceinline__ unsigned order_bits(float x) {
 }
 __device__ __forceinline__ float from_order_bits(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(FULL_MASK, v, o);
+    v = other < v ? other : v;
+  }
+  return v;
 }
 
 // a window sum (fixed point, exponent s) back to f32: one rounding
@@ -241,35 +262,28 @@ __device__ __forceinline__ double pow2d(int s) {
   return __longlong_as_double((long long)(1023 + s) << 52);
 }
 
-// The scan of one lane (one block).  K1_LAUNCH_BOUNDS(DTPM) comes from the
+// The scan of one lane (one warp).  K1_LAUNCH_BOUNDS(DTPM) comes from the
 // unit that includes this header: epoch_scan.cu builds the fault-free
 // instantiations, epoch_scan_faults.cu the fail-stop ones
 template <bool DTPM, bool FAULTS>
 __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp,
                                                          FaultParams fp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int stop;
   const int A = p.A, T = p.T, P = p.P, J = p.J;
   const int C = DTPM ? dp.C : 0, K = DTPM ? dp.K : 1;
-  const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
+  const int lane_id = threadIdx.x;
   const long long lane = blockIdx.x;
-  const int d = (int)(lane / p.S);
+  const int G = (J + 31) / 32;                          // groups of 32 jobs
 
-  unsigned long long* red = reinterpret_cast<unsigned long long*>(smem);  // WARPS
-  unsigned long long* bins = red + WARPS;     // DTPM: busy (P), then energy (P)
-  float* exec_s = reinterpret_cast<float*>(bins + (DTPM ? 2 * P : 0));
+  // the tables
+  float* exec_s = reinterpret_cast<float*>(smem);
   float* ebytes_s = exec_s + A * T * P * K;
   float* mult_s = ebytes_s + A * T * T;
   int* pred_s = reinterpret_cast<int*>(mult_s + P * P);
   int* tpe_s = pred_s + A * T;
   int* valid_s = tpe_s + A * T;
-  float* pe_free = reinterpret_cast<float*>(valid_s + A);
-  float* arr_s = pe_free + P;
-  int* app_s = reinterpret_cast<int*>(arr_s + J);
-  unsigned* done = reinterpret_cast<unsigned*>(app_s + J);
-  // DTPM only, after the static layout
-  float* lastfin = reinterpret_cast<float*>(done + J);    // J: latest committed finish
-  float* pwr_s = lastfin + J;                              // (P, K)
+  // DTPM only, after the static tables
+  float* pwr_s = reinterpret_cast<float*>(valid_s + A);   // (P, K)
   float* freq_s = pwr_s + P * K;                           // (C, K)
   int* nopp_s = reinterpret_cast<int*>(freq_s + C * K);    // C
   int* dnode_s = nopp_s + C;                               // C
@@ -278,96 +292,170 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   float* iscpu_s = reinterpret_cast<float*>(pdom_s + P);   // P
   int* node_s = reinterpret_cast<int*>(iscpu_s + P);       // P
   float* pidle_s = reinterpret_cast<float*>(node_s + P);   // P
-  int* oppidx_s = reinterpret_cast<int*>(pidle_s + P);     // C: the lane's OPP per domain
-  float* rc_s = reinterpret_cast<float*>(oppidx_s + C);    // 32: A (4x4), then B
-  // the carry: next window end, peak, makespan, temps[4]; then lo, hi
-  float* st_f = rc_s + 32;
-  int* st_i = reinterpret_cast<int*>(st_f + 7);
-  // FAULTS only, after either layout: the lane's fail times, the dead PEs,
-  // the PEs firing now, the recomputed queues (float bits), per job a T-bit
-  // "has a floor" mask, and the carry's scalars
-  float* ftime_s = DTPM ? reinterpret_cast<float*>(st_i + 2) : reinterpret_cast<float*>(done + J);
-  int* fired_s = reinterpret_cast<int*>(ftime_s + P);
-  int* fire_s = fired_s + P;
-  int* newfree = fire_s + P;
-  unsigned* hasfloor = reinterpret_cast<unsigned*>(newfree + P);
-  int* fst = reinterpret_cast<int*>(hasfloor + J);
 
-  // the design's tables, once
+  // copy the tables of the lane's design, by the warp
+  const int d = (int)(lane / p.S);
   if constexpr (DTPM) {
-    for (int i = tid; i < A * T * P * K; i += THREADS)
+    for (int i = lane_id; i < A * T * P * K; i += 32)
       exec_s[i] = dp.exec_opp[(long long)d * A * T * P * K + i];
-    for (int i = tid; i < P * K; i += THREADS) pwr_s[i] = dp.pwr_opp[(long long)d * P * K + i];
-    for (int i = tid; i < C * K; i += THREADS) freq_s[i] = dp.opp_freq[(long long)d * C * K + i];
-    for (int i = tid; i < C; i += THREADS) {
+    for (int i = lane_id; i < P * K; i += 32) pwr_s[i] = dp.pwr_opp[(long long)d * P * K + i];
+    for (int i = lane_id; i < C * K; i += 32) freq_s[i] = dp.opp_freq[(long long)d * C * K + i];
+    for (int i = lane_id; i < C; i += 32) {
       nopp_s[i] = dp.num_opp[(long long)d * C + i];
       dnode_s[i] = dp.domain_node[(long long)d * C + i];
       dcpu_s[i] = dp.domain_cpu[(long long)d * C + i];
-      oppidx_s[i] = 0;                        // ondemand starts at fmin
     }
-    for (int i = tid; i < P; i += THREADS) {
+    for (int i = lane_id; i < P; i += 32) {
       pdom_s[i] = dp.pe_domain[(long long)d * P + i];
       iscpu_s[i] = dp.pe_is_cpu[(long long)d * P + i];
       node_s[i] = dp.node_of_pe[(long long)d * P + i];
       pidle_s[i] = dp.power_idle[(long long)d * P + i];
     }
-    for (int i = tid; i < 32; i += THREADS) rc_s[i] = dp.rc[lane * 32 + i];
-    for (int j = tid; j < J; j += THREADS) lastfin[j] = 0.f;
-    if (tid == 0) {
-      const float amb = dp.rc_consts[4];
-      st_f[0] = dp.window[lane];               // next_w
-      st_f[1] = amb;                          // peak
-      st_f[2] = 0.f;                          // makespan
-      for (int i = 0; i < 4; ++i) st_f[3 + i] = amb;
-      st_i[0] = 0;                            // lo
-      st_i[1] = 0;                            // hi
-    }
   } else {
-    for (int i = tid; i < A * T * P; i += THREADS) exec_s[i] = p.exec_us[(long long)d * A * T * P + i];
+    for (int i = lane_id; i < A * T * P; i += 32)
+      exec_s[i] = p.exec_us[(long long)d * A * T * P + i];
   }
-  for (int i = tid; i < A * T * T; i += THREADS) ebytes_s[i] = p.ebytes[(long long)d * A * T * T + i];
-  for (int i = tid; i < P * P; i += THREADS) mult_s[i] = p.comm_mult[(long long)d * P * P + i];
-  for (int i = tid; i < A * T; i += THREADS) {
+  for (int i = lane_id; i < A * T * T; i += 32)
+    ebytes_s[i] = p.ebytes[(long long)d * A * T * T + i];
+  for (int i = lane_id; i < P * P; i += 32) mult_s[i] = p.comm_mult[(long long)d * P * P + i];
+  for (int i = lane_id; i < A * T; i += 32) {
     pred_s[i] = p.pred_bits[(long long)d * A * T + i];
     tpe_s[i] = p.table_pe[(long long)d * A * T + i];
   }
-  for (int i = tid; i < A; i += THREADS) valid_s[i] = p.valid_bits[(long long)d * A + i];
-  for (int i = tid; i < P; i += THREADS) pe_free[i] = 0.f;
-  if constexpr (FAULTS) {
-    for (int i = tid; i < P; i += THREADS) {
-      ftime_s[i] = fp.faults[lane * P + i];
-      fired_s[i] = 0;
-    }
-    for (int j = tid; j < J; j += THREADS) hasfloor[j] = 0u;
-    if (tid == 0) fst[F_PENDING] = 0;
-  }
-  if (tid == 0) stop = 0;
-  __syncthreads();
+  for (int i = lane_id; i < A; i += 32) valid_s[i] = p.valid_bits[(long long)d * A + i];
+  __syncwarp();
+
+  // the lane's slice: 64-bit words first
+  unsigned long long* gmin = reinterpret_cast<unsigned long long*>(
+      smem + 4 * table_words(A, T, P, C, DTPM ? K : 0));
+  unsigned long long* key = gmin + G;         // J
+  unsigned long long* bins = key + J;         // DTPM: P busy sums
+  float* pe_free = reinterpret_cast<float*>(bins + (DTPM ? P : 0));
+  unsigned* done = reinterpret_cast<unsigned*>(pe_free + P);   // J
+  // DTPM: each PE's commit list, the lane's OPP per domain, its RC matrices,
+  // and the carry: next window end, peak, makespan, temps[4]
+  int* head = reinterpret_cast<int*>(done + J);
+  int* tail = head + P;
+  int* oppidx_s = tail + P;
+  float* rc_s = reinterpret_cast<float*>(oppidx_s + C);   // 32: A (4x4), then B
+  float* st_f = rc_s + 32;
+  // FAULTS only, after either layout: the lane's fail times, the dead PEs,
+  // the PEs firing now, the recomputed queues (float bits), per job a T-bit
+  // "has a floor" mask
+  float* ftime_s = DTPM ? st_f + 7 : reinterpret_cast<float*>(done + J);
+  int* fired_s = reinterpret_cast<int*>(ftime_s + P);
+  int* fire_s = fired_s + P;
+  int* newfree = fire_s + P;
+  unsigned* hasfloor = reinterpret_cast<unsigned*>(newfree + P);
 
   const unsigned all = T == 32 ? 0xffffffffu : ((1u << T) - 1u);
   const long long row0 = lane * J;             // this lane's first job
+  const float* arr_g = p.arrival + row0;
+  const int* app_g = p.app_idx + row0;
+  float* start_g = p.start + row0 * T;
   float* fin_g = p.finish + row0 * T;
   int* onpe_g = p.onpe + row0 * T;
-  for (int j = tid; j < J; j += THREADS) {
-    arr_s[j] = p.arrival[row0 + j];
-    const int a = p.app_idx[row0 + j];
-    app_s[j] = a;
-    done[j] = ~(unsigned)valid_s[a] & all;     // a task that does not exist is done
-  }
-  float* start_g = p.start + row0 * T;
   int* onopp_g = DTPM ? dp.onopp + row0 * T : nullptr;
+  int* next_g = DTPM ? dp.next_cell + row0 * T : nullptr;
   float* floor_g = FAULTS ? fp.floor + row0 * T : nullptr;
-  for (int c = tid; c < J * T; c += THREADS) {
-    p.start[row0 * T + c] = 0.f;
+
+  for (int i = lane_id; i < P; i += 32) pe_free[i] = 0.f;
+  if constexpr (DTPM) {
+    for (int i = lane_id; i < C; i += 32) oppidx_s[i] = 0;   // ondemand starts at fmin
+    for (int i = lane_id; i < P; i += 32) head[i] = tail[i] = -1;
+    rc_s[lane_id] = dp.rc[lane * 32 + lane_id];
+    if (lane_id == 0) {
+      const float amb = dp.rc_consts[4];
+      st_f[0] = dp.window[lane];              // next_w
+      st_f[1] = amb;                          // peak
+      st_f[2] = 0.f;                          // makespan
+      for (int i = 0; i < 4; ++i) st_f[3 + i] = amb;
+    }
+  }
+  if constexpr (FAULTS) {
+    for (int i = lane_id; i < P; i += 32) {
+      ftime_s[i] = fp.faults[lane * P + i];
+      fired_s[i] = 0;
+    }
+    for (int j = lane_id; j < J; j += 32) hasfloor[j] = 0u;
+  }
+  for (int j = lane_id; j < J; j += 32)
+    done[j] = ~(unsigned)valid_s[app_g[j]] & all;   // a task that does not exist is done
+  for (int c = lane_id; c < J * T; c += 32) {
+    start_g[c] = 0.f;
     fin_g[c] = 0.f;
     onpe_g[c] = 0;
     if constexpr (DTPM) onopp_g[c] = 0;
   }
   const float startup = p.comm_startup[d], inv_bw = p.comm_inv_bw[d];
-  __syncthreads();
+  __syncwarp();
 
-  // DTPM: one sampling window [next_w - window, next_w), run by the 32 lanes
-  // of warp 0 (the reference's _window_step, simkernel_jax.py:271-316)
+  // job j's key, by one thread: the least (ready, flat index) of its
+  // eligible tasks (the rollback's and the first keys)
+  auto serial_key = [&](const int j) {
+    unsigned long long best = NONE;
+    const unsigned dn = done[j];
+    if (dn == all) return best;
+    const int* pr = pred_s + app_g[j] * T;
+    const float arr = arr_g[j];
+    const float* fin_row = fin_g + (long long)j * T;
+    unsigned open = ~dn & all;
+    while (open) {
+      const int t = __ffs(open) - 1;
+      open &= open - 1;
+      unsigned m = (unsigned)pr[t];
+      if (m & ~dn) continue;                 // a predecessor is not committed yet
+      float ready = arr;
+      while (m) {
+        const int q = __ffs(m) - 1;
+        m &= m - 1;
+        ready = fmaxf(ready, fin_row[q]);
+      }
+      // a rolled-back root waits out its fail time (floor 0 elsewhere)
+      if constexpr (FAULTS)
+        ready = fmaxf(ready, ((hasfloor[j] >> t) & 1u) ? floor_g[(long long)j * T + t] : 0.f);
+      const unsigned long long k =
+          ((unsigned long long)order_bits(ready) << 32) | (unsigned)(j * T + t);
+      best = k < best ? k : best;
+    }
+    return best;
+  };
+  // job j's key, by the warp: a lane per task, its preds' finishes by shuffle
+  auto warp_key = [&](const int j) {
+    const unsigned dn = done[j];
+    const int t = lane_id;
+    const bool in = t < T;
+    const long long c = (long long)j * T + t;
+    const unsigned pm = in ? (unsigned)pred_s[app_g[j] * T + t] : 0u;
+    const float f = in ? fin_g[c] : 0.f;
+    float ready = arr_g[j];
+    for (int q = 0; q < T; ++q) {
+      const float v = __shfl_sync(FULL_MASK, f, q);
+      if ((pm >> q) & 1u) ready = fmaxf(ready, v);
+    }
+    const bool elig = in && !((dn >> t) & 1u) && !(pm & ~dn);
+    if constexpr (FAULTS) {
+      if (elig) ready = fmaxf(ready, ((hasfloor[j] >> t) & 1u) ? floor_g[c] : 0.f);
+    }
+    return warp_min(elig ? ((unsigned long long)order_bits(ready) << 32) | (unsigned)c
+                         : NONE);
+  };
+  // every group's least key, a lane per group
+  auto refresh_groups = [&]() {
+    for (int g = lane_id; g < G; g += 32) {
+      unsigned long long m = NONE;
+      for (int j = g * 32; j < min(J, g * 32 + 32); ++j) m = key[j] < m ? key[j] : m;
+      gmin[g] = m;
+    }
+  };
+
+  for (int j = lane_id; j < J; j += 32) key[j] = serial_key(j);
+  __syncwarp();
+  refresh_groups();
+  __syncwarp();
+
+  // DTPM: one sampling window [next_w - window, next_w), by the warp (the
+  // reference's _window_step, simkernel_jax.py:271-316)
   float window = 0.f, up = 0.f, cap = 0.f, scale_b = 0.f, scale_e = 0.f;
   double back_b = 0.0, back_e = 0.0;
   if constexpr (DTPM) {
@@ -383,38 +471,34 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   auto window_step = [&]() {
     const float w1 = st_f[0];
     const float w0 = __fsub_rn(w1, window);
-    if (lane_id == 0) {                       // jobs below lo add nothing again
-      int lo = st_i[0];
-      while (lo < st_i[1] && done[lo] == all && !(lastfin[lo] > w0)) ++lo;
-      st_i[0] = lo;
-    }
-    for (int i = lane_id; i < 2 * P; i += 32) bins[i] = 0ull;
-    __syncwarp();
-    // the committed cells that overlap the window: exact fixed-point sums
-    const int hi = st_i[1];
-    for (int j = st_i[0] + lane_id; j < hi; j += 32) {
-      if (!(lastfin[j] > w0)) continue;
-      unsigned m = done[j] & (unsigned)valid_s[app_s[j]];
-      while (m) {
-        const int t = __ffs(m) - 1;
-        m &= m - 1;
-        const long long c = (long long)j * T + t;
-        const float ov = fminf(fmaxf(__fsub_rn(fminf(fin_g[c], w1), fmaxf(start_g[c], w0)), 0.f),
+    // a lane per PE: its commits that overlap the window, exact fixed-point
+    // sums in the lane's own bins
+    unsigned long long busy_q = 0, en_q = 0;
+    if (lane_id < P) {
+      const int pe = lane_id;
+      int c = head[pe];
+      while (c >= 0 && !(fin_g[c] > w0)) c = next_g[c];   // no later window sees these
+      head[pe] = c;
+      if (c < 0) tail[pe] = -1;
+      for (; c >= 0; c = next_g[c]) {
+        const float s = start_g[c];
+        if (s >= w1) break;                   // this and every later cell start past w1
+        const float ov = fminf(fmaxf(__fsub_rn(fminf(fin_g[c], w1), fmaxf(s, w0)), 0.f),
                                window);
         if (ov > 0.f) {
-          const int pe = onpe_g[c];
           const float e = __fmul_rn(ov, pwr_s[pe * K + onopp_g[c]]);
-          atomicAdd(&bins[pe], (unsigned long long)__float2ll_rn(__fmul_rn(ov, scale_b)));
-          atomicAdd(&bins[P + pe], (unsigned long long)__float2ll_rn(__fmul_rn(e, scale_e)));
+          busy_q += (unsigned long long)__float2ll_rn(__fmul_rn(ov, scale_b));
+          en_q += (unsigned long long)__float2ll_rn(__fmul_rn(e, scale_e));
         }
       }
+      bins[pe] = busy_q;
     }
     __syncwarp();
     // a lane per PE: its window power, active at the latched OPPs + idle
     float p_pe = 0.f;
     if (lane_id < P) {
-      const float busy = fixed_to_f32(bins[lane_id], back_b);
-      const float e_act = fixed_to_f32(bins[P + lane_id], back_e);
+      const float busy = fixed_to_f32(busy_q, back_b);
+      const float e_act = fixed_to_f32(en_q, back_e);
       const float idle = __fsub_rn(1.f, fminf(fmaxf(div_rn(busy, window), 0.f), 1.f));
       p_pe = __fadd_rn(div_rn(e_act, window), __fmul_rn(pidle_s[lane_id], idle));
     }
@@ -431,10 +515,10 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
     // a lane per domain: utilisation -> the ondemand proposal
     int proposed = 0;
     if (lane_id < C) {
-      unsigned long long busy_q = 0;
+      unsigned long long busy_dom_q = 0;
       for (int pe = 0; pe < P; ++pe)
-        if (pdom_s[pe] == lane_id && iscpu_s[pe] != 0.f) busy_q += bins[pe];
-      const float busy_dom = fixed_to_f32(busy_q, back_b);
+        if (pdom_s[pe] == lane_id && iscpu_s[pe] != 0.f) busy_dom_q += bins[pe];
+      const float busy_dom = fixed_to_f32(busy_dom_q, back_b);
       const float util =
           div_rn(busy_dom, fmaxf(__fmul_rn(window, dcpu_s[lane_id]), 1e-9f));
       const int top = nopp_s[lane_id] - 1;
@@ -478,41 +562,40 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
     __syncwarp();
   };
 
-  // the fail-stop programs; the fault-free ones keep their own loop (the
-  // `else` below), which the fault path leaves untouched
-  if constexpr (FAULTS) {
-    int nsteps = 0, ncommits = 0;             // warp 0's counts
-    // 3b-6. for the pick (j, t) at rmin, warp 0: the windows that closed by
-    // this epoch (DTPM), the policy's PE and the commit
-    auto place = [&](const int j, const int t, const float rmin) {
-      const int at = app_s[j] * T + t;
-      const unsigned pm = (unsigned)pred_s[at];
-      const float* eb = ebytes_s + at * T;
-      const float* ex_row = exec_s + at * P * K;
-      // 3b. DTPM: the windows that closed by this epoch (lazy advance)
-      if constexpr (DTPM) {
-        while (st_f[0] <= rmin) window_step();
+  // 3b-6. for the pick (j, t) at rmin: the windows that closed by this epoch
+  // (DTPM), the policy's PE, the commit, then the job's key and its group's
+  // least key
+  auto place = [&](const int j, const int t, const float rmin) {
+    const int at = app_g[j] * T + t;
+    const unsigned pm = (unsigned)pred_s[at];
+    const float* eb = ebytes_s + at * T;
+    const float* ex_row = exec_s + at * P * K;
+    // 3b. DTPM: the windows that closed by this epoch (lazy advance)
+    if constexpr (DTPM) {
+      while (st_f[0] <= rmin) window_step();
+    }
+    const float* fin_row = fin_g + (long long)j * T;
+    const int* pe_row = onpe_g + (long long)j * T;
+    const int tpe = tpe_s[at];
+    // 4-5. a lane per PE; keep the first minimum of the policy's value
+    const float inf = __int_as_float(0x7f800000);
+    float best_v = inf, best_s = 0.f, best_f = 0.f;
+    int best_pe = 0x7fffffff;
+    for (int pe = lane_id; pe < P; pe += 32) {
+      float dr = rmin;
+      unsigned m = pm;
+      while (m) {
+        const int q = __ffs(m) - 1;
+        m &= m - 1;
+        // no contraction: multiply, then add, as the reference rounds
+        const float base = __fadd_rn(startup, __fmul_rn(eb[q], inv_bw));
+        const float comm = __fmul_rn(mult_s[pe_row[q] * P + pe], base);
+        dr = fmaxf(dr, __fadd_rn(fin_row[q], comm));
       }
-      const float* fin_row = fin_g + (long long)j * T;
-      const int* pe_row = onpe_g + (long long)j * T;
-      // 4-5. a lane per PE; keep the first minimum of the policy's value
-      const float inf = __int_as_float(0x7f800000);
-      float best_v = inf, best_s = 0.f, best_f = 0.f;
-      int best_pe = 0x7fffffff;
-      for (int pe = lane_id; pe < P; pe += 32) {
-        float dr = rmin;
-        unsigned m = pm;
-        while (m) {
-          const int q = __ffs(m) - 1;
-          m &= m - 1;
-          // no contraction: multiply, then add, as the reference rounds
-          const float base = __fadd_rn(startup, __fmul_rn(eb[q], inv_bw));
-          const float comm = __fmul_rn(mult_s[pe_row[q] * P + pe], base);
-          dr = fmaxf(dr, __fadd_rn(fin_row[q], comm));
-        }
-        const float ex = DTPM ? ex_row[pe * K + oppidx_s[pdom_s[pe]]] : ex_row[pe];
-        const float st = fmaxf(dr, pe_free[pe]);
-        const float fn = st + ex;      // one add: nothing to contract
+      const float ex = DTPM ? ex_row[pe * K + oppidx_s[pdom_s[pe]]] : ex_row[pe];
+      const float st = fmaxf(dr, pe_free[pe]);
+      const float fn = st + ex;      // one add: nothing to contract
+      if constexpr (FAULTS) {
         // etf or met (the table policy takes no faults); a dead PE is inf in
         // the argmin; every PE inf: argmin's PE 0, so a lane keeps its first
         // PE until a smaller value comes
@@ -520,336 +603,190 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
         if (v < best_v || best_pe == 0x7fffffff) {
           best_v = v; best_pe = pe; best_s = st; best_f = fn;
         }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL_MASK, best_v, o);
-        const int op = __shfl_xor_sync(FULL_MASK, best_pe, o);
-        const float os = __shfl_xor_sync(FULL_MASK, best_s, o);
-        const float of = __shfl_xor_sync(FULL_MASK, best_f, o);
-        if (ov < best_v || (ov == best_v && op < best_pe)) {
-          best_v = ov; best_pe = op; best_s = os; best_f = of;
-        }
-      }
-      // 6. commit
-      if (lane_id == 0) {
-        const long long c = (long long)j * T + t;
-        p.start[row0 * T + c] = best_s;
-        fin_g[c] = best_f;
-        onpe_g[c] = best_pe;
-        pe_free[best_pe] = best_f;
-        done[j] |= 1u << t;
-        if constexpr (DTPM) {               // latch the OPP the task runs at
-          onopp_g[c] = oppidx_s[pdom_s[best_pe]];
-          lastfin[j] = fmaxf(lastfin[j], best_f);
-          st_i[1] = max(st_i[1], j + 1);
-          st_f[2] = fmaxf(st_f[2], best_f);
-        }
-      }
-      ++ncommits;
-    };
-
-    // the rollback of the PEs in fire_s, by the whole block (the
-    // reference's apply_faults, simkernel_jax.py:402-435).  A job's preds lie
-    // in the job, so a thread takes its jobs whole: the committed tasks on a
-    // firing PE that finish after its fail time, closed over their committed
-    // descendants; their cells reset, a root's floor set to its PE's fail time
-    // (read before the reset), the floor dropped where a pred was lost.  Every
-    // surviving commit goes into the queues' recomputed maxima (finishes are
-    // >= 0, so a float's bits order as an int's) and, under DTPM, the job's
-    // latest finish into the surviving makespan
-    auto roll_back = [&]() {
-      for (int j = tid; j < J; j += THREADS) {
-        const int a = app_s[j];
-        const unsigned vb = (unsigned)valid_s[a];
-        const int* pr = pred_s + a * T;
-        const long long base = (long long)j * T;
-        unsigned committed = done[j] & vb;
-        unsigned inv = 0u;
-        for (unsigned m = committed; m; m &= m - 1) {
-          const int t = __ffs(m) - 1;
-          const int pe = onpe_g[base + t];
-          if (fire_s[pe] && fin_g[base + t] > ftime_s[pe]) inv |= 1u << t;
-        }
-        if (inv) {
-          for (bool grew = true; grew;) {     // the fixpoint of the T rounds
-            grew = false;
-            for (unsigned m = committed & ~inv; m; m &= m - 1) {
-              const int t = __ffs(m) - 1;
-              if ((unsigned)pr[t] & inv) { inv |= 1u << t; grew = true; }
-            }
-          }
-          unsigned any_pred = 0u;
-          for (int t = 0; t < T; ++t)
-            if ((unsigned)pr[t] & inv) any_pred |= 1u << t;
-          const unsigned roots = inv & ~any_pred;
-          for (unsigned m = inv; m; m &= m - 1) {
-            const int t = __ffs(m) - 1;
-            const long long c = base + t;
-            if ((roots >> t) & 1u) floor_g[c] = ftime_s[onpe_g[c]];
-            fin_g[c] = 0.f;
-            start_g[c] = 0.f;
-            onpe_g[c] = 0;
-            if constexpr (DTPM) onopp_g[c] = 0;
-          }
-          hasfloor[j] = (hasfloor[j] & ~any_pred) | roots;
-          committed &= ~inv;
-          done[j] &= ~inv;
-          fst[F_ANY_INV] = 1;
-          if constexpr (DTPM) {
-            atomicMin(&fst[F_LO], j);
-            float lf = 0.f;
-            for (unsigned m = committed; m; m &= m - 1) lf = fmaxf(lf, fin_g[base + __ffs(m) - 1]);
-            lastfin[j] = lf;
-          }
-        }
-        for (unsigned m = committed; m; m &= m - 1) {
-          const long long c = base + __ffs(m) - 1;
-          atomicMax(&newfree[onpe_g[c]], __float_as_int(fin_g[c]));
-        }
-        if constexpr (DTPM) atomicMax(&fst[F_MK], __float_as_int(lastfin[j]));
-      }
-    };
-
-    while (true) {
-      // a step that fired pauses at the barrier that ends it; the whole
-      // block rolls back, then warp 0 takes the step up again (resume)
-      const bool resume = fst[F_PENDING] != 0;
-      if (resume) {
-        roll_back();
-        __syncthreads();
       } else {
-        // 1-2. eligible tasks of this thread's jobs and their ready times
-        unsigned long long best = NONE;
-        for (int j = tid; j < J; j += THREADS) {
-          const unsigned dn = done[j];
-          if (dn == all) continue;
-          const int* pr = pred_s + app_s[j] * T;
-          const float arr = arr_s[j];
-          const float* fin_row = fin_g + (long long)j * T;
-          const float* floor_row = floor_g + (long long)j * T;
-          const unsigned hf = hasfloor[j];
-          unsigned open = ~dn & all;
-          while (open) {
-            const int t = __ffs(open) - 1;
-            open &= open - 1;
-            unsigned m = (unsigned)pr[t];
-            if (m & ~dn) continue;           // a predecessor is not committed yet
-            float ready = arr;
-            while (m) {
-              const int q = __ffs(m) - 1;
-              m &= m - 1;
-              ready = fmaxf(ready, fin_row[q]);
-            }
-            // a rolled-back root waits out its fail time (floor 0 elsewhere)
-            ready = fmaxf(ready, ((hf >> t) & 1u) ? floor_row[t] : 0.f);
-            const unsigned long long key =
-                ((unsigned long long)order_bits(ready) << 32) | (unsigned)(j * T + t);
-            best = key < best ? key : best;
-          }
-        }
-        // 3. the least (ready, flat index) of the block
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-          best = other < best ? other : best;
-        }
-        if (lane_id == 0) red[warp] = best;
-        __syncthreads();
+        const float v = p.policy == ETF ? fn : p.policy == MET ? ex
+                                               : (pe == tpe ? 0.f : inf);
+        if (v < best_v) { best_v = v; best_pe = pe; best_s = st; best_f = fn; }
       }
-
-      if (warp == 0) {
-        int flat = 0;
-        float rmin = 0.f;
-        bool go = false;
-        if (resume) {
-          // the queues drain at the surviving finishes (only if a task was
-          // lost, as the reference); DTPM: the window walk restarts at the
-          // lowest re-opened job and the drain at the surviving makespan
-          const bool lost = fst[F_ANY_INV] != 0;
-          for (int pe = lane_id; pe < P; pe += 32) {
-            if (lost) pe_free[pe] = __int_as_float(newfree[pe]);
-            if (fire_s[pe]) fired_s[pe] = 1;
-          }
-          if constexpr (DTPM) {
-            if (lost && lane_id == 0) {
-              st_i[0] = min(st_i[0], fst[F_LO]);
-              st_f[2] = __int_as_float(fst[F_MK]);
-            }
-          }
-          flat = fst[F_FLAT];
-          rmin = __int_as_float(fst[F_RMIN]);
-          // 3a. a pick whose pred was rolled back is stale: skip the step
-          go = !((unsigned)pred_s[app_s[flat / T] * T + flat % T] & ~done[flat / T]);
-          __syncwarp();
-          if (lane_id == 0) fst[F_PENDING] = 0;
-        } else {
-          unsigned long long best = lane_id < WARPS ? red[lane_id] : NONE;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-            best = other < best ? other : best;
-          }
-          rmin = from_order_bits((unsigned)(best >> 32));
-          if (best == NONE || !(rmin < BIG * 0.5f) || nsteps >= fp.cap) {
-            if (lane_id == 0) stop = 1;      // nothing left: the rest are no-ops
-          } else {
-            flat = (int)(best & 0xffffffffu);
-            ++nsteps;
-            // 3a. the fail times this epoch crosses fire before anything
-            // else, together
-            bool f = false;
-            for (int pe = lane_id; pe < P; pe += 32) f |= !fired_s[pe] && ftime_s[pe] <= rmin;
-            go = !__any_sync(FULL_MASK, f);
-            if (!go) {
-              for (int pe = lane_id; pe < P; pe += 32) {
-                fire_s[pe] = !fired_s[pe] && ftime_s[pe] <= rmin;
-                newfree[pe] = 0;
-              }
-              if (lane_id == 0) {
-                fst[F_PENDING] = 1;
-                fst[F_ANY_INV] = 0;
-                fst[F_FLAT] = flat;
-                fst[F_RMIN] = __float_as_int(rmin);
-                fst[F_LO] = J;
-                fst[F_MK] = 0;
-              }
-            }
-          }
-        }
-        if (go) place(flat / T, flat % T, rmin);
-      }
-      __syncthreads();
-      if (stop) break;
     }
-    if (tid == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL_MASK, best_v, o);
+      const int op = __shfl_xor_sync(FULL_MASK, best_pe, o);
+      const float os = __shfl_xor_sync(FULL_MASK, best_s, o);
+      const float of = __shfl_xor_sync(FULL_MASK, best_f, o);
+      if (ov < best_v || (ov == best_v && op < best_pe)) {
+        best_v = ov; best_pe = op; best_s = os; best_f = of;
+      }
+    }
+    // 6. commit
+    if (lane_id == 0) {
+      const int c = j * T + t;
+      start_g[c] = best_s;
+      fin_g[c] = best_f;
+      onpe_g[c] = best_pe;
+      pe_free[best_pe] = best_f;
+      done[j] |= 1u << t;
+      if constexpr (DTPM) {                   // latch the OPP; append to the PE's list
+        onopp_g[c] = oppidx_s[pdom_s[best_pe]];
+        st_f[2] = fmaxf(st_f[2], best_f);
+        next_g[c] = -1;
+        if (tail[best_pe] >= 0) next_g[tail[best_pe]] = c;
+        else head[best_pe] = c;
+        tail[best_pe] = c;
+      }
+    }
+    __syncwarp();
+    // the job's new key, then its group's least key (lane j % 32 holds key[j])
+    const unsigned long long kj = warp_key(j);
+    const int g = j / 32, jj = g * 32 + lane_id;
+    unsigned long long m = jj == j ? kj : jj < J ? key[jj] : NONE;
+    m = warp_min(m);
+    if (lane_id == 0) {
+      key[j] = kj;
+      gmin[g] = m;
+    }
+    __syncwarp();
+  };
+
+  // the rollback of the PEs in fire_s, by the warp (the reference's
+  // apply_faults, simkernel_jax.py:402-435).  A job's preds lie in the job, so
+  // a lane takes its jobs whole: the committed tasks on a firing PE that
+  // finish after its fail time, closed over their committed descendants; their
+  // cells reset, a root's floor set to its PE's fail time (read before the
+  // reset), the floor dropped where a pred was lost, and the job's key
+  // recomputed.  Every surviving commit goes into the queues' recomputed
+  // maxima (finishes are >= 0, so a float's bits order as an int's) and the
+  // surviving makespan.  If a task was lost, the queues drain at those
+  // maxima, DTPM's makespan is the surviving one and each PE's list is
+  // relinked over its surviving cells, and every group's least key is
+  // recomputed
+  auto roll_back = [&]() {
+    bool lost = false;
+    float mk = 0.f;
+    for (int j = lane_id; j < J; j += 32) {
+      const int a = app_g[j];
+      const unsigned vb = (unsigned)valid_s[a];
+      const int* pr = pred_s + a * T;
+      const long long base = (long long)j * T;
+      unsigned committed = done[j] & vb;
+      unsigned inv = 0u;
+      for (unsigned m = committed; m; m &= m - 1) {
+        const int t = __ffs(m) - 1;
+        const int pe = onpe_g[base + t];
+        if (fire_s[pe] && fin_g[base + t] > ftime_s[pe]) inv |= 1u << t;
+      }
+      if (inv) {
+        for (bool grew = true; grew;) {       // the fixpoint of the T rounds
+          grew = false;
+          for (unsigned m = committed & ~inv; m; m &= m - 1) {
+            const int t = __ffs(m) - 1;
+            if ((unsigned)pr[t] & inv) { inv |= 1u << t; grew = true; }
+          }
+        }
+        unsigned any_pred = 0u;
+        for (int t = 0; t < T; ++t)
+          if ((unsigned)pr[t] & inv) any_pred |= 1u << t;
+        const unsigned roots = inv & ~any_pred;
+        for (unsigned m = inv; m; m &= m - 1) {
+          const int t = __ffs(m) - 1;
+          const long long c = base + t;
+          if ((roots >> t) & 1u) floor_g[c] = ftime_s[onpe_g[c]];
+          fin_g[c] = 0.f;
+          start_g[c] = 0.f;
+          onpe_g[c] = 0;
+          if constexpr (DTPM) onopp_g[c] = 0;
+        }
+        hasfloor[j] = (hasfloor[j] & ~any_pred) | roots;
+        committed &= ~inv;
+        done[j] &= ~inv;
+        lost = true;
+        key[j] = serial_key(j);
+      }
+      for (unsigned m = committed; m; m &= m - 1) {
+        const long long c = base + __ffs(m) - 1;
+        atomicMax(&newfree[onpe_g[c]], __float_as_int(fin_g[c]));
+        mk = fmaxf(mk, fin_g[c]);
+      }
+    }
+    lost = __any_sync(FULL_MASK, lost);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mk = fmaxf(mk, __shfl_xor_sync(FULL_MASK, mk, o));
+    __syncwarp();
+    for (int pe = lane_id; pe < P; pe += 32) {
+      if (lost) pe_free[pe] = __int_as_float(newfree[pe]);
+      if (fire_s[pe]) fired_s[pe] = 1;
+    }
+    if (lost) {
+      if constexpr (DTPM) {
+        if (lane_id == 0) st_f[2] = mk;
+        if (lane_id < P) {                    // a lane per PE: drop the lost cells
+          const int pe = lane_id;
+          int prev = -1;
+          for (int c = head[pe]; c >= 0;) {
+            const int n = next_g[c];
+            if ((done[c / T] >> (c % T)) & 1u) {
+              if (prev >= 0) next_g[prev] = c;
+              else head[pe] = c;
+              prev = c;
+            }
+            c = n;
+          }
+          if (prev >= 0) next_g[prev] = -1;
+          else head[pe] = -1;
+          tail[pe] = prev;
+        }
+      }
+      refresh_groups();
+    }
+    __syncwarp();
+  };
+
+  int nsteps = 0, ncommits = 0;
+  while (true) {
+    // 3. the least (ready, flat index) of the lane
+    unsigned long long best = NONE;
+    for (int g = lane_id; g < G; g += 32) best = gmin[g] < best ? gmin[g] : best;
+    best = warp_min(best);
+    const float rmin = from_order_bits((unsigned)(best >> 32));
+    if (best == NONE || !(rmin < BIG * 0.5f)) break;   // nothing left: the rest are no-ops
+    const int flat = (int)(best & 0xffffffffu);
+    bool go = true;
+    if constexpr (FAULTS) {
+      if (nsteps >= fp.cap) break;
+      ++nsteps;
+      // 3a. the fail times this epoch crosses fire before anything else,
+      // together; a pick whose pred was rolled back is stale: skip the step
+      bool f = false;
+      for (int pe = lane_id; pe < P; pe += 32) f |= !fired_s[pe] && ftime_s[pe] <= rmin;
+      if (__any_sync(FULL_MASK, f)) {
+        for (int pe = lane_id; pe < P; pe += 32) {
+          fire_s[pe] = !fired_s[pe] && ftime_s[pe] <= rmin;
+          newfree[pe] = 0;
+        }
+        __syncwarp();
+        roll_back();
+        go = !((unsigned)pred_s[app_g[flat / T] * T + flat % T] & ~done[flat / T]);
+      }
+    }
+    if (go) {
+      place(flat / T, flat % T, rmin);
+      ++ncommits;
+    }
+  }
+  if constexpr (FAULTS) {
+    if (lane_id == 0) {
       fp.counts[lane * 2] = nsteps;
       fp.counts[lane * 2 + 1] = ncommits;
     }
-  } else {
-    // the fault-free programs
-    while (true) {
-      // 1-2. eligible tasks of this thread's jobs and their ready times
-      unsigned long long best = NONE;
-      for (int j = tid; j < J; j += THREADS) {
-        const unsigned dn = done[j];
-        if (dn == all) continue;
-        const int* pr = pred_s + app_s[j] * T;
-        const float arr = arr_s[j];
-        const float* fin_row = fin_g + (long long)j * T;
-        unsigned open = ~dn & all;
-        while (open) {
-          const int t = __ffs(open) - 1;
-          open &= open - 1;
-          unsigned m = (unsigned)pr[t];
-          if (m & ~dn) continue;               // a predecessor is not committed yet
-          float ready = arr;
-          while (m) {
-            const int q = __ffs(m) - 1;
-            m &= m - 1;
-            ready = fmaxf(ready, fin_row[q]);
-          }
-          const unsigned long long key =
-              ((unsigned long long)order_bits(ready) << 32) | (unsigned)(j * T + t);
-          best = key < best ? key : best;
-        }
-      }
-      // 3. the least (ready, flat index) of the block
-  #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-        best = other < best ? other : best;
-      }
-      if (lane_id == 0) red[warp] = best;
-      __syncthreads();
-
-      if (warp == 0) {
-        best = lane_id < WARPS ? red[lane_id] : NONE;
-  #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const unsigned long long other = __shfl_xor_sync(FULL_MASK, best, o);
-          best = other < best ? other : best;
-        }
-        const float rmin = from_order_bits((unsigned)(best >> 32));
-        if (best == NONE || !(rmin < BIG * 0.5f)) {
-          if (lane_id == 0) stop = 1;          // nothing left: the rest are no-ops
-        } else {
-          const int flat = (int)(best & 0xffffffffu);
-          const int j = flat / T, t = flat % T;
-          const int at = app_s[j] * T + t;
-          const unsigned pm = (unsigned)pred_s[at];
-          const float* eb = ebytes_s + at * T;
-          const float* ex_row = exec_s + at * P * K;
-          // 3b. DTPM: the windows that closed by this epoch (lazy advance)
-          if constexpr (DTPM) {
-            while (st_f[0] <= rmin) window_step();
-          }
-          const float* fin_row = fin_g + (long long)j * T;
-          const int* pe_row = onpe_g + (long long)j * T;
-          const int tpe = tpe_s[at];
-          // 4-5. a lane per PE; keep the first minimum of the policy's value
-          const float inf = __int_as_float(0x7f800000);
-          float best_v = inf, best_s = 0.f, best_f = 0.f;
-          int best_pe = 0x7fffffff;
-          for (int pe = lane_id; pe < P; pe += 32) {
-            float dr = rmin;
-            unsigned m = pm;
-            while (m) {
-              const int q = __ffs(m) - 1;
-              m &= m - 1;
-              // no contraction: multiply, then add, as the reference rounds
-              const float base = __fadd_rn(startup, __fmul_rn(eb[q], inv_bw));
-              const float comm = __fmul_rn(mult_s[pe_row[q] * P + pe], base);
-              dr = fmaxf(dr, __fadd_rn(fin_row[q], comm));
-            }
-            const float ex = DTPM ? ex_row[pe * K + oppidx_s[pdom_s[pe]]] : ex_row[pe];
-            const float st = fmaxf(dr, pe_free[pe]);
-            const float fn = st + ex;      // one add: nothing to contract
-            const float v = p.policy == ETF ? fn : p.policy == MET ? ex
-                                                   : (pe == tpe ? 0.f : inf);
-            if (v < best_v) { best_v = v; best_pe = pe; best_s = st; best_f = fn; }
-          }
-  #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float ov = __shfl_xor_sync(FULL_MASK, best_v, o);
-            const int op = __shfl_xor_sync(FULL_MASK, best_pe, o);
-            const float os = __shfl_xor_sync(FULL_MASK, best_s, o);
-            const float of = __shfl_xor_sync(FULL_MASK, best_f, o);
-            if (ov < best_v || (ov == best_v && op < best_pe)) {
-              best_v = ov; best_pe = op; best_s = os; best_f = of;
-            }
-          }
-          // 6. commit
-          if (lane_id == 0) {
-            const long long c = (long long)j * T + t;
-            p.start[row0 * T + c] = best_s;
-            fin_g[c] = best_f;
-            onpe_g[c] = best_pe;
-            pe_free[best_pe] = best_f;
-            done[j] |= 1u << t;
-            if constexpr (DTPM) {               // latch the OPP the task runs at
-              onopp_g[c] = oppidx_s[pdom_s[best_pe]];
-              lastfin[j] = fmaxf(lastfin[j], best_f);
-              st_i[1] = max(st_i[1], j + 1);
-              st_f[2] = fmaxf(st_f[2], best_f);
-            }
-          }
-        }
-      }
-      __syncthreads();
-      if (stop) break;
-    }
   }
-
   if constexpr (DTPM) {
-    if (warp == 0) {
-      // drain the windows between the last decision epoch and the makespan
-      while (__fsub_rn(st_f[0], window) < st_f[2]) window_step();
-      if (lane_id < C) dp.opp_idx[lane * C + lane_id] = oppidx_s[lane_id];
-      if (lane_id == 0) dp.peak[lane] = st_f[1];
-    }
+    // drain the windows between the last decision epoch and the makespan
+    while (__fsub_rn(st_f[0], window) < st_f[2]) window_step();
+    if (lane_id < C) dp.opp_idx[lane * C + lane_id] = oppidx_s[lane_id];
+    if (lane_id == 0) dp.peak[lane] = st_f[1];
   }
-  for (int c = tid; c < J * T; c += THREADS)
+  for (int c = lane_id; c < J * T; c += 32)
     p.scheduled[row0 * T + c] = (unsigned char)((done[c / T] >> (c % T)) & 1u);
 }
 
@@ -896,8 +833,8 @@ DtpmParams make_dtpm_params(const void* exec_opp, const void* pwr_opp, const voi
                             const void* pe_is_cpu, const void* node_of_pe,
                             const void* power_idle, const void* window, const void* up,
                             const void* cap, const void* rc, const void* quanta,
-                            const void* rc_consts, void* onopp, void* opp_idx, void* peak, int C,
-                            int K) {
+                            const void* rc_consts, void* onopp, void* opp_idx, void* peak,
+                            void* next_cell, int C, int K) {
   DtpmParams dp;
   dp.exec_opp = static_cast<const float*>(exec_opp);
   dp.pwr_opp = static_cast<const float*>(pwr_opp);
@@ -918,6 +855,7 @@ DtpmParams make_dtpm_params(const void* exec_opp, const void* pwr_opp, const voi
   dp.onopp = static_cast<int*>(onopp);
   dp.opp_idx = static_cast<int*>(opp_idx);
   dp.peak = static_cast<float*>(peak);
+  dp.next_cell = static_cast<int*>(next_cell);
   dp.C = C; dp.K = K;
   return dp;
 }
@@ -934,21 +872,22 @@ FaultParams make_fault_params(const void* faults, void* floor, void* counts, int
 
 template <bool DTPM, bool FAULTS>
 int launch(const Params& p, const DtpmParams& dp, const FaultParams& fp, void* stream) {
-  const long long bytes =
-      4 * shared_words(p.J, p.A, p.T, p.P, DTPM ? dp.C : 0, DTPM ? dp.K : 0, FAULTS);
+  const long long bytes = 4 * shared_words(p.J, p.A, p.T, p.P, DTPM ? dp.C : 0,
+                                           DTPM ? dp.K : 0, FAULTS);
   if (bytes > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         epoch_scan_kernel<DTPM, FAULTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return (int)rc;
   }
-  epoch_scan_kernel<DTPM, FAULTS><<<(unsigned)((long long)p.D * p.S), THREADS, (size_t)bytes,
+  const long long blocks = (long long)p.D * p.S;   // a block (a warp) a lane
+  epoch_scan_kernel<DTPM, FAULTS><<<(unsigned)blocks, 32, (size_t)bytes,
                                     static_cast<cudaStream_t>(stream)>>>(p, dp, fp);
   return (int)cudaGetLastError();
 }
 
-// Threads per block, resident blocks per SM, dynamic shared bytes, registers
-// a thread and local (stack and spill) bytes a thread of one launch of
-// epoch_scan_kernel<DTPM, FAULTS> at (J, A, T, P[, C, K]): out[0..4].
+// Threads a block, lanes a block, resident lanes an SM, dynamic shared bytes,
+// registers a thread and local (stack and spill) bytes a thread of one launch
+// of epoch_scan_kernel<DTPM, FAULTS> at (J, A, T, P[, C, K]): out[0..5].
 template <bool FAULTS>
 int kernel_info(int J, int A, int T, int P, int C, int K, int dtpm, int* out) {
   const long long bytes = 4 * (dtpm ? shared_words(J, A, T, P, C, K, FAULTS)
@@ -960,11 +899,11 @@ int kernel_info(int J, int A, int T, int P, int C, int K, int dtpm, int* out) {
   if (bytes > 48 * 1024)
     rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, (size_t)bytes);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, (size_t)bytes);
   cudaFuncAttributes attr{};
   if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&attr, kernel);
-  out[0] = THREADS; out[1] = per_sm; out[2] = (int)bytes;
-  out[3] = attr.numRegs; out[4] = (int)attr.localSizeBytes;
+  out[0] = 32; out[1] = 1; out[2] = per_sm; out[3] = (int)bytes;
+  out[4] = attr.numRegs; out[5] = (int)attr.localSizeBytes;
   return (int)rc;
 }
 

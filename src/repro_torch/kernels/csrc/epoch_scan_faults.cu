@@ -1,21 +1,18 @@
 // K1, the DS3 epoch scan for sm_90a: the fail-stop programs, static
 // governors (epoch_scan_kernel<false, true>) and closed-loop DTPM
 // (<true, true>), under etf and met, with a plain C interface.  The kernel
-// and its design notes are in epoch_scan.cuh.  Left to itself ptxas gives
-// the DTPM one 126 registers (2 blocks an SM); held to 4 blocks an SM it
-// takes 56, spills nothing and runs 1.5x faster on an H100.  The static one
-// takes 32 registers with the bound or without (8 blocks an SM); held to 8
-// blocks it spills 12 bytes.  The bound lives in this unit of its own
-// because a bound on the shared template, even a minimum of one block,
-// changes the fault-free kernels' code.
-#define K1_LAUNCH_BOUNDS(DTPM) __launch_bounds__(THREADS, (DTPM) ? 4 : 8)
+// and its design notes are in epoch_scan.cuh.  The bound is the block of
+// one warp (a lane), as in epoch_scan.cu: at up to 255 registers a thread an
+// SM still holds 8 warps (lanes), so shared memory, not registers, sets the
+// lanes an SM.
+#define K1_LAUNCH_BOUNDS(DTPM) __launch_bounds__(32)
 #include "epoch_scan.cuh"
 
 // The static program with fail-stop faults: the static arguments, then per
 // lane the fail times faults (D*S,P) f32 (inf: never), the scratch floor
 // (D*S,J,T) f32 (no initial value needed), the output counts (D*S,2) i32
-// (steps taken, tasks committed) and the step cap of every lane.  etf or met
-// only.  Returns 0 or a cudaError_t.
+// (steps taken, tasks committed) and the step cap of every lane.  etf or
+// met only.  Returns 0 or a cudaError_t.
 extern "C" int repro_epoch_scan_faults(const void* exec_us, const void* pred_bits,
                                        const void* ebytes, const void* valid_bits,
                                        const void* comm_mult, const void* comm_startup,
@@ -34,8 +31,8 @@ extern "C" int repro_epoch_scan_faults(const void* exec_us, const void* pred_bit
                              stream);
 }
 
-// The DTPM program with fail-stop faults: the DTPM arguments, then the fault
-// arguments of repro_epoch_scan_faults.  etf or met only.  Returns 0 or a
+// The DTPM program with fail-stop faults: the DTPM arguments (next_cell
+// included), then the fault arguments of repro_epoch_scan_faults.  etf or met only.  Returns 0 or a
 // cudaError_t.
 extern "C" int repro_epoch_scan_dtpm_faults(
     const void* exec_us, const void* pred_bits, const void* ebytes, const void* valid_bits,
@@ -46,9 +43,11 @@ extern "C" int repro_epoch_scan_dtpm_faults(
     const void* domain_cpu, const void* pe_domain, const void* pe_is_cpu,
     const void* node_of_pe, const void* power_idle, const void* window, const void* up,
     const void* cap, const void* rc, const void* quanta, const void* rc_consts, void* onopp,
-    void* opp_idx, void* peak, const void* faults, void* floor, void* counts, int step_cap,
-    int D, int S, int J, int A, int T, int P, int policy, int C, int K, void* stream) {
-  if (bad_sizes(D, S, J, A, T, P, policy) || bad_dtpm(P, C, K) || bad_faults(policy, step_cap))
+    void* opp_idx, void* peak, void* next_cell, const void* faults, void* floor, void* counts,
+    int step_cap, int D, int S, int J, int A, int T, int P, int policy, int C, int K,
+    void* stream) {
+  if (bad_sizes(D, S, J, A, T, P, policy) || bad_dtpm(P, C, K) ||
+      bad_faults(policy, step_cap))
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(exec_us, pred_bits, ebytes, valid_bits, comm_mult, comm_startup,
                                comm_inv_bw, table_pe, arrival, app_idx, scheduled, start, finish,
@@ -56,7 +55,7 @@ extern "C" int repro_epoch_scan_dtpm_faults(
   const DtpmParams dp = make_dtpm_params(exec_opp, pwr_opp, opp_freq, num_opp, domain_node,
                                          domain_cpu, pe_domain, pe_is_cpu, node_of_pe,
                                          power_idle, window, up, cap, rc, quanta, rc_consts,
-                                         onopp, opp_idx, peak, C, K);
+                                         onopp, opp_idx, peak, next_cell, C, K);
   return launch<true, true>(p, dp, make_fault_params(faults, floor, counts, step_cap), stream);
 }
 

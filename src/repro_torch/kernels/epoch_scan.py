@@ -9,11 +9,14 @@ fail-stop faults (``faults``: (L, P) f32 fail times, ``inf`` never).  Each
 step picks the ready task with the least (ready time, job, task), finds its
 data-ready time on every PE from its predecessors' finishes and PEs, lets the
 policy pick a PE and commits the task to that PE's queue.  The kernel is
-``csrc/epoch_scan.cuh`` (design notes at its top): one block of 256 threads
-per lane, the small tables and the per-job done masks in shared memory, the
-(J, T) schedule in global memory; DTPM and faults are compile-time variants
-of it, four instantiations in all, the fault-free ones built from
-``csrc/epoch_scan.cu``, the fail-stop ones from ``csrc/epoch_scan_faults.cu``.
+``csrc/epoch_scan.cuh`` (design notes at its top): a block of one warp
+per lane, the small tables of its design and the jobs' done masks and keys in
+shared memory, the (J, T) schedule in global memory.  A step picks the least
+per-job key, places the task and recomputes only its job's key; under DTPM a
+window sums each PE's commit list from its moving head.  DTPM and faults are
+compile-time variants of it, four instantiations in all, the fault-free ones
+built from ``csrc/epoch_scan.cu``, the fail-stop ones from
+``csrc/epoch_scan_faults.cu``.
 
 The tables are one design's (``exec_us`` (A, T, P)) or a stack of D designs
 padded to one shape (every field with a leading design axis, ``exec_us``
@@ -91,10 +94,9 @@ from . import _build
 
 BIG = 1e30            # finite on purpose, as the reference's BIG
 POLICIES = ("etf", "met", "table")
-THREADS = 256         # threads per block (csrc/epoch_scan.cuh)
 MAX_TASKS = 32        # T: a job's done set is one 32-bit mask
 MAX_SHARED = 232448   # dynamic shared bytes a block may use on Hopper
-MAX_PES_DTPM = 32     # DTPM: a lane of warp 0 per PE, domain and OPP level
+MAX_PES_DTPM = 32     # DTPM: P, C and K, a lane of the warp each
 QUANTUM_BITS = 47     # a window's fixed-point term is below 2**47
 
 launches = 0
@@ -620,7 +622,7 @@ def _kernel():
             + [ctypes.c_void_p]
         fn_dtpm = lib.repro_epoch_scan_dtpm
         fn_dtpm.restype = ctypes.c_int
-        fn_dtpm.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 \
+        fn_dtpm.argtypes = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         # the fail-stop entries (their own library, csrc/epoch_scan_faults.cu):
         # the same arguments, then the plans, the floor scratch, the counts
@@ -632,7 +634,7 @@ def _kernel():
             + [ctypes.c_void_p]
         fn_dtpm_faults = lib.repro_epoch_scan_dtpm_faults
         fn_dtpm_faults.restype = ctypes.c_int
-        fn_dtpm_faults.argtypes = [ctypes.c_void_p] * 36 + [ctypes.c_int] * 10 \
+        fn_dtpm_faults.argtypes = [ctypes.c_void_p] * 37 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         err = lib.repro_epoch_scan_faults_error
         err.restype = ctypes.c_char_p
@@ -645,39 +647,44 @@ def _kernel():
 
 def shared_bytes(J: int, A: int, T: int, P: int, C: int = 0,
                  K: int = 0, faults: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/epoch_scan.cuh's layout);
-    ``K`` > 0 (with ``C``) sizes the DTPM variant, ``faults`` the
-    fail-stop one."""
-    words = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + A + P \
-        + 3 * J + 2 * (THREADS // 32)
+    """Dynamic shared memory of one block, a lane (csrc/epoch_scan.cuh's
+    layout): its design's tables, then the lane's slice; ``K`` > 0 (with
+    ``C``) sizes the DTPM variant, ``faults`` the fail-stop one.  Each part
+    is rounded up to 8 bytes."""
+    def even(words):
+        return words + words % 2
+    tables = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + A
+    # per lane: group minima and job keys (int64), queues, done masks
+    lane = 2 * (-(-J // 32)) + 2 * J + P + J
     if K:
-        # window bins (2P int64), per-job latest finish, the OPP and domain
-        # tables, the lane's OPP indices, RC matrices and carry
-        words += 4 * P + J + P * K + C * K + 4 * C + 4 * P + 32 + 9
+        # the OPP and domain tables; per lane the busy bins (int64), each
+        # PE's list head and tail, the OPP indices, RC matrices and carry
+        tables += P * K + C * K + 3 * C + 4 * P
+        lane += 2 * P + 2 * P + C + 32 + 7
     if faults:
         # fail times, dead and firing PEs, recomputed queues, per-job floor
-        # masks, the rollback's scalars
-        words += 4 * P + J + 8
-    return 4 * words
+        # masks
+        lane += 4 * P + J
+    return 4 * (even(tables) + even(lane))
 
 
 def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
                 K: int = 0, faults: bool = False) -> dict:
-    """Threads per block, resident blocks per SM, dynamic shared bytes,
-    registers a thread and local (stack, spill) bytes a thread of one launch
-    at these sizes (``K`` > 0: the DTPM variant; ``faults``: the fail-stop
-    one)."""
+    """Threads a block, lanes a block, resident lanes an SM, dynamic shared
+    bytes, registers a thread and local (stack, spill) bytes a thread of one
+    launch at these sizes (``K`` > 0: the DTPM variant; ``faults``: the
+    fail-stop one)."""
     lib = _build.load("epoch_scan_faults" if faults else "epoch_scan")
     info_fn = lib.repro_epoch_scan_faults_info if faults else lib.repro_epoch_scan_info
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         rc = info_fn(J, A, T, P, C, K, int(K > 0), out)
     if rc != 0:
         raise RuntimeError(f"epoch_scan info failed: {_kernel()['error'](rc).decode()}")
-    info = dict(zip(("threads", "blocks_per_sm", "shared_bytes", "registers",
-                     "local_bytes"), out))
-    if (info["threads"], info["shared_bytes"]) != (
-            THREADS, shared_bytes(J, A, T, P, C, K, faults)):
+    info = dict(zip(("threads", "lanes_per_block", "lanes_per_sm",
+                     "shared_bytes", "registers", "local_bytes"), out))
+    if (info["threads"], info["lanes_per_block"], info["shared_bytes"]) != (
+            32, 1, shared_bytes(J, A, T, P, C, K, faults)):
         raise RuntimeError(f"epoch_scan: csrc/epoch_scan.cuh's geometry {info} "
                            "differs from epoch_scan.py's")
     return info
@@ -690,8 +697,8 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     DTPM program's (onopp, opp_idx, peak_temp_c) after them, and with
     ``faults`` ((L, P) f32 fail times) the fail-stop program's counts (L, 2)
     last.  Over the tables of D stacked designs the lanes are (D*S, J),
-    design-major, and the launch is D*S blocks.  CPU tensors take the plain
-    version; CUDA tensors one launch."""
+    design-major, and the launch is D*S blocks of one warp.  CPU
+    tensors take the plain version; CUDA tensors one launch."""
     _check_policy(policy)
     dev = tables.exec_us.device
     if dev.type == "cpu":
@@ -769,10 +776,13 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
             outs = (torch.empty((L, J, T), dtype=torch.int32, device=dev),
                     torch.empty((L, C), dtype=torch.int32, device=dev),
                     torch.empty((L,), dtype=torch.float32, device=dev))
+            # scratch: each committed cell's successor on its PE's list
+            next_cell = torch.empty((L, J, T), dtype=torch.int32, device=dev)
             rc = fn(*[t.data_ptr() for t in
                       static_args + dtpm_tables + lanes + [rc_consts]
-                      + list(outs) + fault_args],
-                    *cap, D, S, J, A, T, P, POLICIES.index(policy), C, K, stream)
+                      + list(outs) + [next_cell] + fault_args],
+                    *cap, D, S, J, A, T, P, POLICIES.index(policy), C, K,
+                    stream)
     if rc != 0:
         raise RuntimeError(f"epoch_scan launch failed: {fns['error'](rc).decode()}")
     launches += 1

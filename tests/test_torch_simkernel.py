@@ -208,8 +208,12 @@ def test_predecessor_bit_masks():
     assert int(bits[0, 5]) & 0xffffffff == (1 | 8 | (1 << 31))
     assert int(bits[1, 0]) & 0xffffffff == 1 << 31
     assert int(bits[0, 0]) == 0
-    assert k1.shared_bytes(1000, 5, 8, 15) == 4 * (600 + 320 + 225 + 80 + 5
-                                                   + 15 + 3000 + 16)
+    # a block is a lane: its design's tables, then its slice (group minima
+    # and job keys (int64), queues, done masks), each rounded up to 8 bytes
+    tables, lane = 600 + 320 + 225 + 80 + 5, 2 * 32 + 2 * 1000 + 15 + 1000 + 1
+    assert k1.shared_bytes(1000, 5, 8, 15) == 4 * (tables + lane)
+    # 37 jobs: two groups of 32; 33 table words and 119 lane words round up
+    assert k1.shared_bytes(37, 1, 2, 4) == 4 * (34 + 120)
 
 
 def test_kernel_preparation_checks_the_tables_once():

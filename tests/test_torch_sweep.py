@@ -408,6 +408,38 @@ def test_typed_errors_and_what_is_not_ported():
             sweep(tscn, axes={"rate": [5.0]})       # the card by default
 
 
+# ------------------------- four more sweeps against the reference's sweep
+
+# each sweep: (the base scenario's overrides, its axes); `pts` / `fs` are the
+# designs of 8/13/19 PEs and the fault lanes in the package at hand
+FOUR_SWEEPS = {
+    "table-x-designs": ({}, lambda pts, fs: {"scheduler": ["etf", "table"],
+                                             "design": pts}),
+    "throttle-x-faults-x-designs": (
+        dict(governor="throttle", governor_params=THROTTLE),
+        lambda pts, fs: {"faults": fs, "design": pts}),
+    "ondemand-met-x-faults-x-designs-x-rates": (
+        dict(governor="ondemand", scheduler="met"),
+        lambda pts, fs: {"faults": fs[:2], "design": pts, "rate": RATES}),
+    "met-x-designs-x-rates": (
+        dict(scheduler="met"), lambda pts, fs: {"design": pts, "rate": RATES}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FOUR_SWEEPS))
+def test_sweep_design_axis_matches_jax(name):
+    """A design axis of 8, 13 and 19 PEs crossed with a scheduler axis that
+    rebuilds the tables (`table`), fault lanes under throttle and under
+    ondemand with met, and rates under met: the lanes that K1 lays out
+    design-major, padded to 19 PEs, equal the reference's sweep."""
+    overrides, axes = FOUR_SWEEPS[name]
+    pts, jpts = designs(WIDTHS)
+    fs, jfs = faults(FAULT_LANES)
+    tscn, jscn = pair(SCN, **overrides)
+    assert_sweeps_match(sweep(tscn, axes=axes(pts, fs), device="cpu"),
+                        jsweep(jscn, axes=axes(jpts, jfs)))
+
+
 # -------------------------------------------------- the layer below
 
 def stacked(scn, points, governor="performance", params=()):

@@ -3,7 +3,7 @@
 
     python3 tools/epoch_scan_ab.py [SRC_DIR] [--rates 32] [--seeds 32]
         [--jobs 1000] [--check-every 16] [--verbose] [--sweep]
-        [--governor ondemand|throttle] [--faults]
+        [--governor ondemand|throttle] [--faults] [--grid b|c|d]
 
 Builds the kernels of ``SRC_DIR`` (default: this checkout's ``src``; with
 ``--verbose`` prints ptxas's report of ``epoch_scan_kernel``), then for each
@@ -13,11 +13,14 @@ scheduler (etf, met, table) runs K1 on the paper's five-app mix on
 for all lanes.  Every ``check-every``-th lane also goes through the plain scan
 and must equal K1 bit for bit (0 skips the check).  Prints K1's device time
 per launch (CUDA events around one launch, median of 5 after one warm-up),
-scheduled tasks per second, resident blocks per SM, and the byte bound (the
+scheduled tasks per second, resident lanes per SM, and the byte bound (the
 tables and the (L, J) lanes read once, the (L, J, T) schedule written once, at
 3.35 TB/s).  ``--sweep`` instead times one lane per SM at J = 80 and 1000 and
-rates 1 ... 80 jobs/ms (see ``sweep``).  ``--governor`` runs K1's DTPM variant
-instead of the static one (ondemand with its defaults; throttle with a 27 C
+rates 1 ... 80 jobs/ms (see ``sweep``): a lone warp of a tree whose K1 runs
+a warp a lane, a lone block of 256 threads of one before it.  ``--grid``
+instead runs the tree's ``sweep`` over ``chip_smoke.py`` phase 7's grid (b),
+(c) or (d) and times each K1 launch it makes again on the same inputs (see
+``grid``).  ``--governor`` runs K1's DTPM variant instead of the static one (ondemand with its defaults; throttle with a 27 C
 cap and a 0.05 s RC step, as ``benchmarks/bench_dtpm.py`` sets them): the
 grid prints windows a lane beside the steps, its check takes every
 ``check-every``-th lane of the highest rate only (the plain loop runs the
@@ -84,6 +87,8 @@ def main():
                     help="run K1's DTPM variant under this governor")
     ap.add_argument("--faults", action="store_true",
                     help="run K1's fail-stop variant over single-PE losses")
+    ap.add_argument("--grid", choices=("b", "c", "d"),
+                    help="time K1's launches of chip_smoke.py phase 7's grid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("epoch_scan_ab.py: no CUDA device")
@@ -96,6 +101,9 @@ def main():
     from repro_torch.scenario import Scenario, tables_for
     if args.governor:                      # trees before DTPM lack it
         from repro_torch.core.dvfs import policy_lanes
+    # a tree before the warp-a-lane K1 runs a block of THREADS threads a lane
+    width = (f", a block of {k1.THREADS} threads a lane"
+             if hasattr(k1, "THREADS") else ", a warp a lane")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -105,12 +113,14 @@ def main():
             _build._lib_path(src).unlink(missing_ok=True)
     t0 = time.perf_counter()
     _build.build_all(verbose=args.verbose)
-    print(f"from {args.src}: built in {time.perf_counter() - t0:.1f} s  [{smi}]",
-          flush=True)
+    print(f"from {args.src}: built in {time.perf_counter() - t0:.1f} s{width}  "
+          f"[{smi}]", flush=True)
 
     dev = torch.device("cuda", 0)
     if args.sweep:
         return sweep(dev, smi, args.governor)
+    if args.grid:
+        return grid(smi, args.grid)
     traces = [poisson_trace(float(r), args.jobs, APPS5, seed=s)
               for r in np.linspace(1.0, 80.0, args.rates)
               for s in range(args.seeds)]
@@ -201,9 +211,67 @@ def main():
         print(f"{policy}{'/' + gov_name if gov_name else ''}: L={L} J={J} "
               f"T={T} P={P}: K1 {ms:.4f} ms a launch, "
               f"{tasks / (ms * 1e-3):.4g} tasks/s, {1e3 * ms / steps:.3f} us "
-              f"per step of the longest lane{windows}, {info['blocks_per_sm']} "
-              f"blocks/SM, {info['shared_bytes']} B shared, bound {bound:.5f} "
+              f"per step of the longest lane{windows}, "
+              f"{info.get('lanes_per_sm', info.get('blocks_per_sm'))} lanes/SM, "
+              f"{info['shared_bytes']} B shared, J <= "
+              f"{largest_jobs(k1, A, T, P, C, K, args.faults)}, bound {bound:.5f} "
               f"ms (bytes){check}  [{smi}]", flush=True)
+
+
+def largest_jobs(k1, A, T, P, C=0, K=0, faults=False) -> int:
+    """The most jobs a lane this tree's K1 admits (its shared memory a
+    block)."""
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if k1.shared_bytes(mid, A, T, P, C, K, faults) <= k1.MAX_SHARED:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def grid(smi, name: str):
+    """K1's launches of ``chip_smoke.py`` phase 7's sweep grid ``name``, the
+    mix at 1,000 Poisson jobs and 20 jobs/ms: (b) every valid design of
+    ``DesignSpace().grid()`` x 4 seeds, etf and met; (c) 64 LHS designs x 16
+    ondemand policies, etf and met; (d) 8 fault sets x 16 designs of more
+    than 7 PEs x 8 seeds, etf.  The tree's own ``sweep`` makes the launches
+    (their inputs are captured), and each is timed again as ``launch_ms``
+    times one."""
+    from repro_torch.dse import DesignSpace
+    from repro_torch.kernels import epoch_scan as k1
+    from repro_torch.scenario import FaultSpec, Scenario, TraceSpec, sweep
+    base = Scenario(apps=APPS5, governor="design",
+                    trace=TraceSpec(rate_jobs_per_ms=20.0, num_jobs=1000, seed=0))
+    space = DesignSpace()
+    if name == "b":
+        axes = {"scheduler": ("etf", "met"), "design": space.grid(),
+                "seed": list(range(4))}
+    elif name == "c":
+        base = base.replace(governor="ondemand")
+        axes = {"scheduler": ("etf", "met"), "design": space.sample_lhs(64, seed=0),
+                "governor_params": tuple(
+                    (("up_threshold", u), ("sample_window_us", w))
+                    for u in (0.6, 0.7, 0.8, 0.9) for w in (25.0, 50.0, 100.0, 200.0))}
+    else:
+        wide = [p for p in space.grid() if p.num_pes > 7]
+        axes = {"faults": ((),) + tuple((FaultSpec(pe, 500.0),) for pe in range(7)),
+                "design": wide[::len(wide) // 16][:16], "seed": list(range(8))}
+    launches, scan = [], k1.epoch_scan
+
+    def capture(*args, **kw):
+        launches.append((args, kw))
+        return scan(*args, **kw)
+    k1.epoch_scan = capture
+    try:
+        sweep(base, axes)
+    finally:
+        k1.epoch_scan = scan
+    for args, kw in launches:
+        ms = launch_ms(lambda: scan(*args, **kw))
+        print(f"grid ({name}): {args[1]}: K1 {ms:.4f} ms a launch of "
+              f"{args[2].shape[0]} lanes  [{smi}]", flush=True)
 
 
 def windows_per_lane(makespan_us, window_us: float):
@@ -217,14 +285,15 @@ def sweep(dev, smi, gov_name=None):
     """What a scan step costs, by how much a step walks: one lane per SM (so
     no block shares its SM), etf, J = 80 and 1000 jobs at 1 ... 80 jobs/ms.
     Jobs in the system (rate x mean latency, Little's law) is how many open
-    jobs a step's walk visits on average; a step that costs the same at any
-    load is bound by its fixed serial part (two barriers, warp 0's reduction
-    and its dependent loads), one that grows with load by the walk.
+    jobs a step of a tree that walks every job visits on average; a step
+    that costs the same at any load and J is bound by its fixed serial part
+    (a tree before the warp-a-lane K1: two barriers, warp 0's reduction and
+    its dependent loads), one that grows with load or J by a walk.
 
     With ``gov_name`` every lane runs one trace (seed 0), so the launch is
     one lane's chain: the static kernel on the static tables gives µs per
     step, and the DTPM kernel's extra time over that lane's windows µs per
-    window (warp 0 runs a window while the block waits)."""
+    window."""
     from repro_torch.core import simkernel_torch
     from repro_torch.core.jobgen import poisson_trace
     from repro_torch.dse import DesignPoint
