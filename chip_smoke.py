@@ -134,7 +134,35 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            lanes, and the sweep's makespans of them equal to their
            schedules'.  Launch counts exact,
            by instantiation, and equal to the scans the sweeps started (4,
-           2, 2, 2 small; 2; 2; 1).
+           2, 2, 2 small; 2; 2; 1);
+8. dse     the DSE mode (``repro_torch.dse``) and the chunked lane executor
+           (``sweep(chunk=)``), as a user calls them, on phase 7's grids at
+           etf: the unchunked sweep of grid (b) (1,080 designs x 4 seeds),
+           then (a) ``evaluate`` on the same designs and traces: its
+           latencies equal the sweep's bit for bit (energy and peak
+           temperature bit for bit where they are, else within 1e-6 / 1e-5
+           relative, said in the line), ``front_mask()`` equals
+           ``pareto_mask`` of its objectives; front size, design points a
+           second and the time split (host tables, K1, epilogue, thermal,
+           the rest); (b) ``pareto_search`` (4 rounds of 64 designs, seed
+           0) twice: the two archives identical, each round's designs,
+           archive, front and wall time; (c) grid (b) at ``chunk=135`` (8
+           chunks, no pad) and ``chunk=256`` (5 chunks, 200 pad designs):
+           the schedule bit for bit with the unchunked sweep, energy and
+           peak as in (a), the chunk and pad counters exact, device memory
+           held (``max_memory_allocated``, reset first) below the
+           unchunked sweep's at 135; (d) grid (c) (64 designs x 16
+           ondemand policies) at ``chunk=16`` (streams designs: 4 chunks)
+           and 4 of its designs x the 16 policies at ``chunk=5`` (streams
+           policies: 4 chunks, 4 pad policies), each against its unchunked
+           sweep as in (c); (e) grid (d) (faults) at ``chunk=1``, as
+           ``benchmarks/bench_faults.py`` runs it (16 chunks), against the
+           unchunked sweep; (f) ``python -m repro_torch.dse.reports
+           --designs 64 --traces 4``, and with ``--rounds 3``, in-process
+           (``main([...])``), printing their fronts.  K1's launches are
+           counted per call as in phase 7 (1 + 1 + 2 x 4 + 8 + 5 + 1 + 3
+           static in (a)-(c) and (f), 1 + 4 + 1 + 4 under DTPM, 1 + 16 with
+           faults).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -181,7 +209,8 @@ from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E4
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
 from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
 from repro_torch.core.schedulers import get_scheduler  # noqa: E402
-from repro_torch.dse import (DesignPoint, DesignSpace, stack_tables,  # noqa: E402
+from repro_torch.dse import (DesignPoint, DesignSpace, evaluate,  # noqa: E402
+                             pareto_mask, pareto_search, stack_tables,
                              stack_traces)
 from repro_torch.dse import batch as dse_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -191,6 +220,7 @@ from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
@@ -201,6 +231,8 @@ from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
 # the module (the package's `sweep` attribute is the function)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
+search_mod = importlib.import_module("repro_torch.dse.search")
+dse_reports = importlib.import_module("repro_torch.dse.reports")
 
 DEV = torch.device("cuda", 0)
 # NVIDIA H100 SXM data sheet (dense rates): the peaks every bound is stated against
@@ -2357,6 +2389,277 @@ def phase_sweep(smi: str) -> dict:
     return launches, measured
 
 
+# ------------------------------------------------------------------ phase 8
+
+# (a)-(c) grid (b) of phase 7: every valid design of DesignSpace().grid() x
+# GRID_SEEDS seeds of the five-app mix, etf; (b) the refinement loop at 64
+# designs a round; (c) two chunk widths of grid (b): 135 divides its 1,080
+# designs (8 chunks, no pad), 256 does not (5 chunks, 200 pad designs)
+DSE_ROUNDS, DSE_BATCH = 4, 64
+DSE_CHUNKS = {135: (8, 0), 256: (5, 200)}
+# (d) DTPM chunks: grid (c) of phase 7 (64 designs x 16 policies, etf) at 16
+# designs a chunk (streams designs: 4 chunks), and 4 of its designs x the 16
+# policies at 5 policies a chunk (streams policies: 4 chunks, 4 pad policies)
+DSE_DTPM_CHUNK, DSE_POLICY_DESIGNS, DSE_POLICY_CHUNK = 16, 4, 5
+# schedule outputs of a sweep, held bit for bit between chunked and unchunked
+SWEEP_SCHEDULE = ("avg_latency_us", "makespan_us", "throughput_jobs_per_ms",
+                  "busy_per_pe_us")
+
+
+def timed_dse(fn):
+    """``fn()`` (an entry point as a user calls it) with its parts timed from
+    inside: the host table builds (``build_design_batch`` for ``evaluate``,
+    ``_design_lanes`` for ``sweep``), each K1 launch (CUDA events), the grid
+    program (K1 + epilogue) and the thermal grid, a synchronise around each.
+    Returns its result and the times in seconds."""
+    rec = {"tables_s": 0.0, "grid_s": 0.0, "thermal_s": 0.0}
+    patches = {(search_mod, "build_design_batch"): "tables_s",
+               (sweep_mod, "_design_lanes"): "tables_s",
+               (sweep_mod, "simulate_grid"): "grid_s",
+               (sweep_mod, "peak_temperature_grid"): "thermal_s"}
+    orig = {where: getattr(*where) for where in patches}
+    orig_scan, events = k1.epoch_scan, []
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def scan(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig_scan(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    for where, key in patches.items():
+        setattr(*where, timed(key, orig[where]))
+    k1.epoch_scan = scan
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        for where, f in orig.items():
+            setattr(*where, f)
+        k1.epoch_scan = orig_scan
+    rec["k1_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    rec["epilogue_s"] = rec["grid_s"] - rec["k1_s"]
+    rec["rest_s"] = rec["wall_s"] - rec["tables_s"] - rec["grid_s"] - rec["thermal_s"]
+    return out, rec
+
+
+def parts(rec) -> str:
+    return (f"{rec['wall_s']:.3f} s: host tables {rec['tables_s']:.3f}, K1 "
+            f"{rec['k1_s']:.3f}, epilogue {rec['epilogue_s']:.3f}, thermal "
+            f"{rec['thermal_s']:.3f}, the rest (traces, copies, assembly, search) "
+            f"{rec['rest_s']:.3f}")
+
+
+def held_bytes(fn):
+    """``fn()`` and the device memory it held at its peak, above what was
+    allocated before it (``max_memory_allocated``, reset first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def sums_note(pairs, what: str) -> str:
+    """Energy and peak temperature of two runs of one grid: bit for bit where
+    they are, else within test_torch_sweep.py's 1e-6 / 1e-5 relative (the
+    return says which, and how many lanes moved)."""
+    notes = []
+    for name, got, want, tol in pairs:
+        if np.array_equal(got, want):
+            notes.append(f"{name} bit for bit")
+            continue
+        np.testing.assert_allclose(got, want, rtol=tol, atol=0, err_msg=what)
+        notes.append(f"{name} within {tol:g} ({np.count_nonzero(got != want)} of "
+                     f"{got.size} differ, at most "
+                     f"{np.max(np.abs(got - want) / np.abs(want)):.2e} relative)")
+    return ", ".join(notes)
+
+
+def assert_chunked_equal(got, want, what: str) -> str:
+    """A chunked sweep against the unchunked one: the schedule outputs bit
+    for bit, energy and peak temperature as ``sums_note`` says."""
+    for name in SWEEP_SCHEDULE:
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: {name} differs from the unchunked sweep")
+    return "schedule bit for bit, " + sums_note(
+        [(name, getattr(got, name), getattr(want, name), tol)
+         for name, tol in (("energy_j", 1e-6), ("peak_temp_c", 1e-5))], what)
+
+
+@torch.no_grad()
+def phase_dse(smi: str) -> dict:
+    """The DSE mode on the card: (a) ``evaluate`` on every valid design of
+    ``DesignSpace().grid()``, (b) ``pareto_search`` twice, (c)-(e)
+    ``sweep(chunk=)`` static, DTPM in both streaming directions and with
+    faults against the unchunked sweep, (f) ``python -m
+    repro_torch.dse.reports`` in-process.  Returns K1's launches by
+    instantiation."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(K1_VARIANTS.values(), 0)
+    chunks, pads = (metrics.counter("scenario.sweep.chunks"),
+                    metrics.counter("scenario.shard.pad_lanes"))
+
+    def main_path(fn, what, want=None):
+        """An entry point as a user calls it, K1's counts set to 0 just before
+        and read just after: launches by instantiation (``want``, where the
+        call fixes them) and equal to the scans the sweeps started."""
+        counts_zero()
+        n0 = sweep_scans()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: n for name, n in k1_counts().items() if n}
+        if want is not None:
+            assert_counts(want, what)
+        if not got or sweep_scans() - n0 != sum(got.values()):
+            raise AssertionError(f"{what}: {sweep_scans() - n0} scans started, "
+                                 f"launches {got}")
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    base = Scenario(apps=APPS5, governor="design", scheduler="etf",
+                    trace=TraceSpec(rate_jobs_per_ms=GRID_RATE, num_jobs=GRID_JOBS,
+                                    seed=0))
+    space = DesignSpace()
+    points = space.grid()
+    seeds = list(range(GRID_SEEDS))
+    D, S = len(points), len(seeds)
+    apps, traces = base.applications(), [base.with_seed(s).job_trace() for s in seeds]
+    grid_axes = {"design": points, "seed": seeds}
+
+    # the unchunked sweep of grid (b), etf: the reference of (a) and (c)
+    (plain, plain_rec), plain_held = held_bytes(lambda: main_path(
+        lambda: timed_dse(lambda: sweep(base, grid_axes)), "dse unchunked grid (b)",
+        {"epoch_scan": 1})[0])
+
+    # -- (a) evaluate on the whole grid
+    (ev, rec), _ = main_path(lambda: timed_dse(lambda: evaluate(
+        points, apps, traces, policy="etf")), "dse (a) evaluate", {"epoch_scan": 1})
+    if not np.array_equal(ev.latency_per_trace_us, plain.avg_latency_us):
+        raise AssertionError("dse (a): evaluate's latencies differ from the sweep's")
+    same = "latency bit for bit, " + sums_note(
+        [("energy_j", ev.energy_per_trace_j, plain.energy_j, 1e-6),
+         ("peak_temp_c", ev.temp_per_trace_c, plain.peak_temp_c, 1e-5)],
+        "dse (a) evaluate vs sweep")
+    front = ev.front_mask()
+    if not np.array_equal(front, pareto_mask(ev.objectives())):
+        raise AssertionError("dse (a): front_mask() is not pareto_mask(objectives())")
+    if not np.all(np.isfinite(ev.objectives())) or not front.any():
+        raise AssertionError("dse (a): objectives not finite, or an empty front")
+    log(f"[dse] (a) evaluate: {D} designs x {S} seeds x {GRID_JOBS} jobs (the "
+        f"five-app mix at {GRID_RATE:g} jobs/ms, etf), front {int(front.sum())} of "
+        f"{D}, {D / rec['wall_s']:.1f} design points/s ({D * S / rec['wall_s']:.1f} "
+        f"simulations/s), K1 launches 1; in {parts(rec)}; = the sweep of the same grid "
+        f"({same}; the sweep {parts(plain_rec)})  [{smi}]")
+
+    # -- (b) the refinement loop, twice
+    runs = []
+    for k in range(2):
+        (sr, rec), got = main_path(lambda: timed_dse(lambda: pareto_search(
+            space, apps, traces, policy="etf", rounds=DSE_ROUNDS,
+            batch_size=DSE_BATCH, seed=0)), f"dse (b) pareto_search run {k}")
+        if got != {"epoch_scan": len(sr.rounds)}:
+            raise AssertionError(f"dse (b): launches {got} for {len(sr.rounds)} rounds")
+        runs.append(sr)
+        log(f"[dse] (b) pareto_search run {k}: "
+            + "; ".join(f"round {r['round']}: evaluated {r['evaluated']}, archive "
+                        f"{r['archive']}, front {r['front']}, {r['wall_s']:.3f} s"
+                        for r in sr.rounds)
+            + f"; in {parts(rec)}")
+    a, b = runs
+    if a.archive.points != b.archive.points or not np.array_equal(
+            a.archive.objectives(), b.archive.objectives()) \
+            or not np.array_equal(a.front, b.front):
+        raise AssertionError("dse (b): two runs of pareto_search differ")
+    log(f"[dse] (b) the two archives are identical: {a.archive.num_designs} designs, "
+        f"front {int(a.front.sum())}, K1 launches {2 * len(a.rounds)}")
+
+    # -- (c) chunk= on grid (b), static
+    for width, (n_chunks, n_pad) in DSE_CHUNKS.items():
+        c0, p0 = chunks.value, pads.value
+        ((sr, rec), _), held = held_bytes(lambda: main_path(
+            lambda: timed_dse(lambda: sweep(base, grid_axes, chunk=width)),
+            f"dse (c) chunk={width}", {"epoch_scan": n_chunks}))
+        if (chunks.value - c0, pads.value - p0) != (n_chunks, n_pad):
+            raise AssertionError(f"dse (c) chunk={width}: {chunks.value - c0} chunks, "
+                                 f"{pads.value - p0} pad designs")
+        same = assert_chunked_equal(sr, plain, f"dse (c) chunk={width}")
+        if n_pad == 0 and not held < plain_held:
+            raise AssertionError(f"dse (c): chunk={width} held {held} bytes, "
+                                 f"unchunked {plain_held}")
+        log(f"[dse] (c) grid (b) at chunk={width}: {n_chunks} chunks, {n_pad} pad "
+            f"designs, {same}; device memory held {held / 2 ** 20:.1f} MiB "
+            f"(unchunked {plain_held / 2 ** 20:.1f}); in {parts(rec)}  [{smi}]")
+
+    # -- (d) chunk= under DTPM, streaming designs, then policies
+    dtpm = base.replace(governor="ondemand")
+    dpoints = space.sample_lhs(GRID_DTPM_DESIGNS, seed=0)
+    cases = (("designs", dpoints, DSE_DTPM_CHUNK),
+             ("policies", dpoints[:DSE_POLICY_DESIGNS], DSE_POLICY_CHUNK))
+    for streams, pts, width in cases:
+        axes = {"design": pts, "governor_params": GRID_DTPM_PARAMS}
+        lanes = max(len(pts), len(GRID_DTPM_PARAMS))
+        n_chunks = -(-lanes // width)
+        want, _ = main_path(lambda: sweep(dtpm, axes), f"dse (d) {streams} unchunked",
+                            {"epoch_scan_dtpm": 1})
+        c0, p0 = chunks.value, pads.value
+        (sr, rec), _ = main_path(lambda: timed_dse(lambda: sweep(dtpm, axes, chunk=width)),
+                                 f"dse (d) {streams} chunk={width}",
+                                 {"epoch_scan_dtpm": n_chunks})
+        if (chunks.value - c0, pads.value - p0) != (n_chunks, n_chunks * width - lanes):
+            raise AssertionError(f"dse (d) {streams}: {chunks.value - c0} chunks, "
+                                 f"{pads.value - p0} pad lanes")
+        log(f"[dse] (d) ondemand, {len(pts)} designs x {len(GRID_DTPM_PARAMS)} "
+            f"policies at chunk={width} (streams {streams}): {n_chunks} chunks, "
+            f"{n_chunks * width - lanes} pad, "
+            f"{assert_chunked_equal(sr, want, f'dse (d) {streams}')}; in {parts(rec)}")
+
+    # -- (e) grid (d) of phase 7 (faults) at chunk=1, as bench_faults.py runs it
+    wide = [p for p in points if p.num_pes > 7]
+    fpoints = wide[::len(wide) // GRID_FAULT_DESIGNS][:GRID_FAULT_DESIGNS]
+    fsets = ((),) + tuple((FaultSpec(pe, 500.0),) for pe in range(7))
+    axes = {"faults": fsets, "design": fpoints, "seed": list(range(GRID_FAULT_SEEDS))}
+    want, _ = main_path(lambda: sweep(base, axes), "dse (e) faults unchunked",
+                        {"epoch_scan_faults": 1})
+    c0 = chunks.value
+    (sr, rec), _ = main_path(lambda: timed_dse(lambda: sweep(base, axes, chunk=1)),
+                             "dse (e) faults chunk=1",
+                             {"epoch_scan_faults": len(fpoints)})
+    if chunks.value - c0 != len(fpoints):
+        raise AssertionError(f"dse (e): {chunks.value - c0} chunks")
+    log(f"[dse] (e) {len(fsets)} fault sets x {len(fpoints)} designs x "
+        f"{GRID_FAULT_SEEDS} seeds at chunk=1: {len(fpoints)} chunks, "
+        f"{assert_chunked_equal(sr, want, 'dse (e)')}; in {parts(rec)}")
+
+    # -- (f) python -m repro_torch.dse.reports, in-process
+    for argv in (["--designs", "64", "--traces", "4"],
+                 ["--designs", "64", "--traces", "4", "--rounds", "3"]):
+        log(f"[dse] (f) python -m repro_torch.dse.reports {' '.join(argv)}:")
+        res, got = main_path(lambda: dse_reports.main(argv), f"dse (f) {argv}")
+        if not res.front_mask().any():
+            raise AssertionError(f"dse (f) {argv}: an empty front")
+    log(f"[dse] phase 8 took {time.perf_counter() - t_phase:.1f} s; K1 launches by "
+        f"instantiation {launches}")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -2395,6 +2698,8 @@ def main():
     log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
     sweep_launches, sweep_measured = phase_sweep(smi)
     for name, n in sweep_launches.items():
+        launches[name] += n
+    for name, n in phase_dse(smi).items():
         launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]

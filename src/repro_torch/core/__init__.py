@@ -8,6 +8,7 @@
     simkernel_torch: build_tables + simulate_torch / simulate_batch (the
                      epoch scan; K1 on a CUDA device)
     power/thermal/dvfs: analytical models + governors
+    reports:         schedule tables, ASCII Gantt, summary CSV
 
 Prefer ``repro_torch.scenario``: one declarative ``Scenario`` plus ``run()``.
 """
@@ -29,6 +30,6 @@ from .schedulers import (ETFScheduler, METScheduler, SchedContext, Scheduler,
 from .simkernel_ref import SimResult, TaskRecord
 from .simkernel_torch import (SimTables, build_tables, simulate_batch,
                               simulate_torch, tables_from_numpy)
-from . import simkernel_ref, simkernel_torch, thermal
+from . import reports, simkernel_ref, simkernel_torch, thermal
 
 __all__ = [n for n in dir() if not n.startswith("_")]

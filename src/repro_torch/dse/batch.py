@@ -56,23 +56,16 @@ class DesignBatch:
         return self.tables.exec_opp is not None
 
 
-def _no_host_stacks():
-    from ..scenario.errors import BackendCapabilityError   # scenario imports dse
-    raise BackendCapabilityError(
-        "host-resident (numpy) table stacks", "torch",
-        "the device-resident stack (host=False)",
-        detail="they feed the chunked/sharded lane executor, which is not "
-               "ported yet (ROADMAP.md queue 1, item 8)")
-
-
 def stack_tables(tables: Sequence[SimTables], host: bool = False,
                  device=None) -> SimTables:
     """Field-by-field stack of identically-shaped SimTables into (D, …)
     tensors on ``device`` (default: the first table set's).  ``t_max`` and
-    ``num_pes`` are the padded ones.  ``host=True`` (numpy stacks for the
-    chunked executor) raises :class:`BackendCapabilityError`."""
-    if host:
-        _no_host_stacks()
+    ``num_pes`` are the padded ones.
+
+    ``host=True`` keeps the stacks on the CPU — the form the chunked lane
+    executor (``scenario.shardexec``) streams from, so a grid is never
+    device-resident at once — pinned when ``device`` is a CUDA device (the
+    chunks then copy to it asynchronously), plain CPU tensors otherwise."""
     shapes = {(t.t_max, t.num_pes) for t in tables}
     if len(shapes) != 1:
         raise ValueError(f"tables must be padded to one shape, got {shapes}")
@@ -80,10 +73,20 @@ def stack_tables(tables: Sequence[SimTables], host: bool = False,
         raise ValueError("tables mix static and dynamic (OPP-ladder) sets")
     first = tables[0]
     dev = first.device if device is None else resolve_device(device)
-    fields = {name: torch.stack([getattr(t, name) for t in tables]).to(dev)
+    fields = {name: torch.stack([getattr(t, name) for t in tables])
               for name in ARRAY_FIELDS if getattr(first, name) is not None}
+    if host:
+        return SimTables(t_max=first.t_max, num_pes=first.num_pes,
+                         device=torch.device("cpu"),
+                         **{k: host_tensor(v, dev) for k, v in fields.items()})
     return SimTables(t_max=first.t_max, num_pes=first.num_pes, device=dev,
-                     **fields)
+                     **{k: v.to(dev) for k, v in fields.items()})
+
+
+def host_tensor(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on the CPU, pinned when it is to stream to a CUDA ``device``."""
+    x = x.cpu()
+    return x.pin_memory() if torch.device(device).type == "cuda" else x
 
 
 def pad_node_map(dbs, pad_pes: int, device="cuda") -> torch.Tensor:

@@ -1,7 +1,8 @@
 """RC thermal co-simulation of a realised schedule, on PyTorch.
 
 The twin of ``src/repro/dse/thermal_jax.py`` (``steady_state``,
-``binned_power_trace``, ``peak_temperature``, ``peak_temperature_grid``):
+``euler_step``, ``transient_trace``, ``binned_power_trace``,
+``rc_state_matrix``, ``peak_temperature``, ``peak_temperature_grid``):
 the same lumped network —
 nodes [big, LITTLE, accel fabric] coupled through a board node to ambient —
 in float32 on the schedule's device.  Plain tensor code: the JAX package
@@ -28,6 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..core import thermal as _ref
 
 
@@ -42,6 +44,51 @@ def steady_state(power_w: torch.Tensor) -> torch.Tensor:
     tb = (_const(_ref.T_AMBIENT_C, dev)
           + _const(_ref.R_BOARD_AMB, dev) * power_w.sum(dim=-1))[..., None]
     return torch.cat([tb + _const(_ref.R_TO_BOARD, dev) * power_w, tb], dim=-1)
+
+
+def euler_step(temps: torch.Tensor, power_w: torch.Tensor,
+               dt_s) -> torch.Tensor:
+    """One forward-Euler step on the (..., 4) [nodes..., board] state under
+    (..., 3) node power, in the reference's order of operations."""
+    dev = temps.device
+    dt = _const(dt_s, dev)
+    r_to_board, c_node = _const(_ref.R_TO_BOARD, dev), _const(_ref.C_NODE, dev)
+    t_node, t_board = temps[..., :3], temps[..., 3:]
+    flow = (t_node - t_board) / r_to_board
+    t_node = t_node + dt / c_node * (power_w - flow)
+    t_board = t_board + dt / _const(_ref.C_BOARD, dev) * (
+        flow.sum(dim=-1, keepdim=True)
+        - (t_board - _const(_ref.T_AMBIENT_C, dev))
+        / _const(_ref.R_BOARD_AMB, dev))
+    return torch.cat([t_node, t_board], dim=-1)
+
+
+def transient_trace(power_trace_w, dt_s, init=None,
+                    device="cuda") -> torch.Tensor:
+    """Integrate a (K, 3) power trace from ``init`` (default ambient) by
+    forward Euler, one step a bin.  Returns (K, 4) temperatures — the twin
+    of ``repro.core.thermal.simulate_trace`` and of the reference's
+    ``lax.scan``.  ``power_trace_w`` may be numpy; a tensor keeps its own
+    device, anything else goes to ``device``."""
+    dev = (power_trace_w.device if isinstance(power_trace_w, torch.Tensor)
+           else resolve_device(device))
+    power = torch.as_tensor(power_trace_w, dtype=torch.float32, device=dev)
+    temps = (torch.full((4,), _ref.T_AMBIENT_C, dtype=torch.float32,
+                        device=dev) if init is None
+             else torch.as_tensor(init, dtype=torch.float32, device=dev))
+    out = []
+    for k in range(power.shape[0]):
+        temps = euler_step(temps, power[k], dt_s)
+        out.append(temps)
+    return torch.stack(out) if out else power.new_zeros((0, 4))
+
+
+def rc_state_matrix(device="cuda") -> torch.Tensor:
+    """(4, 4) continuous-time state matrix M of the linear RC network in
+    float32 on ``device`` — the tensor view of ``core.thermal.
+    rc_state_matrix`` (one definition for every integrator)."""
+    return torch.as_tensor(_ref.rc_state_matrix(), dtype=torch.float32,
+                           device=resolve_device(device))
 
 
 def binned_power_trace(start_us: torch.Tensor, finish_us: torch.Tensor,

@@ -33,7 +33,9 @@ cross-product through the event-heap oracle lane by lane.
 :data:`scan_calls` stands where the reference's ``compile_count`` stands: the
 grid scans sweeps have started, keyed by program (DTPM, FAULTS) as
 ``kernels.epoch_scan.variant_launches`` is — one per scheduler value and
-policy shape, on either device; lanes add none.
+policy shape, on either device; lanes add none.  ``chunk=N`` streams the
+lanes through the same programs in fixed-width chunks (``shardexec``): one
+scan a chunk.
 """
 from __future__ import annotations
 
@@ -47,10 +49,12 @@ import torch
 from .. import resolve_device
 from ..core.dvfs import stack_policies
 from ..core.jobgen import JobTrace
-from ..dse.batch import pad_node_map, simulate_grid, stack_tables, stack_traces
+from ..dse.batch import (host_tensor, pad_node_map, simulate_grid,
+                         stack_tables, stack_traces)
 from ..dse.space import DesignPoint
 from ..dse.thermal_torch import peak_temperature_grid
 from . import faults as _faults
+from . import shardexec
 from .config import Scenario, TraceSpec
 from .errors import BackendCapabilityError, LaneAxisError, ScenarioError
 from .result import SweepResult
@@ -68,7 +72,7 @@ _TRACE_FIELDS = {f.name for f in dataclasses.fields(TraceSpec)}
 
 # grid scans started by sweep(), by program (DTPM, FAULTS); their sum stands
 # where the reference's compile_count stands (one per scheduler value and
-# policy shape; lanes add none)
+# policy shape, and per chunk under chunk=; lanes add none)
 scan_calls = dict.fromkeys(((False, False), (True, False), (False, True),
                             (True, True)), 0)
 
@@ -166,10 +170,12 @@ def _sweep_grid_dtpm_faults(tables, gov, fplans, arrival, app_idx, policy):
 
 
 def _design_lanes(base: Scenario, design_axes: List[str],
-                  combos: List[Tuple], pad_pes: Optional[int], device):
+                  combos: List[Tuple], pad_pes: Optional[int], device,
+                  host: bool = False):
     """Padded+stacked tables and thermal-node map for the design lanes: each
     design's tables built (and cached) on the host, stacked, and moved to
-    ``device`` once."""
+    ``device`` once.  ``host=True`` keeps both stacks on the host (pinned
+    for a CUDA ``device``): the chunked executor's streaming source."""
     scns = [_apply_axes(base, design_axes, c) for c in combos]
     dbs = [s.soc() for s in scns]
     P = max(db.num_pes for db in dbs)
@@ -178,7 +184,9 @@ def _design_lanes(base: Scenario, design_axes: List[str],
             raise ValueError(f"pad_pes={pad_pes} < widest design {P}")
         P = pad_pes
     tables = stack_tables([tables_for(s, pad_pes=P, device="cpu")
-                           for s in scns], device=device)
+                           for s in scns], host=host, device=device)
+    if host:
+        return tables, host_tensor(pad_node_map(dbs, P, "cpu"), device)
     return tables, pad_node_map(dbs, P, device)
 
 
@@ -201,9 +209,16 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     no card; ``"cpu"`` runs K1's plain version).  ``backend="ref"`` runs
     the event-heap oracle lane by lane; ``device`` is not read.
 
+    ``chunk=N`` (torch backend only, DESIGN.md §13) streams the design or
+    policy lane axis through the same grid programs in fixed-width N-lane
+    chunks from host-resident (pinned) stacks (``scenario.shardexec``):
+    the device holds one chunk at a time, and every output equals the
+    unchunked sweep's lane for lane.  ``shard`` has one device to use:
+    ``None`` / ``False`` / ``True`` all run the unsharded path
+    (``shardexec.resolve_mesh``).
+
     Not ported yet, and raising :class:`BackendCapabilityError`:
-    ``chunk`` / ``shard`` (the chunked and sharded lane executor, ROADMAP.md
-    queue 1, item 8) and ``telemetry`` (per-window timelines, item 9).
+    ``telemetry`` (per-window timelines, ROADMAP.md queue 1, item 9).
     """
     if not axes:
         raise ValueError("axes must name at least one swept dimension")
@@ -249,12 +264,11 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     if backend != "torch":
         raise ScenarioError(f"unknown backend {backend!r}; have "
                             f"('ref', 'torch')")
-    if chunk is not None or shard:
-        raise BackendCapabilityError(
-            "the chunked/sharded lane executor (chunk/shard)", "torch",
-            "one scan of the whole grid (chunk=None, shard=None)",
-            detail="not ported yet (ROADMAP.md queue 1, item 8)")
     dev = resolve_device(device)
+    # one device: every shard value resolves to the unsharded path
+    # (shardexec.resolve_mesh), so the lanes stream through shardexec
+    # exactly when chunk is given
+    lane_exec = chunk is not None
 
     # fault lanes: every value of a 'faults'/'failures' axis is one fault
     # set; with no such axis the base scenario's failures apply to all lanes
@@ -355,7 +369,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     rebuild_per_combo = design_batch is None and any_table
     if design_batch is None and not rebuild_per_combo:
         tables, node_of_pe = _design_lanes(lane_base, design_axes,
-                                           design_combos, pad_pes, dev)
+                                           design_combos, pad_pes, dev,
+                                           host=lane_exec)
 
     gov_stack = stack_policies(policies) if dynamic else None
 
@@ -376,9 +391,14 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
         s_scn = _apply_axes(lane_base, static_axes, sc)
         if rebuild_per_combo:
             tables, node_of_pe = _design_lanes(s_scn, design_axes,
-                                               design_combos, pad_pes, dev)
+                                               design_combos, pad_pes, dev,
+                                               host=lane_exec)
         if dynamic:
-            if plans is not None:
+            if lane_exec:
+                out = shardexec.run_dtpm_grid(
+                    tables, gov_stack, arrival, app_idx,
+                    policy=s_scn.scheduler, chunk=chunk, fplans=plans)
+            elif plans is not None:
                 out = _sweep_grid_dtpm_faults(tables, gov_stack, plans,
                                               arrival, app_idx,
                                               s_scn.scheduler)
@@ -386,6 +406,11 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
                 out = _sweep_grid_dtpm(tables, gov_stack, arrival, app_idx,
                                        s_scn.scheduler)
             temps = out["peak_temp_c"]
+        elif lane_exec:
+            out, temps = shardexec.run_static_grid(
+                tables, node_of_pe, arrival, app_idx,
+                policy=s_scn.scheduler, bins=s_scn.thermal.bins,
+                repeats=s_scn.thermal.repeats, chunk=chunk, fplans=plans)
         elif plans is not None:
             out, temps = _sweep_grid_faults(
                 tables, node_of_pe, plans, arrival, app_idx,

@@ -41,9 +41,16 @@ for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b"):
             for i, t in enumerate(trace.arrival_us)]
     eng.run(reqs)
     assert all(len(r.output) == 3 for r in reqs)
-from repro_torch.scenario import Scenario, run
+from repro_torch.scenario import Scenario, run, shardexec
 for backend in ("torch", "ref"):
     assert run(Scenario(), backend=backend, device="cpu").makespan_us > 0
+from repro_torch.obs import metrics
+from repro_torch.dse import DesignSpace, evaluate, reports, search
+from repro_torch.core import reports as core_reports
+pts = DesignSpace().sample_lhs(3, seed=0)
+ev = evaluate(pts, Scenario().applications(), [Scenario().job_trace()],
+              device="cpu", chunk=2)
+assert ev.front_mask().any() and metrics.counter("scenario.sweep.chunks").value == 2
 bad = sorted(m for m in sys.modules
              if sys.modules[m] is not None
              and (m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -145,6 +152,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                      "etf", arrival, app_idx)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+    from repro_torch.core import poisson_trace
+    from repro_torch.dse import DesignSpace, evaluate, pareto_search, reports
+    from repro_torch.dse.thermal_torch import rc_state_matrix, transient_trace
+    traces = [poisson_trace(20.0, 4, ["wifi_tx"], seed=0)]
+    pts = DesignSpace().sample_lhs(2, seed=0)
+    for call in (lambda: evaluate(pts, apps, traces),
+                 lambda: evaluate(pts, apps, traces, chunk=1),
+                 lambda: pareto_search(DesignSpace(), apps, traces, rounds=1,
+                                       batch_size=2),
+                 lambda: reports.main(["--designs", "2", "--traces", "1"]),
+                 lambda: transient_trace([[1.0, 1.0, 1.0]], 0.01),
+                 lambda: rc_state_matrix()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    proc = _run(["-m", "repro_torch.dse.reports", "--designs", "2"])
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
 
 
 def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():

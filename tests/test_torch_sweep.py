@@ -32,9 +32,11 @@ from repro_torch.core import dvfs as tdvfs
 from repro_torch.core import simkernel_torch as skt
 from repro_torch.core.applications import wifi_tx
 from repro_torch.dse import (DesignBatch, DesignPoint, build_design_batch,
-                             peak_temperature_grid, simulate_design_batch,
-                             stack_tables, stack_traces)
+                             peak_temperature_grid, stack_tables,
+                             stack_traces)
 from repro_torch.dse import batch as tbatch
+# the kernel entry directly: the package's re-export is a deprecation shim
+from repro_torch.dse.batch import simulate_design_batch
 from repro_torch.dse import thermal_torch as tthermal
 from repro_torch.kernels import epoch_scan as k1
 from repro_torch.scenario import (BackendCapabilityError, FaultSpec,
@@ -397,12 +399,16 @@ def test_typed_errors_and_what_is_not_ported():
     with pytest.raises(BackendCapabilityError, match="table"):
         sweep(tscn, axes={"faults": fs, "scheduler": ["etf", "table"]},
               device="cpu")
-    for kw, match in ((dict(chunk=2), "item 8"), (dict(shard=True), "item 8"),
-                      (dict(telemetry=True), "item 9")):
-        with pytest.raises(BackendCapabilityError, match=match):
-            sweep(tscn, axes={"rate": [5.0]}, device="cpu", **kw)
-    with pytest.raises(BackendCapabilityError, match="item 8"):
-        stack_tables([tables_for(tscn, device="cpu")], host=True)
+    with pytest.raises(BackendCapabilityError, match="item 9"):
+        sweep(tscn, axes={"rate": [5.0]}, device="cpu", telemetry=True)
+    # the chunked executor (item 8) is ported: chunk / shard run, and equal
+    # the plain sweep (tests/test_torch_shardexec.py holds them in full)
+    plain = sweep(tscn, axes={"rate": [5.0, 20.0]}, device="cpu")
+    for kw in (dict(chunk=2), dict(shard=True)):
+        got = sweep(tscn, axes={"rate": [5.0, 20.0]}, device="cpu", **kw)
+        np.testing.assert_array_equal(got.makespan_us, plain.makespan_us)
+    host = stack_tables([tables_for(tscn, device="cpu")], host=True)
+    assert host.device.type == "cpu" and host.exec_us.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sweep(tscn, axes={"rate": [5.0]})       # the card by default
