@@ -162,7 +162,33 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            (``main([...])``), printing their fronts.  K1's launches are
            counted per call as in phase 7 (1 + 1 + 2 x 4 + 8 + 5 + 1 + 3
            static in (a)-(c) and (f), 1 + 4 + 1 + 4 under DTPM, 1 + 16 with
-           faults).
+           faults);
+9. obs     ``repro_torch.obs`` on phase 6's configuration (the five-app mix
+           on ``DesignPoint(num_vit=1)``, 1,000 jobs at 20 jobs/ms): (a)
+           ``run(telemetry=True)`` under performance, ondemand and throttle
+           (27 C cap) x {etf, met, table}, and performance etf with a fault:
+           K1 launched once with telemetry and once without, its outputs and
+           the metrics the same bits, ``num_windows_for`` windows, the
+           replayed peak equal to K1's ``peak_temp_c`` bit for bit (DTPM),
+           the card's replay equal to the same replay on the host over K1's
+           outputs copied there, bit for bit, the manifest naming the card;
+           the replay's wall time (the ``obs.telemetry.replay`` timer),
+           windows a second and the run's memory on the card; (b)
+           ``sweep(telemetry=True)`` on 16 LHS designs x 4 ondemand policies
+           x 2 seeds and on 64 designs x 2 seeds static: one K1 launch each,
+           the outputs as without telemetry; ``chunk=5`` (4 and 13 launches)
+           the same bits with telemetry as without, its telemetry equal to
+           the unchunked sweep's bit for bit, makespans bit for bit and the
+           epilogue's sums bit for bit or within 1e-6 (the line says which:
+           a reduction's order on the card follows the lanes of a launch);
+           four lanes of each equal to their ``run(telemetry=True)`` bit for
+           bit; the replay's time, window steps and lane-windows; (c) the
+           comm-free ondemand trace: the card's replay against the event-heap
+           recorder (``freq_idx`` equal, the rest within 1e-4); (d) ``python
+           -m repro_torch.obs.report --trace`` in-process (a host tool: the
+           event-heap kernel), its trace validated.  K1's launches are
+           counted per call (6 + 32 static in (a)-(b), 12 + 14 + 1 under
+           DTPM in (a)-(c), 2 with faults).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -221,6 +247,9 @@ from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
+from repro_torch.obs import report as obs_report  # noqa: E402
+from repro_torch.obs import telemetry as obs_tel  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
@@ -229,8 +258,9 @@ from repro_torch.scenario.faults import (fault_scan_steps,  # noqa: E402
                                          normalize_failures, stack_fault_plans)
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 
-# the module (the package's `sweep` attribute is the function)
+# the modules (the package's `sweep` and `run` attributes are the functions)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
+run_mod = importlib.import_module("repro_torch.scenario.run")
 search_mod = importlib.import_module("repro_torch.dse.search")
 dse_reports = importlib.import_module("repro_torch.dse.reports")
 
@@ -1120,9 +1150,7 @@ FAULT_RATES, FAULT_SEEDS = 8, 8
 
 
 # K1's four instantiations, (DTPM, FAULTS) -> the name of its `kernels` entry
-K1_VARIANTS = {(False, False): "epoch_scan", (True, False): "epoch_scan_dtpm",
-               (False, True): "epoch_scan_faults",
-               (True, True): "epoch_scan_dtpm_faults"}
+K1_VARIANTS = k1.VARIANT_NAMES
 
 
 def counts_zero():
@@ -2486,9 +2514,11 @@ def sums_note(pairs, what: str) -> str:
             notes.append(f"{name} bit for bit")
             continue
         np.testing.assert_allclose(got, want, rtol=tol, atol=0, err_msg=what)
-        notes.append(f"{name} within {tol:g} ({np.count_nonzero(got != want)} of "
+        moved = got != want
+        notes.append(f"{name} within {tol:g} ({np.count_nonzero(moved)} of "
                      f"{got.size} differ, at most "
-                     f"{np.max(np.abs(got - want) / np.abs(want)):.2e} relative)")
+                     f"{np.max(np.abs(got - want)[moved] / np.abs(want[moved])):.2e} "
+                     "relative)")
     return ", ".join(notes)
 
 
@@ -2660,6 +2690,254 @@ def phase_dse(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+# phase 6's configuration: the five-app mix on DesignPoint(num_vit=1), 1,000
+# Poisson jobs at 20 jobs/ms
+OBS_JOBS, OBS_RATE = 1000, 20.0
+OBS_GOVERNORS = {"performance": (), "ondemand": (),
+                 "throttle": DTPM_GOVERNORS["throttle"]}
+OBS_FAULTS = (FaultSpec(3, 500.0),)
+# the sweeps: 16 LHS designs x 4 ondemand policies x 2 seeds, 64 designs x 2
+# seeds static; each chunked at 5; OBS_CHECKED lanes of each against run()
+OBS_DTPM_DESIGNS, OBS_STATIC_DESIGNS, OBS_SEEDS, OBS_CHUNK = 16, 64, 2, 5
+OBS_PARAMS = tuple((("up_threshold", u), ("sample_window_us", 50.0))
+                   for u in (0.6, 0.7, 0.8, 0.9))
+OBS_CHECKED = 4
+
+
+def host_replay(scn, out):
+    """The telemetry ``run`` replays for ``scn`` (``replay_telemetry``, the
+    same code), on the host over the one-lane scan outputs ``out`` copied
+    there (the CPU's tables), and its wall seconds."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    tel = run_mod.replay_telemetry(scn, tables_for(scn, device=cpu),
+                                   {k: v.cpu() for k, v in out.items()},
+                                   scn.job_trace().app_index)
+    return tel, time.perf_counter() - t0
+
+
+def replayed(fn):
+    """``fn()`` and what the telemetry replays inside it did: seconds (to
+    their last copy to the host), window steps, lane-windows (the
+    ``obs.telemetry`` timer and counters)."""
+    t0, s0, l0 = (obs_tel.replay_timer.total_s, obs_tel.window_steps.value,
+                  obs_tel.lane_windows.value)
+    out = fn()
+    return out, (obs_tel.replay_timer.total_s - t0,
+                 obs_tel.window_steps.value - s0, obs_tel.lane_windows.value - l0)
+
+
+def assert_telemetry_equal(got, want, what: str):
+    if not got.equals(want):
+        raise AssertionError(f"{what}: telemetry differs")
+
+
+def assert_sweeps_equal(got, want, what: str):
+    """Two sweeps of one grid, every output and every lane's telemetry bit
+    for bit."""
+    for name in SWEEP_SCHEDULE + ("energy_j", "peak_temp_c"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    for a, b in zip(got.telemetry.flat, want.telemetry.flat):
+        assert_telemetry_equal(a, b, what)
+
+
+def check_manifest(man: dict, backend: str, what: str):
+    want = ("gpu", torch.cuda.get_device_name(DEV), torch.cuda.device_count())
+    if (man["device_platform"], man["device_kind"], man["device_count"]) != want \
+            or man["backend"] != backend or man["cuda_version"] != torch.version.cuda:
+        raise AssertionError(f"{what}: manifest {man} does not name the card")
+
+
+@torch.no_grad()
+def phase_obs(smi: str) -> dict:
+    """``repro_torch.obs`` on the card: (a) ``run(telemetry=True)`` under
+    every governor kind and scheduler and with faults: K1 launched as often
+    as without telemetry, its outputs the same bits, the replayed peak K1's,
+    the card's replay equal to the same replay on the host, the manifest
+    naming the card; (b) ``sweep(telemetry=True)`` under ondemand and
+    static, chunked too; (c) the comm-free trace against the event-heap
+    recorder; (d) ``python -m repro_torch.obs.report --trace``.  Returns
+    K1's launches by instantiation."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(K1_VARIANTS.values(), 0)
+
+    def main_path(fn, what, want):
+        """An entry point as a user calls it, K1's counts set to 0 just
+        before and read just after; ``want`` by instantiation."""
+        counts_zero()
+        out = fn()
+        torch.cuda.synchronize()
+        assert_counts(want, what)
+        for name, n in want.items():
+            launches[name] += n
+        return out
+
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5,
+                    trace=TraceSpec(rate_jobs_per_ms=OBS_RATE, num_jobs=OBS_JOBS,
+                                    seed=0))
+    # -- (a) run(telemetry=True), one lane of phase 6's configuration
+    cases = [(g, p, ()) for g in OBS_GOVERNORS for p in ("etf", "met", "table")]
+    cases.append(("performance", "etf", OBS_FAULTS))
+    for gov, policy, failures in cases:
+        scn = base.replace(governor=gov, governor_params=OBS_GOVERNORS[gov],
+                           scheduler=policy, failures=failures)
+        dynamic = scn.make_policy().dynamic
+        variant = K1_VARIANTS[dynamic, bool(failures)]
+        what = f"{gov} {policy}" + (" faults" if failures else "")
+        plain_res = main_path(lambda: run(scn), f"obs (a) {what} telemetry off",
+                              {variant: 1})
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, (card_s, W, _) = replayed(lambda: main_path(
+            lambda: run(scn, telemetry=True), f"obs (a) {what}", {variant: 1}))
+        run_s = time.perf_counter() - t0
+        held = torch.cuda.max_memory_allocated() - held
+        for key, v in plain_res.raw.items():
+            if not torch.equal(v, res.raw[key]):
+                raise AssertionError(f"obs (a) {what}: telemetry=True changed {key}")
+        if (plain_res.avg_latency_us, plain_res.energy_j, plain_res.peak_temp_c) \
+                != (res.avg_latency_us, res.energy_j, res.peak_temp_c):
+            raise AssertionError(f"obs (a) {what}: telemetry=True changed the metrics")
+        tel = res.telemetry
+        window = scn.make_policy().sample_window_us if dynamic \
+            else obs_tel.static_window(scn.make_governor())
+        if tel.num_windows != W or W != obs_tel.num_windows_for(res.makespan_us, window) \
+                or W == 0 or not np.all(np.isfinite(tel.temps_c)):
+            raise AssertionError(f"obs (a) {what}: {tel.num_windows} windows")
+        if dynamic and tel.peak_temp_c != res.peak_temp_c:
+            raise AssertionError(f"obs (a) {what}: replayed peak {tel.peak_temp_c!r}, "
+                                 f"K1's {res.peak_temp_c!r}")
+        check_manifest(res.manifest, "torch", f"obs (a) {what}")
+        host, host_s = host_replay(scn, res.raw)
+        assert_telemetry_equal(host, tel, f"obs (a) {what} (card vs host replay)")
+        moves = int(np.count_nonzero(np.diff(tel.freq_idx, axis=0)))
+        log(f"[obs] (a) run(telemetry=True) {what}: {W} windows of {window:g} us, "
+            f"K1 launches 1 ({variant}) with and without; replay on the card "
+            f"{card_s:.3f} s ({W / card_s:,.0f} windows/s) of the run's {run_s:.3f} s, "
+            f"which held {held / 2 ** 20:.1f} MiB; the same replay on the host "
+            f"{host_s:.3f} s, equal bit for bit; "
+            + (f"peak {tel.peak_temp_c:.4f} C = K1's bit for bit, {moves} OPP "
+               f"moves" if dynamic else f"replayed peak {tel.peak_temp_c:.4f} C "
+               f"(binned RC {res.peak_temp_c:.4f} C)")
+            + f"; manifest {res.manifest['device_kind']}  [{smi}]")
+
+    # -- (b) sweep(telemetry=True), unchunked and at chunk=5, lanes vs run
+    space = DesignSpace()
+    seeds = list(range(OBS_SEEDS))
+    dtpm = base.replace(governor="ondemand")
+    static = base.replace(governor="design")
+    grids = (("ondemand", dtpm, {"design": space.sample_lhs(OBS_DTPM_DESIGNS, seed=0),
+                                 "governor_params": OBS_PARAMS, "seed": seeds},
+              "epoch_scan_dtpm"),
+             ("static", static, {"design": space.sample_lhs(OBS_STATIC_DESIGNS, seed=1),
+                                 "seed": seeds}, "epoch_scan"))
+    for name, scn, axes, variant in grids:
+        shape = tuple(len(v) for v in axes.values())
+        lanes = int(np.prod(shape))
+        n_chunks = -(-(max(shape[:-1])) // OBS_CHUNK)
+        t0 = time.perf_counter()
+        off = main_path(lambda: sweep(scn, axes), f"obs (b) {name}", {variant: 1})
+        off_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sr, (rep_s, steps, lane_w) = replayed(lambda: main_path(
+            lambda: sweep(scn, axes, telemetry=True), f"obs (b) {name}", {variant: 1}))
+        on_s = time.perf_counter() - t0
+        for field in SWEEP_SCHEDULE + ("energy_j", "peak_temp_c"):
+            if not np.array_equal(getattr(off, field), getattr(sr, field)):
+                raise AssertionError(f"obs (b) {name}: telemetry=True changed {field}")
+        chunked_off = main_path(lambda: sweep(scn, axes, chunk=OBS_CHUNK),
+                                f"obs (b) {name} chunk={OBS_CHUNK} telemetry off",
+                                {variant: n_chunks})
+        chunked, (chunk_s, _, _) = replayed(lambda: main_path(
+            lambda: sweep(scn, axes, telemetry=True, chunk=OBS_CHUNK),
+            f"obs (b) {name} chunk={OBS_CHUNK}", {variant: n_chunks}))
+        for field in SWEEP_SCHEDULE + ("energy_j", "peak_temp_c"):
+            if not np.array_equal(getattr(chunked_off, field), getattr(chunked, field)):
+                raise AssertionError(f"obs (b) {name} chunk: telemetry=True changed "
+                                     f"{field}")
+        for a, b in zip(sr.telemetry.flat, chunked.telemetry.flat):
+            assert_telemetry_equal(b, a, f"obs (b) {name} chunk={OBS_CHUNK}")
+        # the chunked sweep's outputs against the unchunked one's: a max is
+        # bit for bit; the epilogue's sums say which (see sums_note)
+        for field in ("makespan_us", "throughput_jobs_per_ms"):
+            if not np.array_equal(getattr(chunked, field), getattr(sr, field)):
+                raise AssertionError(f"obs (b) {name} chunk: {field} differs")
+        sums = sums_note([(f, getattr(chunked, f), getattr(sr, f), tol) for f, tol in (
+            ("avg_latency_us", 1e-6), ("busy_per_pe_us", 1e-6), ("energy_j", 1e-6),
+            ("peak_temp_c", 1e-5))], f"obs (b) {name} chunk")
+        checked = [np.unravel_index(i, shape)
+                   for i in np.linspace(0, lanes - 1, OBS_CHECKED).astype(int)]
+        names = list(axes)
+        for idx in checked:
+            lane = sweep_mod._apply_axes(scn, names, [axes[n][i] for n, i in
+                                                      zip(names, idx)])
+            single = main_path(lambda: run(lane, telemetry=True),
+                               f"obs (b) {name} {idx}", {variant: 1})
+            assert_telemetry_equal(sr.telemetry[idx], single.telemetry,
+                                   f"obs (b) {name} lane {idx} vs run")
+            if variant == "epoch_scan_dtpm" and \
+                    sr.telemetry[idx].peak_temp_c != sr.peak_temp_c[idx]:
+                raise AssertionError(f"obs (b) {name} lane {idx}: peak")
+        log(f"[obs] (b) sweep(telemetry=True) {name}, {' x '.join(map(str, shape))} "
+            f"= {lanes} lanes ({OBS_JOBS:,} jobs, {OBS_RATE:g} jobs/ms): {on_s:.3f} s "
+            f"against {off_s:.3f} s without; its replay {rep_s:.3f} s over {steps:,} "
+            f"windows (the longest lane's; {steps / rep_s:,.0f} window steps/s), "
+            f"{lane_w:,} lane-windows ({lane_w / rep_s:,.0f}/s); chunk={OBS_CHUNK}: "
+            f"{n_chunks} launches, replays {chunk_s:.3f} s, telemetry bit for bit, "
+            f"outputs = chunk={OBS_CHUNK} without telemetry bit for bit, against the "
+            f"unchunked sweep makespan bit for bit, {sums}; lanes "
+            f"{[tuple(int(i) for i in x) for x in checked]} = their "
+            f"run(telemetry=True) bit for bit  [{smi}]")
+
+    # -- (c) the comm-free trace: the card's replay vs the event-heap recorder
+    db = make_soc_table2()
+    db.comm = CommModel(startup_us=0.0, bw_bytes_per_us=1e30)
+    gov = OndemandGovernor(sample_window_us=50.0)
+    trace = deterministic_trace(25.0, 64, ["wifi_tx"])
+    tables = simkernel_torch.build_tables(db, [wifi_tx()], governor=gov)
+    out = main_path(lambda: simkernel_torch.simulate_torch_dtpm(
+        tables, "etf", trace.arrival_us, trace.app_index, gov.policy()),
+        "obs (c)", {"epoch_scan_dtpm": 1})
+    got = obs_tel.torch_dtpm_telemetry(
+        tables, gov.policy(), {k: v[None] for k, v in out.items()},
+        trace.app_index[None])[0]
+    rec = obs_tel.TelemetryRecorder(gov.sample_window_us)
+    simkernel_ref.simulate(db, [wifi_tx()], trace, get_scheduler("etf"),
+                           OndemandGovernor(sample_window_us=50.0), telemetry=rec)
+    want = rec.build(obs_tel.domain_count(db))
+    if got.num_windows != want.num_windows or \
+            not np.array_equal(got.freq_idx, want.freq_idx):
+        raise AssertionError("obs (c): windows or OPPs differ from the recorder")
+    err = 0.0
+    for field in ("util", "power_w", "temps_c"):
+        g, w = getattr(got, field), getattr(want, field)
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6, err_msg=f"obs (c) {field}")
+        err = max(err, float(np.max(np.abs(g - w))))
+    log(f"[obs] (c) comm-free ondemand trace (wifi_tx, 64 jobs, window 50 us): the "
+        f"card's replay = the event-heap recorder on {got.num_windows} windows "
+        f"(freq_idx bit for bit, util/power/temps within 1e-4, max abs diff "
+        f"{err:.2e})")
+
+    # -- (d) python -m repro_torch.obs.report --trace, in-process (host tool)
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_p, tel_p = out_dir / "TRACE.json", out_dir / "TELEMETRY.json"
+    if obs_report.main(["--governor", "ondemand", "--trace", str(trace_p),
+                        "--telemetry", str(tel_p)]) != 0 \
+            or obs_report.main(["--validate", str(trace_p)]) != 0 \
+            or obs_trace.validate_chrome_trace(json.loads(trace_p.read_text())):
+        raise AssertionError("obs (d): the report's trace does not validate")
+    log(f"[obs] (d) python -m repro_torch.obs.report --trace: valid, "
+        f"{trace_p.stat().st_size:,} bytes")
+    log(f"[obs] phase 9 took {time.perf_counter() - t_phase:.1f} s; K1 launches by "
+        f"instantiation {launches}  [{smi}]")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -2700,6 +2978,8 @@ def main():
     for name, n in sweep_launches.items():
         launches[name] += n
     for name, n in phase_dse(smi).items():
+        launches[name] += n
+    for name, n in phase_obs(smi).items():
         launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]

@@ -99,20 +99,15 @@ def simulate(db: ResourceDB, apps: Sequence[Application], trace: JobTrace,
     (checkpoint/restart): the work is lost, the workload still completes.
 
     ``telemetry``: optional per-window recorder (duck-typed, as
-    ``repro.obs.telemetry.TelemetryRecorder``; the port has no recorder yet,
-    so passing one raises).  Under a dynamic governor
-    every sampling window's utilisation, post-transition frequency, realised
-    node power and RC temperatures are recorded in-loop — the exact values
+    ``repro_torch.obs.telemetry.TelemetryRecorder``).  Under a dynamic
+    governor every sampling window's utilisation, post-transition frequency,
+    realised node power and RC temperatures are recorded in-loop — the exact values
     the governor feedback integrated — and the windows are drained past the
     last decision epoch to the makespan (matching the epoch scan's tail
     drain).  Recording is observation-only: it adds a thermal read-out for
     uncapped governors but never feeds back into scheduling, so results are
-    unchanged (asserted in tests/test_obs.py).
+    unchanged (asserted in tests/test_torch_obs.py).
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry recording needs repro_torch.obs, which is not ported "
-            "yet (ROADMAP.md queue 1, item 9)")
     governor = governor or PerformanceGovernor()
     scheduler.reset()
 

@@ -100,9 +100,12 @@ MAX_PES_DTPM = 32     # DTPM: P, C and K, a lane of the warp each
 QUANTUM_BITS = 47     # a window's fixed-point term is below 2**47
 
 launches = 0
+# the four instantiations, (DTPM, FAULTS) -> the name reports give them
+VARIANT_NAMES = {(False, False): "epoch_scan", (True, False): "epoch_scan_dtpm",
+                 (False, True): "epoch_scan_faults",
+                 (True, True): "epoch_scan_dtpm_faults"}
 # launches by instantiation: (DTPM, FAULTS) -> count, each also in `launches`
-variant_launches = dict.fromkeys(((False, False), (True, False),
-                                  (False, True), (True, True)), 0)
+variant_launches = dict.fromkeys(VARIANT_NAMES, 0)
 _fn = None
 _prepared = weakref.WeakKeyDictionary()   # tables -> (pred bits, valid bits)
 
@@ -227,7 +230,7 @@ class _Windows:
     from host data on each call would synchronise the stream."""
 
     def __init__(self, tables, gov, design: torch.Tensor, dev):
-        from ..core import dvfs, thermal
+        from ..core import dvfs
         self.ondemand_index = dvfs.ondemand_index_torch
         self.throttle_index = dvfs.throttle_index_torch
         L = design.shape[0]
@@ -240,12 +243,8 @@ class _Windows:
         self.window = gov.window.to(dev)
         self.up, self.cap = gov.up.to(dev), gov.cap.to(dev)
         self.A_rc, self.B_rc = gov.A_rc.to(dev), gov.B_rc.to(dev)
-        q = quanta(gov.window, lane_p_max(tables, L)).tolist()
-        # 2**s in f32 (exact) scales a term in; 2**-s in f64 a sum back out
-        self.scales = torch.tensor([[[2.0 ** sb], [2.0 ** se]] for sb, se in q],
-                                   dtype=torch.float32, device=dev)  # (L, 2, 1)
-        self.backs = torch.tensor([[[2.0 ** -sb], [2.0 ** -se]] for sb, se in q],
-                                  dtype=torch.float64, device=dev)
+        self.scales, self.backs = window_scales(gov.window,
+                                                lane_p_max(tables, L), dev)
         rc = torch.from_numpy(rc_consts()).to(dev)
         self.c_node, self.amb_drive = rc[:3], rc[3:4]
         self.floor = torch.tensor(np.float32(1e-9), device=dev)
@@ -254,14 +253,8 @@ class _Windows:
         self.opp_freq, self.num_opp = lane("opp_freq"), lane("num_opp")
         self.domain_cpu = lane("domain_cpu")                          # (L, C)
         pe_domain = lane("pe_domain").long()                          # (L, P)
-        # CPU PEs -> their domain as 0/1 f64: the integer busy sums (each
-        # below 2**48, at most 32 of them) add exactly in f64
-        self.cpu_dom = ((pe_domain[:, :, None] == torch.arange(C, device=dev))
-                        & (lane("pe_is_cpu") != 0)[:, :, None]).double()  # (L, P, C)
-        node = torch.full((L, MAX_PES_DTPM), -1, dtype=torch.long, device=dev)
-        node[:, :P] = lane("node_of_pe").long()
-        self.node_mask = (node[:, None, :] == torch.arange(
-            thermal.NUM_NODES, device=dev)[:, None]).float()          # (L, 3, 32)
+        self.cpu_dom = cpu_domains(pe_domain, lane("pe_is_cpu"), C)   # (L, P, C)
+        self.node_mask = node_mask(lane("node_of_pe"), MAX_PES_DTPM)  # (L, 3, 32)
         self.pe_domain = pe_domain
         self.domain_node = lane("domain_node").long()                 # (L, C)
         self.opp_idx = torch.zeros((L, C), dtype=torch.long, device=dev)
@@ -273,8 +266,10 @@ class _Windows:
     def step(self, due, committed, start, finish, onpe, onopp):
         """One window ``[next_w - window, next_w)`` on the lanes where
         ``due``; the cells (L, N): ``committed`` (scheduled and valid), their
-        start, finish, PE and latched OPP."""
-        L = due.shape[0]
+        start, finish, PE and latched OPP.  Returns the window's (L, C)
+        utilisation and (L, 3) node power (every lane's: a lane not due
+        keeps its carry, and its values are not meant to be read), as the
+        reference's ``_window_step`` returns them to the telemetry replay."""
         window = self.window[:, None]
         w1 = self.next_w[:, None]
         ov = torch.minimum(torch.clamp(torch.minimum(finish, w1)
@@ -284,28 +279,18 @@ class _Windows:
         # exact per-PE sums of busy time and of active energy at the
         # latched OPP
         p_cell = self.power_opp.gather(1, onpe * self.K + onopp)
-        acc = fixed_sums(torch.stack([ov, ov * p_cell], dim=1), self.scales,
-                         onpe[:, None, :], self.P).double()         # (L, 2, P)
-        busy_pe, e_act = (acc * self.backs).float().unbind(1)         # (L, P)
-        busy_dom = ((acc[:, 0, :, None] * self.cpu_dom).sum(dim=1)
-                    * self.backs[:, 0]).float()                       # (L, C)
+        busy_pe, e_act, busy_dom = window_sums(ov, p_cell, onpe, self.scales,
+                                               self.backs, self.cpu_dom, self.P)
         # the governor: utilisation -> ondemand proposal
         util = busy_dom / torch.maximum(window * self.domain_cpu, self.floor)
         proposed = self.ondemand_index(self.opp_freq, self.num_opp, self.up,
                                        util)
-        # realised window power per PE, then per node by a fixed tree over
-        # 32 slots (times 1 or 0: exact), as the kernel's warp shuffles
+        # realised window power per PE and node, then the RC step
         idle_frac = 1.0 - torch.clamp(busy_pe / window, 0.0, 1.0)
         p_pe = e_act / window + self.power_idle * idle_frac
-        x = torch.nn.functional.pad(p_pe, (0, MAX_PES_DTPM - self.P))
-        x = x[:, None, :] * self.node_mask                            # (L, 3, 32)
-        while x.shape[2] > 1:
-            half = x.shape[2] // 2
-            x = x[:, :, :half] + x[:, :, half:]
-        # the exact RC step, each product and sum rounded on its own
-        u = torch.cat([x[:, :, 0] / self.c_node,
-                       self.amb_drive.expand(L, 1)], dim=1)           # (L, 4)
-        temps = _rc_rows(self.A_rc, self.temps) + _rc_rows(self.B_rc, u)
+        node_p = node_power(p_pe, self.node_mask)
+        temps = rc_step(self.A_rc, self.B_rc, self.temps, node_p, self.c_node,
+                        self.amb_drive)
         peak = torch.maximum(self.peak, temps[:, :3].amax(dim=1))
         opp = self.throttle_index(proposed, temps.gather(1, self.domain_node),
                                   self.cap)
@@ -314,6 +299,7 @@ class _Windows:
         self.temps = torch.where(due[:, None], temps, self.temps)
         self.peak = torch.where(due, peak, self.peak)
         self.next_w = torch.where(due, self.next_w + self.window, self.next_w)
+        return util, node_p
 
     def advance(self, until, *cells):
         """Windows while ``until()`` holds on any lane, masked per lane."""
@@ -331,6 +317,69 @@ def _rc_rows(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     for k in range(1, M.shape[2]):
         acc = acc + prod[:, :, k]
     return acc
+
+
+def window_scales(window: torch.Tensor, p_max, dev):
+    """(L, 2, 1) f32 ``2**s`` that scale a window's terms in and (L, 2, 1)
+    f64 ``2**-s`` that scale its sums out, ``s`` each lane's
+    :func:`quanta` (both exact powers of two)."""
+    q = quanta(window, p_max).tolist()
+    scales = torch.tensor([[[2.0 ** sb], [2.0 ** se]] for sb, se in q],
+                          dtype=torch.float32, device=dev)
+    backs = torch.tensor([[[2.0 ** -sb], [2.0 ** -se]] for sb, se in q],
+                         dtype=torch.float64, device=dev)
+    return scales, backs
+
+
+def cpu_domains(pe_domain: torch.Tensor, pe_is_cpu: torch.Tensor,
+                C: int) -> torch.Tensor:
+    """(L, P, C) f64: 1 where a CPU PE is in a domain.  The integer busy
+    sums (each below 2**48, at most 32 of them) add exactly in f64."""
+    dom = pe_domain.long()[:, :, None] == torch.arange(C, device=pe_domain.device)
+    return (dom & (pe_is_cpu != 0)[:, :, None]).double()
+
+
+def node_mask(node_of_pe: torch.Tensor, width: int) -> torch.Tensor:
+    """(L, 3, width) f32: 1 where a PE slot is on a thermal node, slots past
+    the (L, P) map 0; ``width`` a power of two, the leaves of
+    :func:`node_power`'s tree."""
+    from ..core.thermal import NUM_NODES
+    L, P = node_of_pe.shape
+    node = torch.full((L, width), -1, dtype=torch.long, device=node_of_pe.device)
+    node[:, :P] = node_of_pe.long()
+    return (node[:, None, :] == torch.arange(
+        NUM_NODES, device=node.device)[:, None]).float()
+
+
+def window_sums(ov, p_cell, onpe, scales, backs, cpu_dom, P: int):
+    """One window's sums over the (L, N) cells, each term in fixed point
+    (:func:`fixed_sums`): per-PE busy time and active energy ``ov *
+    p_cell`` (L, P) and per-domain CPU busy time (L, C), as f32."""
+    acc = fixed_sums(torch.stack([ov, ov * p_cell], dim=1), scales,
+                     onpe[:, None, :], P).double()                  # (L, 2, P)
+    busy_pe, e_act = (acc * backs).float().unbind(1)
+    busy_dom = ((acc[:, 0, :, None] * cpu_dom).sum(dim=1)
+                * backs[:, 0]).float()
+    return busy_pe, e_act, busy_dom
+
+
+def node_power(p_pe: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(L, P) PE power -> (L, 3) node power by a fixed tree over the mask's
+    slots (times 1 or 0: exact), as the kernel's warp shuffles."""
+    x = torch.nn.functional.pad(p_pe, (0, mask.shape[-1] - p_pe.shape[-1]))
+    x = x[:, None, :] * mask
+    while x.shape[2] > 1:
+        half = x.shape[2] // 2
+        x = x[:, :, :half] + x[:, :, half:]
+    return x[:, :, 0]
+
+
+def rc_step(A, B, temps, node_p, c_node, amb_drive) -> torch.Tensor:
+    """The exact RC step ``A @ temps + B @ u`` of (L, 4) temperatures under
+    (L, 3) node power, each product and sum rounded on its own."""
+    u = torch.cat([node_p / c_node, amb_drive.expand(node_p.shape[0], 1)],
+                  dim=1)                                            # (L, 4)
+    return _rc_rows(A, temps) + _rc_rows(B, u)
 
 
 def epoch_scan_plain(tables, policy: str, arrival: torch.Tensor,

@@ -1,21 +1,26 @@
-"""Named counters and timers, on the port.
+"""Named counters and timers + the run manifest, on the port.
 
-The twin of the JAX-free part of ``src/repro/obs/metrics.py``: one
-process-wide registry of plain-Python :class:`Counter` and :class:`Timer`
-objects (the same name gives the same object), :func:`snapshot`,
-:func:`reset_all` and :func:`scenario_hash`.  ``run_manifest`` and
-``jit_compile_count`` read JAX in the reference and come with the rest of
-``repro_torch.obs`` (ROADMAP.md queue 1, item 9); the sweep's scan count
-stays ``repro_torch.scenario.sweep.scan_calls``.
+The twin of ``src/repro/obs/metrics.py``: one process-wide registry of
+plain-Python :class:`Counter` and :class:`Timer` objects (the same name
+gives the same object), :func:`snapshot`, :func:`reset_all`,
+:func:`scenario_hash`, and :func:`run_manifest`, the self-describing record
+attached to every ``Result`` of ``scenario.run`` and every ``BENCH_*.json``
+(``obs.bench``).  The reference's ``jit_compile_count`` has no twin: nothing
+is traced here.  Where it stands, the manifest carries what the port counts
+instead, K1's launches by instantiation and the sweep's grid scans.
 
-Stdlib-only: the scenario and dse modules import it for their counters, so
-it must not import them back.
+Stdlib-only at import (``torch`` and the counted modules are imported inside
+:func:`run_manifest`): the scenario and dse modules import this one for
+their counters, so it must not import them back.
 """
 from __future__ import annotations
 
 import hashlib
+import platform as _platform
 import time
 from typing import Dict, Optional
+
+MANIFEST_SCHEMA = "repro.obs/manifest/v1"
 
 
 class Counter:
@@ -126,3 +131,62 @@ def scenario_hash(scenario) -> str:
     """Stable short hash of a frozen Scenario (its dataclass repr is
     deterministic), usable to correlate runs across processes/artifacts."""
     return hashlib.sha1(repr(scenario).encode()).hexdigest()[:12]
+
+
+def run_manifest(scenario=None, backend: Optional[str] = None, *,
+                 device=None, **extra) -> Dict:
+    """A self-describing record of one run: what ran, where, what launched.
+
+    Fields: schema tag (the reference's), UTC timestamp, python, host
+    platform, ``torch_version`` and ``cuda_version`` (``torch.version.cuda``,
+    ``None`` in a CPU build); with ``device`` (the ``torch.device`` the run
+    used, or its name) ``device_platform`` (``"gpu"`` or ``"cpu"``),
+    ``device_kind`` (``torch.cuda.get_device_name`` of that device, or
+    ``"cpu"``) and ``device_count`` (the process's CUDA devices, 1 for the
+    CPU); ``k1_launches``, K1's launches by instantiation since the process
+    started (``kernels.epoch_scan.variant_launches``, under the names of
+    ``VARIANT_NAMES``), and ``scan_calls``, the grid scans ``sweep`` has
+    started (``scenario.sweep.scan_calls``, the same names), where the
+    reference has ``jit_compile_count``; the counter/timer snapshot; and,
+    when given, the scenario's label and hash and the backend.  ``extra``
+    key-values (wall times, bench name, ...) are merged verbatim.
+    """
+    import importlib
+    from datetime import datetime, timezone
+
+    import torch
+
+    from ..kernels import epoch_scan
+    # the module (the scenario package's `sweep` attribute is the function)
+    scan_calls = importlib.import_module("..scenario.sweep",
+                                         __package__).scan_calls
+    man = {
+        "schema": MANIFEST_SCHEMA,
+        "timestamp": datetime.now(timezone.utc).isoformat(timespec="seconds"),
+        "python": _platform.python_version(),
+        "host_platform": _platform.platform(),
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+    }
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            man["device_platform"] = "gpu"
+            man["device_kind"] = torch.cuda.get_device_name(dev)
+            man["device_count"] = torch.cuda.device_count()
+        else:
+            man["device_platform"] = dev.type
+            man["device_kind"] = dev.type
+            man["device_count"] = 1
+    if scenario is not None:
+        man["scenario"] = scenario.label()
+        man["scenario_hash"] = scenario_hash(scenario)
+    if backend is not None:
+        man["backend"] = backend
+    names = epoch_scan.VARIANT_NAMES
+    man["k1_launches"] = {names[k]: n
+                          for k, n in epoch_scan.variant_launches.items()}
+    man["scan_calls"] = {names[k]: n for k, n in scan_calls.items()}
+    man["metrics"] = snapshot()
+    man.update(extra)
+    return man

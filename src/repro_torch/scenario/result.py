@@ -44,8 +44,8 @@ class Result:
     peak_temp_c: float
     utilization: np.ndarray            # (num_pes,) busy / makespan
     raw: Any                           # SimResult (ref) | output dict (torch)
-    telemetry: Optional[Any] = None    # per-window timelines (not ported yet)
-    manifest: Optional[Dict] = None    # run manifest (not ported yet)
+    telemetry: Optional[Any] = None    # obs.telemetry.Telemetry (opt-in)
+    manifest: Optional[Dict] = None    # obs.metrics.run_manifest, set by run
 
     @property
     def energy_report(self) -> Optional[EnergyReport]:
@@ -97,7 +97,7 @@ class SweepResult:
     energy_j: np.ndarray
     peak_temp_c: np.ndarray
     busy_per_pe_us: np.ndarray         # shape + (padded num_pes,)
-    telemetry: Optional[np.ndarray] = None   # per-lane timelines (not ported yet)
+    telemetry: Optional[np.ndarray] = None   # per-lane Telemetry (object array)
 
     @property
     def shape(self) -> Tuple[int, ...]:

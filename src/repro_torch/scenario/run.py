@@ -8,7 +8,9 @@ network gives the peak temperature, and under either with the scenario's
 fail-stop faults rolled back inside the scan; ``backend="ref"`` materialises
 the scenario and calls the port's event-heap oracle.  Tables are cached on the
 (frozen, hashable) scenario minus its trace, and on the device, so repeated
-runs over different workloads reuse them.
+runs over different workloads reuse them.  Every ``Result`` carries a run
+manifest (``obs.metrics.run_manifest``) naming the device that ran it, and,
+when asked, per-window telemetry (``obs.telemetry``).
 
 Unlike the reference's ``run``, which defaults to ``"ref"``, this one runs on
 the card unless asked otherwise: ``device="cuda"`` raises where there is no
@@ -29,6 +31,8 @@ from ..core import simkernel_torch as _torchk
 from ..core.simkernel_torch import SimTables
 from ..core.thermal import cluster_nodes
 from ..dse import thermal_torch as _thermal_torch
+from ..obs import metrics as _metrics
+from ..obs import telemetry as _obs_tel
 from . import faults as _faults
 from .config import Scenario, ThermalSpec, TraceSpec
 from .errors import BackendCapabilityError, ScenarioError
@@ -88,6 +92,27 @@ def _peak_temp_single(out, nodes, p_act, p_idle, bins: int, repeats: int):
         repeats=repeats)[0, 0]
 
 
+# the scan outputs a telemetry replay reads
+_TEL_KEYS = ("scheduled", "start", "finish", "onpe", "onopp", "makespan_us")
+
+
+def replay_telemetry(scenario: Scenario, tables: SimTables, out,
+                     app_idx) -> "_obs_tel.Telemetry":
+    """The telemetry of one ``backend="torch"`` run of ``scenario``: its
+    governor's replay (``obs.telemetry``) over the run's scan outputs
+    ``out`` (one lane, on the tables' device) and its job trace's app
+    indices (J,)."""
+    lane = {k: out[k][None] for k in _TEL_KEYS if k in out}
+    pol = scenario.make_policy()
+    if pol.dynamic:
+        return _obs_tel.torch_dtpm_telemetry(tables, pol, lane,
+                                             app_idx[None])[0]
+    db, governor = scenario.soc(), scenario.make_governor()
+    cols = _obs_tel.static_freq_columns(db, governor, _obs_tel.domain_count(db))
+    return _obs_tel.torch_static_telemetry(tables, lane, app_idx[None], [cols],
+                                           _obs_tel.static_window(governor))[0]
+
+
 def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
         trace_override=None, telemetry: Optional[bool] = None) -> Result:
     """Simulate one scenario.
@@ -101,30 +126,52 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
     fail-stop program under met and etf, static or dynamic (a spec that can
     never fire takes the fault-free program); with the ``table`` scheduler
     they raise :class:`BackendCapabilityError`, as in the reference.
-    Telemetry raises :class:`BackendCapabilityError` (a later slice).
     ``backend="ref"``: the event-heap reference kernel on the host — all
-    governors and fail-stop injection; ``device`` is not read.
+    governors and fail-stop injection; ``device`` is not read.  Both return
+    the same :class:`Result` surface, carrying an ``obs.metrics`` run
+    manifest whose device fields name the device the run used (the host's
+    CPU for ``"ref"``).
 
     ``trace_override``: a pre-materialised ``JobTrace`` replacing the
     scenario's trace spec.
+
+    ``telemetry`` (default: ``scenario.telemetry``): also record per-window
+    (W, C) frequency/utilisation/power/temperature timelines on
+    ``Result.telemetry``.  Observation-only: with a dynamic governor the ref
+    kernel records its sampling windows in-loop and the torch backend
+    replays the scan's window step over K1's final schedule
+    (``obs.telemetry.torch_dtpm_telemetry``, on ``device``); static
+    governors replay the window observables at their fixed OPP.  K1 launches
+    as often as without telemetry and its outputs are the same bits
+    (asserted in tests/test_torch_obs.py).  Under a dynamic governor with
+    faults the torch backend raises :class:`BackendCapabilityError`, as the
+    reference's jax backend does: the rollback breaks the window closure the
+    replay rests on.
     """
     want_tel = scenario.telemetry if telemetry is None else bool(telemetry)
     if backend not in BACKENDS:
         raise ScenarioError(f"unknown backend {backend!r}; have {BACKENDS}")
-    if want_tel:
-        raise BackendCapabilityError(
-            "telemetry", backend, "repro.scenario.run",
-            detail="per-window timelines need repro_torch.obs, which is not "
-                   "ported yet (ROADMAP.md queue 1, item 9)")
 
     if backend == "ref":
         db = scenario.soc()
+        pol = scenario.make_policy()
+        governor = scenario.make_governor()
+        rec = None
+        if want_tel and pol.dynamic:
+            rec = _obs_tel.TelemetryRecorder(pol.sample_window_us)
         res = _refk.simulate(db, scenario.applications(),
                              trace_override or scenario.job_trace(),
-                             scenario.make_scheduler(),
-                             scenario.make_governor(),
-                             failures=_faults.ref_failures(scenario.failures))
-        return Result.from_ref(scenario, db, res)
+                             scenario.make_scheduler(), governor,
+                             failures=_faults.ref_failures(scenario.failures),
+                             telemetry=rec)
+        tel = None
+        if want_tel:
+            tel = (rec.build(_obs_tel.domain_count(db)) if rec is not None
+                   else _obs_tel.ref_static_telemetry(db, res, governor))
+        result = Result.from_ref(scenario, db, res, telemetry=tel)
+        result.manifest = _metrics.run_manifest(scenario, backend,
+                                                device="cpu")
+        return result
 
     # no-op fault specs (empty / all-inf) normalise to plan=None: the
     # fault-free program, as in the reference
@@ -135,10 +182,16 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
             "backend='ref'",
             detail="the offline ILP table pins tasks to PEs, so dead-PE "
                    "fallback needs the runtime schedulers (met/etf)")
+    pol = scenario.make_policy()
+    if pol.dynamic and plan is not None and want_tel:
+        raise BackendCapabilityError(
+            "telemetry with faults under a dynamic governor", "torch",
+            "backend='ref' (it records sampling windows in-loop)",
+            detail="fail-stop rollback breaks the window-closure invariant "
+                   "the post-hoc replay assumes")
     dev = resolve_device(device)
     tables = tables_for(scenario, device=dev)
     trace = trace_override or scenario.job_trace()
-    pol = scenario.make_policy()
     if pol.dynamic:
         out = _torchk.simulate_torch_dtpm(tables, scenario.scheduler,
                                           trace.arrival_us, trace.app_index,
@@ -152,5 +205,9 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
                                  tables.power_active, tables.power_idle,
                                  bins=scenario.thermal.bins,
                                  repeats=scenario.thermal.repeats)
-    return Result.from_torch(scenario, out, scenario.design.num_pes,
-                             float(peak))
+    tel = (replay_telemetry(scenario, tables, out, trace.app_index)
+           if want_tel else None)
+    result = Result.from_torch(scenario, out, scenario.design.num_pes,
+                               float(peak), telemetry=tel)
+    result.manifest = _metrics.run_manifest(scenario, backend, device=dev)
+    return result

@@ -24,6 +24,11 @@ bit for bit on the schedule.
 A chunk counts what the reference's does: N designs for static and fault
 sweeps, N of the wider of designs and policies for DTPM ones.
 
+Telemetry (``sweep(chunk=N, telemetry=True)``): each chunk's lanes are
+replayed on the device right after its launch, before its outputs go back
+(``telemetry``, the sweep's replay callable), so the timelines equal the
+unchunked sweep's bit for bit: a lane's replay reads only that lane.
+
 Lane sharding over several devices is not ported: the port runs on one
 card, where the reference's lane mesh is ``None`` too (``resolve_mesh``).
 
@@ -36,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.dvfs import PolicyLanes
@@ -125,23 +131,31 @@ def _stream(lane_tree, lanes: int, chunk: Optional[int],
             shard_pad_lanes.inc(width - (hi - lo))
             piece = pad_lane_axis(piece, hi - lo, width)
         sweep_chunks.inc()
-        outs.append({k: v.cpu() for k, v in launch(piece).items()})
+        outs.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in launch(piece).items()})
     return outs
 
 
 def _concat_out(chunks: List[Dict], lanes: int, axis: int = 0) -> Dict:
-    """Concatenate per-chunk output dicts on the streamed axis and drop the
-    pad lanes."""
-    return {k: torch.cat([c[k] for c in chunks], dim=axis).narrow(axis, 0,
-                                                                  lanes)
-            for k in chunks[0]}
+    """Concatenate per-chunk output dicts (tensors, or the telemetry's
+    object arrays) on the streamed axis and drop the pad lanes."""
+    out = {}
+    for k in chunks[0]:
+        parts = [c[k] for c in chunks]
+        if isinstance(parts[0], np.ndarray):
+            out[k] = np.concatenate(parts, axis=axis).take(range(lanes),
+                                                           axis=axis)
+        else:
+            out[k] = torch.cat(parts, dim=axis).narrow(axis, 0, lanes)
+    return out
 
 
 def run_static_grid(tables: SimTables, node_of_pe: torch.Tensor,
                     arrival: torch.Tensor, app_idx: torch.Tensor, *,
                     policy: str, bins: int, repeats: int,
                     chunk: Optional[int] = None,
-                    fplans: Optional[torch.Tensor] = None
+                    fplans: Optional[torch.Tensor] = None,
+                    telemetry: Optional[Callable] = None
                     ) -> Tuple[Dict, torch.Tensor]:
     """The chunked twin of ``sweep._sweep_grid``: (D, S) lanes with the
     design axis streamed, on the device of ``arrival``; returns host
@@ -149,14 +163,18 @@ def run_static_grid(tables: SimTables, node_of_pe: torch.Tensor,
 
     ``fplans`` (F, P) switches to the fail-stop grid: outputs gain a leading
     (F,) fault-lane axis and the design axis (still the streamed one) moves
-    to position 1 (DESIGN.md §14)."""
+    to position 1 (DESIGN.md §14).  ``telemetry`` (the sweep's replay,
+    ``(tables, out, gov, design_ids) -> object array``) adds the lanes'
+    timelines under ``"telemetry"``, shaped like the grid."""
     from .sweep import _sweep_grid, _sweep_grid_faults  # sweep imports us
     dev = arrival.device
     lanes = int(tables.exec_us.shape[0])
-    lane_tree = (host_tables(tables, dev), host_tensor(node_of_pe, dev))
+    # each chunk carries its designs' indices (a pad lane repeats lane 0's)
+    lane_tree = (host_tables(tables, dev), host_tensor(node_of_pe, dev),
+                 torch.arange(lanes))
 
     def launch(piece):
-        tb, nodes = _to_device(piece, dev)
+        tb, nodes, ids = _to_device(piece, dev)
         if fplans is not None:
             out, temps = _sweep_grid_faults(tb, nodes, fplans, arrival,
                                             app_idx, policy, bins=bins,
@@ -164,6 +182,8 @@ def run_static_grid(tables: SimTables, node_of_pe: torch.Tensor,
         else:
             out, temps = _sweep_grid(tb, nodes, arrival, app_idx, policy,
                                      bins=bins, repeats=repeats)
+        if telemetry is not None:
+            out["telemetry"] = telemetry(tb, out, None, ids)
         return {**out, "_peak_temp_scan_c": temps}
 
     out = _concat_out(_stream(lane_tree, lanes, chunk, launch), lanes,
@@ -174,13 +194,15 @@ def run_static_grid(tables: SimTables, node_of_pe: torch.Tensor,
 def run_dtpm_grid(tables: SimTables, gov: PolicyLanes, arrival: torch.Tensor,
                   app_idx: torch.Tensor, *, policy: str,
                   chunk: Optional[int] = None,
-                  fplans: Optional[torch.Tensor] = None) -> Dict:
+                  fplans: Optional[torch.Tensor] = None,
+                  telemetry: Optional[Callable] = None) -> Dict:
     """The chunked twin of ``sweep._sweep_grid_dtpm``: (D, G, S) lanes,
     streaming whichever of the design (D) and policy (G) axes is wider —
     the ``PolicyLanes`` rows are as much a lane stack as the ``SimTables``
     ones (DESIGN.md §10); the other axis goes whole into every chunk.
     ``fplans`` switches to the fail-stop grid: outputs gain a leading (F,)
-    axis and the streamed axis shifts one position right (DESIGN.md §14)."""
+    axis and the streamed axis shifts one position right (DESIGN.md §14).
+    ``telemetry`` as :func:`run_static_grid`'s."""
     from .sweep import _sweep_grid_dtpm, _sweep_grid_dtpm_faults
     dev = arrival.device
     D, G = int(tables.exec_us.shape[0]), gov.lanes
@@ -188,9 +210,13 @@ def run_dtpm_grid(tables: SimTables, gov: PolicyLanes, arrival: torch.Tensor,
 
     def grid(tb, g):
         if faulted:
-            return _sweep_grid_dtpm_faults(tb, g, fplans, arrival, app_idx,
-                                           policy)
-        return _sweep_grid_dtpm(tb, g, arrival, app_idx, policy)
+            out = _sweep_grid_dtpm_faults(tb, g, fplans, arrival, app_idx,
+                                          policy)
+        else:
+            out = _sweep_grid_dtpm(tb, g, arrival, app_idx, policy)
+        if telemetry is not None:
+            out["telemetry"] = telemetry(tb, out, g, None)
+        return out
 
     if D >= G:                               # stream designs, reuse policies
         out = _stream(host_tables(tables, dev), D, chunk,

@@ -35,7 +35,8 @@ grid scans sweeps have started, keyed by program (DTPM, FAULTS) as
 ``kernels.epoch_scan.variant_launches`` is — one per scheduler value and
 policy shape, on either device; lanes add none.  ``chunk=N`` streams the
 lanes through the same programs in fixed-width chunks (``shardexec``): one
-scan a chunk.
+scan a chunk.  ``telemetry=True`` replays each scan's lanes once, after it
+(``obs.telemetry``), chunk by chunk under ``chunk=``; it starts no scan.
 """
 from __future__ import annotations
 
@@ -50,9 +51,10 @@ from .. import resolve_device
 from ..core.dvfs import stack_policies
 from ..core.jobgen import JobTrace
 from ..dse.batch import (host_tensor, pad_node_map, simulate_grid,
-                         stack_tables, stack_traces)
+                         stack_tables, stack_traces, to_design_major)
 from ..dse.space import DesignPoint
 from ..dse.thermal_torch import peak_temperature_grid
+from ..obs import telemetry as _obs_tel
 from . import faults as _faults
 from . import shardexec
 from .config import Scenario, TraceSpec
@@ -217,8 +219,14 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     ``None`` / ``False`` / ``True`` all run the unsharded path
     (``shardexec.resolve_mesh``).
 
-    Not ported yet, and raising :class:`BackendCapabilityError`:
-    ``telemetry`` (per-window timelines, ROADMAP.md queue 1, item 9).
+    ``telemetry`` (default: ``scenario.telemetry``) fills
+    ``SweepResult.telemetry`` with one per-window
+    :class:`~repro_torch.obs.telemetry.Telemetry` per lane (an object array
+    shaped like the sweep), each equal to its point's ``run(...,
+    telemetry=True)`` bit for bit.  The torch backend replays each scan's
+    lanes in one batched replay over its outputs (per chunk under
+    ``chunk=``); the simulations are not re-run.  Under a dynamic governor
+    with faults it raises :class:`BackendCapabilityError`, as ``run`` does.
     """
     if not axes:
         raise ValueError("axes must name at least one swept dimension")
@@ -249,18 +257,13 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
                 f"a whole-'{whole}' value replaces the fields those axes set")
 
     want_tel = scenario.telemetry if telemetry is None else bool(telemetry)
-    if want_tel:
-        raise BackendCapabilityError(
-            "telemetry", backend, "repro.scenario.sweep",
-            detail="per-window timelines need repro_torch.obs, which is not "
-                   "ported yet (ROADMAP.md queue 1, item 9)")
     if backend == "ref":
         if chunk is not None or shard:
             raise BackendCapabilityError(
                 "torch-backend lane options (chunk/shard)", "ref",
                 "backend='torch'",
                 detail="the ref backend runs lane by lane already")
-        return _sweep_ref(scenario, names, values)
+        return _sweep_ref(scenario, names, values, want_tel)
     if backend != "torch":
         raise ScenarioError(f"unknown backend {backend!r}; have "
                             f"('ref', 'torch')")
@@ -295,6 +298,12 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     if not dynamic:
         design_axes = design_axes + policy_axes   # baked into table lanes
         policy_axes = []
+    if have_faults and dynamic and want_tel:
+        raise BackendCapabilityError(
+            "telemetry with faults under a dynamic governor", "torch",
+            "backend='ref' (it records sampling windows in-loop)",
+            detail="fail-stop rollback breaks the window-closure invariant "
+                   "the post-hoc replay assumes")
 
     static_combos = list(itertools.product(
         *(values[n] for n in static_axes))) or [()]
@@ -393,11 +402,15 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             tables, node_of_pe = _design_lanes(s_scn, design_axes,
                                                design_combos, pad_pes, dev,
                                                host=lane_exec)
+        replay = (_telemetry_replay(s_scn, design_axes, design_combos,
+                                    app_idx, dynamic, plans is not None)
+                  if want_tel else None)
         if dynamic:
             if lane_exec:
                 out = shardexec.run_dtpm_grid(
                     tables, gov_stack, arrival, app_idx,
-                    policy=s_scn.scheduler, chunk=chunk, fplans=plans)
+                    policy=s_scn.scheduler, chunk=chunk, fplans=plans,
+                    telemetry=replay)
             elif plans is not None:
                 out = _sweep_grid_dtpm_faults(tables, gov_stack, plans,
                                               arrival, app_idx,
@@ -410,7 +423,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             out, temps = shardexec.run_static_grid(
                 tables, node_of_pe, arrival, app_idx,
                 policy=s_scn.scheduler, bins=s_scn.thermal.bins,
-                repeats=s_scn.thermal.repeats, chunk=chunk, fplans=plans)
+                repeats=s_scn.thermal.repeats, chunk=chunk, fplans=plans,
+                telemetry=replay)
         elif plans is not None:
             out, temps = _sweep_grid_faults(
                 tables, node_of_pe, plans, arrival, app_idx,
@@ -420,16 +434,23 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             out, temps = _sweep_grid(tables, node_of_pe, arrival, app_idx,
                                      s_scn.scheduler, bins=s_scn.thermal.bins,
                                      repeats=s_scn.thermal.repeats)
+        tel = out.pop("telemetry", None)            # replayed chunk by chunk
+        if replay is not None and not lane_exec:
+            tel = replay(tables, out, gov_stack,
+                         torch.arange(len(design_combos)))
         if plans is not None and not fault_axes:
             # base-scenario faults, no fault axis: drop the F=1 lane axis so
             # the grid keeps its fault-free shape
             out = {k: v[0] for k, v in out.items()}
             temps = temps[0]
+            tel = None if tel is None else tel[0]
         entry = {name: out[key].double().cpu().numpy() for name, key in (
             ("avg_latency_us", "avg_job_latency_us"),
             ("makespan_us", "makespan_us"), ("energy_j", "energy_j"),
             ("busy_per_pe_us", "busy_per_pe_us"))}
         entry["peak_temp_c"] = temps.double().cpu().numpy()
+        if tel is not None:
+            entry["telemetry"] = tel
         if fault_axes and plans is None:
             # every fault lane is a no-op: the fault-free program ran once
             # and its results tile verbatim across the fault axis
@@ -465,11 +486,61 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
         throughput_jobs_per_ms=num_jobs / np.maximum(makespan, 1e-9) * 1e3,
         makespan_us=makespan, energy_j=_assemble("energy_j"),
         peak_temp_c=_assemble("peak_temp_c"),
-        busy_per_pe_us=_assemble("busy_per_pe_us"))
+        busy_per_pe_us=_assemble("busy_per_pe_us"),
+        telemetry=_assemble("telemetry") if want_tel else None)
+
+
+# the grid outputs a telemetry replay reads
+_TEL_KEYS = ("scheduled", "start", "finish", "onpe", "onopp", "makespan_us")
+
+
+def _telemetry_replay(s_scn: Scenario, design_axes: List[str],
+                      design_combos: List[Tuple], app_idx: torch.Tensor,
+                      dynamic: bool, faulted: bool):
+    """The telemetry of one grid scan's lanes, as a callable ``(tables, out,
+    gov, design_ids) -> object array`` shaped like the grid ((F,) D, (G,)
+    S).  It puts the grid outputs back in K1's design-major lane order and
+    replays every lane in one batched replay (``obs.telemetry``), so a
+    lane's timeline is the one its ``run`` replays; ``design_ids`` (static
+    only) are the indices of the tables' designs into ``design_combos``,
+    whose governors give each design's frequency columns and window (a
+    chunk of the streamed designs passes its own)."""
+    if not dynamic:
+        cols, windows = [], []
+        for combo in design_combos:
+            lane_scn = _apply_axes(s_scn, design_axes, combo)
+            db, gov = lane_scn.soc(), lane_scn.make_governor()
+            cols.append(_obs_tel.static_freq_columns(
+                db, gov, _obs_tel.domain_count(db)))
+            windows.append(_obs_tel.static_window(gov))
+
+    def replay(tables, out, gov, design_ids) -> np.ndarray:
+        lead = tuple(out["makespan_us"].shape)
+        F = lead[0] if faulted else 1
+        D, S = int(tables.exec_us.shape[0]), int(app_idx.shape[0])
+        G = gov.lanes if dynamic else 1
+        lanes = {k: to_design_major(v.reshape(F, D, G, S, *v.shape[len(lead):]))
+                 for k, v in out.items() if k in _TEL_KEYS}
+        apps = app_idx.repeat(D * F * G, 1)
+        if dynamic:
+            pick = torch.arange(D * F * G * S) // S % G
+            tels = _obs_tel.torch_dtpm_telemetry(tables, gov.take(pick),
+                                                 lanes, apps)
+        else:
+            ids = design_ids.tolist()
+            tels = _obs_tel.torch_static_telemetry(
+                tables, lanes, apps, [cols[i] for i in ids],
+                [windows[i] for i in ids])
+        grid = np.empty(len(tels), object)
+        grid[:] = tels
+        return np.moveaxis(grid.reshape(D, F, G, S), 0, 1).reshape(lead)
+
+    return replay
 
 
 def _sweep_ref(scenario: Scenario, names: List[str],
-               values: Dict[str, Tuple]) -> SweepResult:
+               values: Dict[str, Tuple],
+               want_tel: bool = False) -> SweepResult:
     """Cross-product sweep through the reference kernel, lane by lane."""
     shape = tuple(len(values[n]) for n in names)
     lanes = list(itertools.product(*(values[n] for n in names)))
@@ -477,7 +548,8 @@ def _sweep_ref(scenario: Scenario, names: List[str],
     for combo in lanes:
         scn = _apply_axes(scenario, names, combo)
         trace = _lane_trace(scn, names, combo)
-        results.append(run(scn, backend="ref", trace_override=trace))
+        results.append(run(scn, backend="ref", trace_override=trace,
+                           telemetry=want_tel))
     P = max(r.utilization.shape[0] for r in results)
     busy = np.zeros((len(lanes), P), np.float64)
     for i, r in enumerate(results):
@@ -487,10 +559,16 @@ def _sweep_ref(scenario: Scenario, names: List[str],
         return np.asarray([getattr(r, field) for r in results],
                           np.float64).reshape(shape)
 
+    tel = None
+    if want_tel:
+        tel = np.empty(len(lanes), object)
+        tel[:] = [r.telemetry for r in results]
+        tel = tel.reshape(shape)
     return SweepResult(
         base=scenario, backend="ref", axes=values,
         avg_latency_us=_arr("avg_latency_us"),
         throughput_jobs_per_ms=_arr("throughput_jobs_per_ms"),
         makespan_us=_arr("makespan_us"), energy_j=_arr("energy_j"),
         peak_temp_c=_arr("peak_temp_c"),
-        busy_per_pe_us=busy.reshape(*shape, P))
+        busy_per_pe_us=busy.reshape(*shape, P),
+        telemetry=tel)

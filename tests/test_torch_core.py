@@ -97,11 +97,22 @@ def test_ref_kernel_equals_the_reference_with_a_fault(policy):
 
 
 def test_ref_kernel_refuses_a_telemetry_recorder():
+    """The recorder is duck-typed, as in the reference: a static governor
+    never calls it; under ondemand the port's recorder takes every window
+    and the schedule is the same as without one."""
+    from repro_torch.obs.telemetry import TelemetryRecorder
     db = tsoc()
+    app = [tget_app("wifi_tx")]
     trace = tpoisson(10.0, 4, ["wifi_tx"], seed=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsimulate(db, [tget_app("wifi_tx")], trace, tget_sched("etf"),
-                  telemetry=object())
+    tsimulate(db, app, trace, tget_sched("etf"), telemetry=object())
+    gov = tdvfs.get_governor("ondemand")
+    rec = TelemetryRecorder(gov.sample_window_us)
+    got = tsimulate(db, app, trace, tget_sched("etf"), gov, telemetry=rec)
+    want = tsimulate(db, app, trace, tget_sched("etf"),
+                     tdvfs.get_governor("ondemand"))
+    assert [dataclasses.astuple(r) for r in got.records] \
+        == [dataclasses.astuple(r) for r in want.records]
+    assert rec.build(3).num_windows > 0
 
 
 def _table_cases():

@@ -281,7 +281,9 @@ def test_kernel_table_and_window_guards():
 
 def test_run_torch_still_refuses_faults_and_telemetry_under_dtpm():
     """Faults under DTPM run (tests/test_torch_faults.py holds them to the
-    reference); with the table scheduler, or with telemetry, they raise."""
+    reference); with the table scheduler, or with telemetry, they raise, as
+    the reference's jax backend does.  Telemetry without faults runs
+    (tests/test_torch_obs.py holds it)."""
     from repro_torch.scenario import BackendCapabilityError, FaultSpec
     scn = Scenario(governor="throttle",
                    trace=TraceSpec(rate_jobs_per_ms=25.0, num_jobs=12, seed=3))
@@ -289,10 +291,11 @@ def test_run_torch_still_refuses_faults_and_telemetry_under_dtpm():
     assert run(faulted, device="cpu").raw["steps"] > 0
     with pytest.raises(BackendCapabilityError, match="'table' scheduler"):
         run(faulted.replace(scheduler="table"), device="cpu")
-    with pytest.raises(BackendCapabilityError, match="item 9"):
+    with pytest.raises(BackendCapabilityError,
+                       match="telemetry with faults under a dynamic governor"):
         run(faulted.replace(telemetry=True), device="cpu")
-    with pytest.raises(BackendCapabilityError, match="item 9"):
-        run(scn.replace(telemetry=True), device="cpu")
+    assert run(scn.replace(telemetry=True), device="cpu").telemetry \
+        .num_windows > 0
 
 
 # ------------------------------------------------ thermal throttle

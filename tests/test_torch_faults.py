@@ -368,7 +368,8 @@ def test_run_refuses_table_with_faults_and_telemetry():
     tscn, _ = pair(SCN, ((0, 500.0),), scheduler="table")
     with pytest.raises(BackendCapabilityError, match="'table' scheduler"):
         run(tscn, device="cpu")
-    with pytest.raises(BackendCapabilityError, match="item 9"):
+    with pytest.raises(BackendCapabilityError,
+                       match="telemetry with faults under a dynamic governor"):
         run(tscn.replace(scheduler="etf", governor="ondemand",
                          telemetry=True), device="cpu")
 

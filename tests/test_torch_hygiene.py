@@ -43,8 +43,13 @@ for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b"):
     assert all(len(r.output) == 3 for r in reqs)
 from repro_torch.scenario import Scenario, run, shardexec
 for backend in ("torch", "ref"):
-    assert run(Scenario(), backend=backend, device="cpu").makespan_us > 0
-from repro_torch.obs import metrics
+    res = run(Scenario(governor="ondemand"), backend=backend, device="cpu",
+              telemetry=True)
+    assert res.makespan_us > 0 and res.telemetry.num_windows > 0
+    assert res.manifest["device_platform"] == "cpu"
+from repro_torch.obs import chrome_trace, metrics, report, validate_chrome_trace
+assert validate_chrome_trace(chrome_trace(Scenario().soc(), res.raw,
+                                          telemetry=res.telemetry)) == []
 from repro_torch.dse import DesignSpace, evaluate, reports, search
 from repro_torch.core import reports as core_reports
 pts = DesignSpace().sample_lhs(3, seed=0)

@@ -8,8 +8,7 @@ chunk and pad counters counted as the reference counts them; against the
 JAX package the tolerances of tests/test_torch_sweep.py (makespan exact,
 sums 1e-6 relative, peak temperature 1e-5).
 
-Two reference tests have no twin here: ``test_chunked_telemetry_replay_
-bitexact`` waits for telemetry (ROADMAP.md queue 1, item 9), and
+One reference test has no twin here:
 ``test_sharded_sweep_bitexact_8_virtual_devices`` has none on one card
 (lane sharding is not ported; ``resolve_mesh`` resolves every ``shard`` to
 the one device).
@@ -178,6 +177,43 @@ def test_chunked_fault_sweeps_bitexact_static_and_dtpm():
         (("up_threshold", u),) for u in (0.6, 0.7, 0.9)], "seed": [0]}
     _assert_bitexact(sweep(scn, axes=axes, device="cpu"),
                      _chunked(scn, axes, 2, chunks=2, pads=1))
+
+
+def test_chunked_telemetry_replay_bitexact():
+    """Each chunk's lanes are replayed after its launch: the timelines equal
+    the unchunked sweep's bit for bit, static (designs streamed, a pad
+    design), DTPM streaming policies (a pad policy) and designs, and static
+    fault lanes."""
+    def tel_equal(a, b):
+        _assert_bitexact(a, b)
+        assert a.telemetry.shape == b.telemetry.shape == a.shape
+        assert all(x.equals(y) for x, y in zip(a.telemetry.flat,
+                                               b.telemetry.flat))
+
+    axes = {"design": POINTS[:3], "seed": [0]}
+    tel_equal(sweep(SCN, axes=axes, device="cpu", telemetry=True),
+              _chunked_tel(SCN, axes, 2, chunks=2, pads=1))
+    scn = SCN.replace(governor="ondemand")
+    axes = {"governor_params": [(("up_threshold", 0.6),),
+                                (("up_threshold", 0.8),),
+                                (("up_threshold", 0.9),)], "seed": [0]}
+    tel_equal(sweep(scn, axes=axes, device="cpu", telemetry=True),
+              _chunked_tel(scn, axes, 2, chunks=2, pads=1))
+    axes = {"design": POINTS[:3], "governor_params": axes["governor_params"][:2],
+            "seed": [0, 1]}
+    tel_equal(sweep(scn, axes=axes, device="cpu", telemetry=True),
+              _chunked_tel(scn, axes, 2, chunks=2, pads=1))
+    axes = {"faults": [(), (FaultSpec(0, 300.0),)], "design": POINTS[:2],
+            "seed": [0]}
+    tel_equal(sweep(SCN, axes=axes, device="cpu", telemetry=True),
+              _chunked_tel(SCN, axes, 1, chunks=2, pads=0))
+
+
+def _chunked_tel(scn, axes, chunk, chunks, pads):
+    c0, p0 = _counts()
+    out = sweep(scn, axes=axes, device="cpu", chunk=chunk, telemetry=True)
+    assert _counts() == (c0 + chunks, p0 + pads)
+    return out
 
 
 def test_fault_sweep_composes_with_chunk_and_design_axis():

@@ -399,8 +399,10 @@ def test_typed_errors_and_what_is_not_ported():
     with pytest.raises(BackendCapabilityError, match="table"):
         sweep(tscn, axes={"faults": fs, "scheduler": ["etf", "table"]},
               device="cpu")
-    with pytest.raises(BackendCapabilityError, match="item 9"):
-        sweep(tscn, axes={"rate": [5.0]}, device="cpu", telemetry=True)
+    with pytest.raises(BackendCapabilityError,
+                       match="telemetry with faults under a dynamic governor"):
+        sweep(tscn.replace(governor="ondemand"), axes={"faults": fs},
+              device="cpu", telemetry=True)
     # the chunked executor (item 8) is ported: chunk / shard run, and equal
     # the plain sweep (tests/test_torch_shardexec.py holds them in full)
     plain = sweep(tscn, axes={"rate": [5.0, 20.0]}, device="cpu")
