@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--verbose] [--profile]
 
 Drives the port's main paths — ``ServeEngine`` -> prefill -> decode for
-gemma2-2b, recurrentgemma-2b and mamba2-130m, and the DS3 scenario path
+gemma2-2b (with the model-dtype and the int8 KV cache), recurrentgemma-2b and
+mamba2-130m, ``Model.prefill`` -> ``decode_step`` for paligemma-3b (a vision
+prefix) and seamless-m4t-large-v2 (encoder-decoder), and the DS3 scenario path
 ``Scenario`` -> ``run`` / ``simulate_batch`` / ``sweep`` -> the epoch scan —
 through the entry points a user would call, and holds every CUDA kernel of
 those paths against its plain PyTorch version.  Needs one CUDA device;
@@ -33,7 +35,13 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            library call (``scaled_dot_product_attention``, softcap off, a
            window as a boolean band mask; used nowhere in the port) timed
            beside each as a yardstick.  K4 and K5 have none: no single
-           PyTorch call computes either function;
+           PyTorch call computes either function.  Then K2 and K3 at phase
+           10's shapes, timed the same way: paligemma-3b (8 heads on 1 KV
+           head, head_dim 256: K2 at S = 320, B = 1 and 4; K3 on a 336-slot
+           cache) and seamless-m4t-large-v2's decoder (16 on 16, head_dim 64,
+           a group of one: K2 at S = 64 and 32; K3 on 48 slots); no softcap,
+           so the library call computes the same function there and is held
+           against the plain version too;
 4. reduced the reduced gemma2-2b, mamba2-130m and recurrentgemma-2b in f32,
            with the embedding scaled by 0.1 so the greedy token is not the
            input echoed (asserted: under half of the positions): engine output
@@ -115,9 +123,10 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            rate (wifi_tx), 9 ondemand and 9 throttle parameterisations x the
            3 designs, 4 fault sets x the 3 designs x {20, 60 jobs/ms} x {etf,
            met}, static and ondemand — every lane equal to ``run(backend=
-           "torch")`` of its point (makespan bit for bit, latency,
-           throughput, energy and busy time within 1e-6 relative, peak
-           1e-5) and to the same sweep on ``backend="ref"`` within 1e-4 /
+           "torch")`` of its point (makespan, latency, energy and per-PE
+           busy time bit for bit, throughput and utilization within 1e-6
+           relative, peak 1e-5) and to the same sweep on ``backend="ref"``
+           within 1e-4 /
            1e-3, and K1's lanes equal to the plain scan on the same stacked
            tables bit for bit (every output); (b) every valid design of
            ``DesignSpace().grid()`` (1,080, padded to 19 PEs) x 4 seeds of
@@ -148,7 +157,7 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            0) twice: the two archives identical, each round's designs,
            archive, front and wall time; (c) grid (b) at ``chunk=135`` (8
            chunks, no pad) and ``chunk=256`` (5 chunks, 200 pad designs):
-           the schedule bit for bit with the unchunked sweep, energy and
+           the schedule and energy bit for bit with the unchunked sweep,
            peak as in (a), the chunk and pad counters exact, device memory
            held (``max_memory_allocated``, reset first) below the
            unchunked sweep's at 135; (d) grid (c) (64 designs x 16
@@ -178,9 +187,9 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            x 2 seeds and on 64 designs x 2 seeds static: one K1 launch each,
            the outputs as without telemetry; ``chunk=5`` (4 and 13 launches)
            the same bits with telemetry as without, its telemetry equal to
-           the unchunked sweep's bit for bit, makespans bit for bit and the
-           epilogue's sums bit for bit or within 1e-6 (the line says which:
-           a reduction's order on the card follows the lanes of a launch);
+           the unchunked sweep's bit for bit, makespans and the epilogue's
+           sums (latency, busy time, energy) bit for bit, peak temperature
+           bit for bit or within 1e-5 (the line says which);
            four lanes of each equal to their ``run(telemetry=True)`` bit for
            bit; the replay's time, window steps and lane-windows; (c) the
            comm-free ondemand trace: the card's replay against the event-heap
@@ -188,7 +197,32 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            -m repro_torch.obs.report --trace`` in-process (a host tool: the
            event-heap kernel), its trace validated.  K1's launches are
            counted per call (6 + 32 static in (a)-(b), 12 + 14 + 1 under
-           DTPM in (a)-(c), 2 with faults).
+           DTPM in (a)-(c), 2 with faults);
+10. encdec the two families the engine does not serve, through ``Model``
+           as ``tests/test_arch_smoke.py`` drives them, and the attention
+           options of this slice: (a) reduced paligemma-3b and
+           seamless-m4t-large-v2 in f32, embedding scaled by 0.1 (echo
+           share under half): prefill of 34 tokens (after 8 patch
+           embeddings; 24 frames) and 6 decode steps, the kernel path
+           against the einsum path at every step and against
+           ``forward_logits`` (1e-3), K2/K3 launches exact; (b) both at full
+           width in bf16, batch 4 (paligemma-3b: 256 patch embeddings + 64
+           tokens; seamless-m4t-large-v2: 1,024 frames + 32 tokens), prefill
+           and 16 greedy decode steps: parameters, init time, prefill ms,
+           median tick ms, tok/s, peak memory; K2 once a decoder layer at
+           prefill and K3 once a decoder layer a tick (18 + 18, 24 + 24; the
+           encoder's non-causal attention launches none); logits finite,
+           the einsum path teacher-forced on the same tokens within bf16's
+           2e-2 absolute plus relative at every step, and the kernel path's
+           prefill logits no farther from an f32 einsum prefill than twice
+           the einsum path's; (c) the int8 codes, scales and dequantised
+           values of a K/V tensor on the card equal the CPU's bit for bit,
+           then gemma2-2b with ``kv_cache_dtype="int8"`` through the engine
+           as in phase 5 (launches as phase 5's), tok/s and peak memory
+           beside phase 5's; (d) reduced gemma2-2b f32 with ``attn_impl``
+           "blocked" and "blocked_unroll" over 1,100 positions (3 query
+           chunks at global layers, 2 at windowed ones) against "einsum",
+           forward and prefill + 4 decode steps at 1e-4, K2/K3 not launched.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -632,6 +666,98 @@ def phase_decode(gen):
     return entry
 
 
+# the K2/K3 shapes of phase 10's two models: paligemma-3b (8 heads on one KV
+# head, head_dim 256) and seamless-m4t-large-v2's decoder (16 heads on 16,
+# head_dim 64: a group of one); no softcap, so scaled_dot_product_attention
+# computes the same function.  K2 at B=1 and at phase 10's batch of 4 (a
+# prefill of 256 patches + 64 tokens; 32 tokens), K3 at phase 10's caches
+# (256 + 64 + 16 = 336 slots, 32 + 16 = 48) with four slots at different
+# positions
+ENCDEC_FLASH = {"paligemma-3b": [(1, 320, 8, 1, 256), (4, 320, 8, 1, 256)],
+                "seamless-m4t-large-v2": [(1, 64, 16, 16, 64), (4, 32, 16, 16, 64)]}
+ENCDEC_DECODE = {"paligemma-3b": (4, 336, 8, 1, 256, [327, 320, 335, 330]),
+                 "seamless-m4t-large-v2": (4, 48, 16, 16, 64, [40, 32, 47, 35])}
+
+
+def phase_encdec_kernels(gen):
+    """K2 and K3 against their plain versions at phase 10's shapes (bf16 and
+    f32), and ``scaled_dot_product_attention`` against the plain version too
+    (it computes the same function here); in bf16 the kernel, its eager
+    call, the plain version, the bound and the library call timed.  Returns
+    {kernel: {"<arch> ...": entry}}."""
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for arch, shapes in ENCDEC_FLASH.items():
+        for b, S, h, kv, dh in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                q = randn(gen, (b, S, h, dh), dtype)
+                k = randn(gen, (b, S, kv, dh), dtype)
+                v = randn(gen, (b, S, kv, dh), dtype)
+                kw = dict(causal=True, window=None, softcap=None, scale=dh ** -0.5)
+                want = k2.flash_attention_plain(q, k, v, **kw)
+                name = f"{arch} prefill B={b} S={S} H={h} KV={kv} Dh={dh}"
+                what = f"flash_attention {name} {str(dtype).split('.')[-1]}"
+                err = compare(k2.flash_attention(q, k, v, **kw), want,
+                              TOL[dtype], what)
+                lib_err = compare(sdpa_causal(q, k, v, dh ** -0.5), want,
+                                  TOL[dtype], f"{what} (library call)")
+                line = (f"[kernels] {what}: max_abs_err {err:.3e} (library call "
+                        f"{lib_err:.3e})")
+                if dtype == torch.bfloat16:
+                    ms = device_ms([lambda: k2.flash_attention(q, k, v, **kw)])
+                    eager = eager_ms(lambda: k2.flash_attention(q, k, v, **kw))
+                    plain = device_ms(
+                        [lambda: k2.flash_attention_plain(q, k, v, **kw)], rounds=2)
+                    bound, by = flash_bound_ms(b, h, kv, S, dh, None, dtype)
+                    lib = device_ms([lambda: sdpa_causal(q, k, v, dh ** -0.5)])
+                    out["flash_attention"][name] = {
+                        "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
+                        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib}
+                    line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
+                             f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                             f"library {lib:.4f} ms")
+                log(line)
+    for arch, (b, L, h, kv, dh, pos) in ENCDEC_DECODE.items():
+        valid = full_valid(L, pos)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(gen, (b, 1, h, dh), dtype)
+            k = randn(gen, (b, L, kv, dh), dtype)
+            v = randn(gen, (b, L, kv, dh), dtype)
+            kw = dict(softcap=None, scale=dh ** -0.5)
+            want = k3.decode_attention_plain(q, k, v, valid, **kw)
+            name = (f"{arch} decode B={b} L={L} H={h} KV={kv} Dh={dh} "
+                    f"valid={int(valid.sum())}")
+            what = f"decode_attention {name} {str(dtype).split('.')[-1]}"
+            err = compare(k3.decode_attention(q, k, v, valid, **kw), want,
+                          TOL[dtype], what)
+            lib_err = compare(sdpa_decode(q, k, v, valid, dh ** -0.5), want,
+                              TOL[dtype], f"{what} (library call)")
+            line = (f"[kernels] {what}: max_abs_err {err:.3e} (library call "
+                    f"{lib_err:.3e})")
+            if dtype == torch.bfloat16:
+                # cold caches, as phase_decode times them
+                sets = [(k, v)] + [(k.clone(), v.clone()) for _ in range(5)]
+
+                def calls(fn):
+                    return [lambda kk=kk, vv=vv: fn(q, kk, vv, valid, **kw)
+                            for kk, vv in sets]
+                ms = device_ms(calls(k3.decode_attention))
+                eager = eager_ms(lambda: k3.decode_attention(q, k, v, valid, **kw))
+                plain = device_ms(calls(k3.decode_attention_plain), rounds=1)
+                bound, by = decode_bound_ms(b, h, kv, L, dh, valid, dtype)
+                lib = device_ms(calls(lambda q, kk, vv, valid, **kw:
+                                      sdpa_decode(q, kk, vv, valid, dh ** -0.5)))
+                out["decode_attention"][name] = {
+                    "max_abs_err": err, "ms": ms, "eager_call_ms": eager,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "library_ms": lib}
+                line += (f", kernel {ms:.4f} ms (eager call {eager:.4f} ms), "
+                         f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+                         f"library {lib:.4f} ms")
+            log(line)
+    return out
+
+
 def ssd_bound_ms(B, S, H, P, N, c, dtype):
     """(ms, 'bytes'|'operations') for one ssd_scan call.  Bytes: x, B, C read
     once in their type, dt and cs in f32, y written in x's type, the final
@@ -997,7 +1123,7 @@ def expected_launches(cfg, requests: int, ticks: int):
     prefill kernel of each layer, one per tick for decode attention."""
     pat, reps, tail = stack_layout(cfg)
     kinds = list(pat) * reps + list(tail)
-    attn_layers = sum(k in ("global", "local") for k in kinds)
+    attn_layers = sum(k in ("global", "local", "xdec") for k in kinds)
     return {"flash_attention": attn_layers * requests,
             "decode_attention": attn_layers * ticks,
             "ssd_scan": kinds.count("mamba2") * requests,
@@ -1067,9 +1193,14 @@ def profile_serve(model, params, cfg, prompt_lens, smi: str):
         "launches; no merge kernel")
 
 
+# tok/s and peak GiB of each phase-5 serve, by (arch, kv_cache_dtype)
+SERVED = {}
+
+
 @torch.no_grad()
-def phase_full(arch: str, smi: str, with_profile: bool = False):
-    cfg = get_config(arch)
+def phase_full(arch: str, smi: str, with_profile: bool = False,
+               kv_cache_dtype: str = "model"):
+    cfg = get_config(arch).replace(kv_cache_dtype=kv_cache_dtype)
     assert cfg.dtype == "bfloat16" and cfg.attn_impl == "cuda"
     prompt_lens = PROMPT_LENS[arch]
     torch.cuda.empty_cache()
@@ -1122,7 +1253,9 @@ def phase_full(arch: str, smi: str, with_profile: bool = False):
     toks_out = sum(len(r.output) for r in reqs)
     lats = [r.latency_s for r in reqs]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[full] {arch}: {len(reqs)} requests (prompts {prompt_lens}), "
+    SERVED[arch, kv_cache_dtype] = (toks_out / wall, peak)
+    kv = "" if kv_cache_dtype == "model" else f" ({kv_cache_dtype} KV cache)"
+    log(f"[full] {arch}{kv}: {len(reqs)} requests (prompts {prompt_lens}), "
         f"{toks_out} new tokens in {wall:.3f} s = {toks_out / wall:.2f} tok/s, "
         f"{eng.ticks} decode ticks, latency p50 {np.percentile(lats, 50):.3f} s "
         f"p95 {np.percentile(lats, 95):.3f} s, peak memory {peak:.2f} GiB, "
@@ -2064,10 +2197,10 @@ def sweep_scans() -> int:
 
 def assert_sweep_is_runs(sr, base, axes: dict, what: str):
     """Every lane of a sweep against run(backend="torch") of its point
-    (makespan bit for bit, latency, throughput, energy and per-PE busy time
-    within 1e-6 relative, peak within 1e-5) and against the same sweep on
-    backend="ref" (phase 6's 1e-4 on latency and makespan, 1e-3 on
-    energy)."""
+    (makespan and the epilogue's sums, latency, energy and per-PE busy
+    time, bit for bit; throughput and utilization within 1e-6 relative, peak
+    within 1e-5) and against the same sweep on backend="ref" (phase 6's 1e-4
+    on latency and makespan, 1e-3 on energy)."""
     names = list(axes)
     for idx in np.ndindex(*sr.shape):
         scn = sweep_mod._apply_axes(base, names, [axes[n][i] for n, i in zip(names, idx)])
@@ -2076,11 +2209,16 @@ def assert_sweep_is_runs(sr, base, axes: dict, what: str):
             raise AssertionError(f"{what} {idx}: makespan {sr.makespan_us[idx]} "
                                  f"vs run {res.makespan_us}")
         P = res.utilization.shape[0]
+        for name, got, want in (
+                ("avg_latency_us", sr.avg_latency_us[idx], res.avg_latency_us),
+                ("energy_j", sr.energy_j[idx], res.energy_j),
+                ("busy_per_pe_us", sr.busy_per_pe_us[idx][:P],
+                 res.raw["busy_per_pe_us"].cpu().numpy()[:P])):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{what} {idx}: {name} {got} vs run {want}")
         for name, got, want, tol in (
-                ("avg_latency_us", sr.avg_latency_us[idx], res.avg_latency_us, 1e-6),
                 ("throughput", sr.throughput_jobs_per_ms[idx],
                  res.throughput_jobs_per_ms, 1e-6),
-                ("energy_j", sr.energy_j[idx], res.energy_j, 1e-6),
                 ("peak_temp_c", sr.peak_temp_c[idx], res.peak_temp_c, 1e-5)):
             if abs(got - want) > tol * abs(want):
                 raise AssertionError(f"{what} {idx}: {name} {got} vs run {want}")
@@ -2230,7 +2368,8 @@ def phase_sweep(smi: str) -> dict:
         f"etf/met/table x rate; 9 ondemand and 9 throttle parameterisations x "
         f"3 designs of 8, 13, 19 PEs padded to 19; 4 fault sets x 3 designs x 2 "
         f"rates x etf/met, static and ondemand): every lane = run(backend='torch') "
-        f"(makespan bit for bit, sums 1e-6, peak 1e-5) and = backend='ref' within "
+        f"(makespan, latency, energy and busy time bit for bit, throughput 1e-6, "
+        f"peak 1e-5) and = backend='ref' within "
         f"1e-4 / 1e-3; K1 = the plain scan bit for bit on the stacked tables "
         f"({plain_lanes} lanes); launches {dict(launches)}")
 
@@ -2523,14 +2662,13 @@ def sums_note(pairs, what: str) -> str:
 
 
 def assert_chunked_equal(got, want, what: str) -> str:
-    """A chunked sweep against the unchunked one: the schedule outputs bit
-    for bit, energy and peak temperature as ``sums_note`` says."""
-    for name in SWEEP_SCHEDULE:
+    """A chunked sweep against the unchunked one: the schedule outputs and
+    energy bit for bit, peak temperature as ``sums_note`` says."""
+    for name in SWEEP_SCHEDULE + ("energy_j",):
         if not np.array_equal(getattr(got, name), getattr(want, name)):
             raise AssertionError(f"{what}: {name} differs from the unchunked sweep")
-    return "schedule bit for bit, " + sums_note(
-        [(name, getattr(got, name), getattr(want, name), tol)
-         for name, tol in (("energy_j", 1e-6), ("peak_temp_c", 1e-5))], what)
+    return "schedule and energy bit for bit, " + sums_note(
+        [("peak_temp_c", got.peak_temp_c, want.peak_temp_c, 1e-5)], what)
 
 
 @torch.no_grad()
@@ -2861,14 +2999,16 @@ def phase_obs(smi: str) -> dict:
                                      f"{field}")
         for a, b in zip(sr.telemetry.flat, chunked.telemetry.flat):
             assert_telemetry_equal(b, a, f"obs (b) {name} chunk={OBS_CHUNK}")
-        # the chunked sweep's outputs against the unchunked one's: a max is
-        # bit for bit; the epilogue's sums say which (see sums_note)
-        for field in ("makespan_us", "throughput_jobs_per_ms"):
+        # the chunked sweep's outputs against the unchunked one's: a max and
+        # the epilogue's sums (a fixed order a lane) bit for bit; peak
+        # temperature as sums_note says
+        for field in ("makespan_us", "throughput_jobs_per_ms", "avg_latency_us",
+                      "busy_per_pe_us", "energy_j"):
             if not np.array_equal(getattr(chunked, field), getattr(sr, field)):
                 raise AssertionError(f"obs (b) {name} chunk: {field} differs")
-        sums = sums_note([(f, getattr(chunked, f), getattr(sr, f), tol) for f, tol in (
-            ("avg_latency_us", 1e-6), ("busy_per_pe_us", 1e-6), ("energy_j", 1e-6),
-            ("peak_temp_c", 1e-5))], f"obs (b) {name} chunk")
+        sums = "latency, busy time and energy bit for bit, " + sums_note(
+            [("peak_temp_c", chunked.peak_temp_c, sr.peak_temp_c, 1e-5)],
+            f"obs (b) {name} chunk")
         checked = [np.unravel_index(i, shape)
                    for i in np.linspace(0, lanes - 1, OBS_CHECKED).astype(int)]
         names = list(axes)
@@ -2938,6 +3078,299 @@ def phase_obs(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 10
+
+# (a) the reduced models in f32: 40 tokens (seamless: 24 frames), prefill of
+# 34, then 6 decode steps
+ENCDEC_REDUCED = (40, 34, 24)
+# (b) full width, bf16, a batch of 4: paligemma-3b 256 patch embeddings + a
+# 64-token prompt, seamless-m4t-large-v2 1,024 frames + a 32-token prompt;
+# 16 decode steps
+ENCDEC_BATCH, ENCDEC_STEPS, ENCDEC_FRAMES = 4, 16, 1024
+ENCDEC_PROMPT = {"paligemma-3b": 64, "seamless-m4t-large-v2": 32}
+# the bf16 tolerance of phase 4 (absolute plus relative) on the logits of
+# the kernel path against the einsum path
+ENCDEC_TOL = 2e-2
+# (d) 1,100 positions: 3 query chunks of 512 at the global layers, 2 of
+# 1,024 at the windowed ones
+BLOCKED_S = 1100
+
+
+def encdec_batch(cfg, gen, batch: int, n_tokens: int, n_frames: int, rng):
+    """Tokens, and the front end's precomputed embeddings (f32, on the card)."""
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, n_tokens))).to(DEV)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = randn(gen, (batch, cfg.num_prefix_tokens,
+                                          cfg.d_model), torch.float32)
+    elif cfg.frontend == "audio":
+        out["frames"] = randn(gen, (batch, n_frames, cfg.d_model), torch.float32)
+    return out
+
+
+def prefix_of(cfg) -> int:
+    """Positions a vision prefix takes before the text (decode offsets)."""
+    return cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+
+
+def greedy_serve(model, params, batch, max_len: int, steps: int, off: int):
+    """``Model.prefill`` then ``steps`` greedy ``decode_step`` calls, a
+    synchronise after each: tokens (B, 1 + steps), the logits rows they came
+    from (B, 1 + steps, V), prefill seconds and the seconds of each tick."""
+    P = batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_len)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    toks, rows, ticks = [tok], [logits[:, -1]], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok, off + P + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+        toks.append(tok)
+        rows.append(logits[:, -1])
+    return torch.cat(toks, 1), torch.stack(rows, 1), pre_s, ticks
+
+
+def teacher_forced_rows(model, params, batch, toks, max_len: int, off: int):
+    """The logits rows of prefill and of decode steps fed ``toks``."""
+    P = batch["tokens"].shape[1]
+    logits, cache = model.prefill(params, batch, max_len)
+    rows = [logits[:, -1]]
+    for i in range(toks.shape[1] - 1):
+        logits, cache = model.decode_step(params, cache, toks[:, i:i + 1],
+                                          off + P + i)
+        rows.append(logits[:, -1])
+    return torch.stack(rows, 1)
+
+
+@torch.no_grad()
+def phase_encdec_reduced(arch: str):
+    """(a) The reduced model in f32 on the card, embedding scaled by 0.1:
+    prefill + decode on the kernel path against the einsum path at every
+    step and against ``forward_logits`` (phase 4's 1e-3), K2 and K3 launched
+    once a causal layer a call, the echo share under half."""
+    S, n_pre, n_frames = ENCDEC_REDUCED
+    cfg = reduced(get_config(arch))
+    assert cfg.attn_impl == "cuda" and cfg.dtype == "float32"
+    model = build_model(cfg, device=DEV)
+    ein = build_model(cfg.replace(attn_impl="einsum"), device=DEV)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
+    params["embed"]["tok"].mul_(0.1)
+    batch = encdec_batch(cfg, torch.Generator(device=DEV).manual_seed(1), 2, S,
+                         n_frames, np.random.default_rng(0))
+    off, V, B = prefix_of(cfg), cfg.vocab_size, 2
+    tokens = batch["tokens"]
+    pre = dict(batch, tokens=tokens[:, :n_pre])
+    steps = {}
+    for name, m in (("cuda", model), ("einsum", ein)):
+        before = (k2.launches, k3.launches)
+        full = m.forward_logits(params, batch)[..., :V]
+        logits, cache = m.prefill(params, pre, off + S + 8)
+        rows = [logits[:, 0]]
+        for i in range(n_pre, S):
+            logits, cache = m.decode_step(params, cache, tokens[:, i:i + 1],
+                                          torch.full((B,), i + off, device=DEV))
+            rows.append(logits[:, 0])
+        steps[name] = (full, torch.stack(rows, 1)[..., :V])
+        got = (k2.launches - before[0], k3.launches - before[1])
+        n = expected_launches(cfg, 2, S - n_pre)
+        want = (n["flash_attention"], n["decode_attention"]) \
+            if name == "cuda" else (0, 0)
+        if got != want:
+            raise AssertionError(f"reduced {arch} {name}: K2/K3 launches {got}, "
+                                 f"expected {want}")
+    (full, rows), (full_e, rows_e) = steps["cuda"], steps["einsum"]
+    e_fwd = compare(full, full_e, 1e-3, f"reduced {arch} forward cuda vs einsum")
+    e_step = compare(rows, rows_e, 1e-3, f"reduced {arch} prefill+decode cuda "
+                                         "vs einsum at every step")
+    e_tf = compare(rows, full[:, n_pre - 1:], 1e-3,
+                   f"reduced {arch} prefill+decode vs forward_logits")
+    share = float((full.argmax(-1) == tokens).float().mean())
+    if not share < 0.5:
+        raise AssertionError(f"reduced {arch}: greedy token echoes the input at "
+                             f"{share:.0%} of positions")
+    log(f"[encdec] (a) reduced {arch} f32: prefill {n_pre} + {S - n_pre} decode "
+        f"steps (positions offset by {off}); logits cuda vs einsum: forward "
+        f"{e_fwd:.3e}, every step {e_step:.3e}; prefill+decode vs forward_logits "
+        f"{e_tf:.3e}; echo share {share:.3f}")
+
+
+@torch.no_grad()
+def phase_encdec_full(arch: str, smi: str):
+    """(b) Full width, bf16, kernel path, a batch of 4 through ``Model.prefill``
+    and ``decode_step``: launches exact (K2 once a decoder layer at prefill, K3
+    once a decoder layer a tick, none from the encoder), tokens valid, logits
+    finite; then the einsum path teacher-forced on the same tokens and an f32
+    einsum prefill.  Returns the launches and the logits' distances."""
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16" and cfg.attn_impl == "cuda"
+    B, P, off = ENCDEC_BATCH, ENCDEC_PROMPT[arch], prefix_of(cfg)
+    max_len = off + P + ENCDEC_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = encdec_batch(cfg, torch.Generator(device=DEV).manual_seed(1), B, P,
+                         ENCDEC_FRAMES, np.random.default_rng(0))
+    greedy_serve(model, params, batch, max_len, 2, off)    # warm-up
+
+    for mod in KERNELS.values():
+        mod.launches = 0
+    toks, rows, pre_s, ticks = greedy_serve(model, params, batch, max_len,
+                                            ENCDEC_STEPS, off)
+    launches = {name: mod.launches for name, mod in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = expected_launches(cfg, 1, ENCDEC_STEPS)
+    if launches != n:
+        raise AssertionError(f"{arch}: kernel launches {launches}, expected {n}")
+    V = cfg.vocab_size
+    if toks.shape != (B, 1 + ENCDEC_STEPS) or \
+            not bool(((toks >= 0) & (toks < V)).all()) or \
+            not bool(torch.isfinite(rows[..., :V]).all()):
+        raise AssertionError(f"full-width {arch}: tokens out of range or logits "
+                             "not finite")
+    wall = pre_s + sum(ticks)
+    log(f"[encdec] (b) {arch}: {model.param_count() / 1e9:.3f} G parameters, "
+        f"bf16, init {init_s:.1f} s; batch {B}, "
+        + (f"{cfg.num_prefix_tokens} patch embeddings + " if off else
+           f"{ENCDEC_FRAMES} frames + ")
+        + f"{P}-token prompt: prefill {1e3 * pre_s:.2f} ms, {ENCDEC_STEPS} ticks "
+        f"median {1e3 * statistics.median(ticks):.3f} ms, {toks.numel()} tokens "
+        f"in {wall:.3f} s = {toks.numel() / wall:.2f} tok/s, peak memory "
+        f"{peak:.2f} GiB, launches {launches}  [{smi}]")
+
+    # the einsum path on the same tokens, and an f32 einsum prefill
+    ein = build_model(cfg.replace(attn_impl="einsum"), device=DEV)
+    rows_e = teacher_forced_rows(ein, params, batch, toks, max_len, off)
+    a, b = rows[..., :V].float(), rows_e[..., :V].float()
+    err = float((a - b).abs().max())
+    excess = float(((a - b).abs() - ENCDEC_TOL * b.abs()).max())
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    del params, model, ein
+    torch.cuda.empty_cache()
+    ref = build_model(cfg.replace(attn_impl="einsum", dtype="float32"), device=DEV)
+    r32 = ref.prefill(p32, batch, max_len)[0][:, -1, :V]
+    e_kern = float((a[:, 0] - r32).abs().max())
+    e_ein = float((b[:, 0] - r32).abs().max())
+    del p32, ref
+    torch.cuda.empty_cache()
+    log(f"[encdec] (b) {arch}: logits cuda vs einsum over every step max_abs_err "
+        f"{err:.3e} (|d| - {ENCDEC_TOL:g}|einsum| at most {excess:.3e}); prefill "
+        f"logits vs an f32 einsum prefill: cuda {e_kern:.3e}, einsum {e_ein:.3e} "
+        f"(logits up to {float(r32.abs().max()):.2f})")
+    return launches, {"arch": arch, "excess": excess, "e_kern": e_kern,
+                      "e_ein": e_ein}
+
+
+@torch.no_grad()
+def phase_int8_bits(gen):
+    """(c) The int8 codes and scales the card computes for K/V equal the
+    CPU's bit for bit: gemma2-2b's K/V shape in bf16, with rows whose codes
+    fall on exact .5 ties and an all-zero row."""
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    x = randn(gen, (4, 2048, 4, 256), torch.bfloat16) * 3
+    tie = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5] * 32,
+                       device=DEV)
+    x[0, 0, 0], x[0, 0, 1], x[0, 0, 2] = tie, tie * 2, 0.0
+    q, sc = quantize_kv(x)
+    qc, scc = quantize_kv(x.cpu())
+    if not (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu().view(torch.int16),
+                                                     scc.view(torch.int16))):
+        raise AssertionError("int8 K/V: the card's codes or scales differ from "
+                             "the CPU's")
+    d = dequantize_kv(q, sc, torch.bfloat16)
+    if not torch.equal(d.cpu().view(torch.int16),
+                       dequantize_kv(qc, scc, torch.bfloat16).view(torch.int16)):
+        raise AssertionError("int8 K/V: the card's dequantised values differ")
+    log(f"[encdec] (c) int8 K/V of {tuple(x.shape)} bf16 (ties and a zero row "
+        "included): codes, scales and dequantised values = the CPU's bit for bit")
+
+
+@torch.no_grad()
+def phase_blocked():
+    """(d) Reduced gemma2-2b (f32, window 32) with ``attn_impl`` "blocked" and
+    "blocked_unroll" on the card against "einsum": ``forward_logits`` over
+    1,100 positions, and prefill + 4 decode steps (decode is the einsum path
+    under both names), 1e-4; K2 and K3 never launched."""
+    cfg = reduced(get_config("gemma2-2b")).replace(window_size=32)
+    params = build_model(cfg, device=DEV).init_params(
+        torch.Generator(device=DEV).manual_seed(0))
+    params["embed"]["tok"].mul_(0.1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, BLOCKED_S))).to(DEV)
+    n_pre, V = BLOCKED_S - 4, cfg.vocab_size
+
+    def logits_of(impl):
+        m = build_model(cfg.replace(attn_impl=impl), device=DEV)
+        full = m.forward_logits(params, {"tokens": tokens})[..., :V]
+        logits, cache = m.prefill(params, {"tokens": tokens[:, :n_pre]},
+                                  BLOCKED_S + 4)
+        rows = [logits[:, 0]]
+        for i in range(n_pre, BLOCKED_S):
+            logits, cache = m.decode_step(params, cache, tokens[:, i:i + 1], i)
+            rows.append(logits[:, 0])
+        return full, torch.stack(rows, 1)[..., :V]
+
+    full_e, rows_e = logits_of("einsum")
+    errs = []
+    for impl in ("blocked", "blocked_unroll"):
+        before = (k2.launches, k3.launches)
+        full, rows = logits_of(impl)
+        if (k2.launches, k3.launches) != before:
+            raise AssertionError(f"blocked {impl}: K2/K3 launched")
+        errs.append(compare(full, full_e, 1e-4, f"reduced gemma2-2b {impl} "
+                            "forward vs einsum"))
+        errs.append(compare(rows, rows_e, 1e-4, f"reduced gemma2-2b {impl} "
+                            "prefill+decode vs einsum"))
+    log(f"[encdec] (d) reduced gemma2-2b f32 attn_impl blocked / blocked_unroll, "
+        f"{BLOCKED_S} positions: forward and prefill + 4 decode steps vs einsum "
+        f"max_abs_err {max(errs):.3e}; K2/K3 not launched")
+
+
+def phase_encdec(smi: str, gen) -> dict:
+    """Phase 10: (a) the reduced models, (b) full width, (c) gemma2-2b serving
+    with the int8 KV cache beside phase 5's, (d) the blocked forms.  Returns
+    the main paths' launches ((b) and (c))."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for arch in ENCDEC_PROMPT:
+        phase_encdec_reduced(arch)
+    launches = {name: 0 for name in KERNELS}
+    dists = []
+    for arch in ENCDEC_PROMPT:
+        got, dist = phase_encdec_full(arch, smi)
+        dists.append(dist)
+        for name, n in got.items():
+            launches[name] += n
+    for d in dists:
+        if not d["excess"] <= ENCDEC_TOL:
+            raise AssertionError(f"full-width {d['arch']}: logits cuda vs einsum "
+                                 f"beyond {ENCDEC_TOL:g} absolute plus relative")
+        if not d["e_kern"] <= 2 * d["e_ein"] + 1e-3:
+            raise AssertionError(f"full-width {d['arch']}: kernel path "
+                                 f"{d['e_kern']:.3e} from f32, einsum path "
+                                 f"{d['e_ein']:.3e}")
+    phase_int8_bits(gen)
+    for name, n in phase_full("gemma2-2b", smi, kv_cache_dtype="int8").items():
+        launches[name] += n
+    (tps, peak), (tps8, peak8) = (SERVED["gemma2-2b", "model"],
+                                  SERVED["gemma2-2b", "int8"])
+    log(f"[encdec] (c) gemma2-2b int8 KV cache: {tps8:.2f} tok/s, peak memory "
+        f"{peak8:.2f} GiB, beside the model-dtype cache's {tps:.2f} tok/s, "
+        f"{peak:.2f} GiB (phase 5)  [{smi}]")
+    phase_blocked()
+    log(f"[encdec] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -2960,6 +3393,8 @@ def main():
                 "decode_attention": phase_decode(gen),
                 "ssd_scan": phase_ssd(gen, args.profile),
                 "rg_lru": phase_rglru(gen)}
+    for name, entries in phase_encdec_kernels(gen).items():
+        measured[name]["at_phase_10_shapes"] = entries
     torch.cuda.empty_cache()
     for arch in PROMPT_LENS:
         phase_reduced(arch)
@@ -2980,6 +3415,8 @@ def main():
     for name, n in phase_dse(smi).items():
         launches[name] += n
     for name, n in phase_obs(smi).items():
+        launches[name] += n
+    for name, n in phase_encdec(smi, gen).items():
         launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]

@@ -363,15 +363,27 @@ def window_sums(ov, p_cell, onpe, scales, backs, cpu_dom, P: int):
     return busy_pe, e_act, busy_dom
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a fixed pairwise tree: the axis is padded
+    with zeros to a power of two and halved, each step one elementwise add.
+    A row's bits thus depend on that row only, never on the rows beside it
+    in a call or on how a device splits a reduction; padding an axis further
+    with zeros changes no bit."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def node_power(p_pe: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(L, P) PE power -> (L, 3) node power by a fixed tree over the mask's
     slots (times 1 or 0: exact), as the kernel's warp shuffles."""
     x = torch.nn.functional.pad(p_pe, (0, mask.shape[-1] - p_pe.shape[-1]))
-    x = x[:, None, :] * mask
-    while x.shape[2] > 1:
-        half = x.shape[2] // 2
-        x = x[:, :, :half] + x[:, :, half:]
-    return x[:, :, 0]
+    return tree_sum(x[:, None, :] * mask)
 
 
 def rc_step(A, B, temps, node_p, c_node, amb_drive) -> torch.Tensor:

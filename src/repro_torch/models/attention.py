@@ -1,23 +1,30 @@
-"""Attention: MHA/GQA/MQA with RoPE, causal/sliding-window masks, softcap and
-KV caches (full, or a ring buffer for local layers).
+"""Attention: MHA/GQA/MQA with RoPE, causal/sliding-window masks, softcap,
+KV caches (full, or a ring buffer for local layers; in the model dtype or
+int8 with per-(token, head) scales) and cross-attention.
 
 The twin of ``src/repro/models/attention.py``.  Projections are stored
 flattened — wq: (D, H·Dh), wk/wv: (D, KV·Dh), wo: (H·Dh, D) — and heads are
 reshaped locally, as in the reference.
 
-Two execution paths, chosen by ``cfg.attn_impl``:
+Execution paths, chosen by ``cfg.attn_impl``:
   * ``cuda``   — the hand-written kernels of ``repro_torch.kernels`` (the twin
-    of the reference's ``pallas``); on a CPU tensor their plain versions;
+    of the reference's ``pallas``) for causal self-attention and decode; on
+    a CPU tensor their plain versions;
   * ``einsum`` — the plain reference path (logits in the input dtype, softmax
-    in f32, probabilities cast back before ``@ v``).
+    in f32, probabilities cast back before ``@ v``);
+  * ``blocked`` / ``blocked_unroll`` — :func:`_attend_blocked`, query chunks
+    against the key range they need.  The reference's context-parallel
+    ``shard_map`` form of global layers falls back to this on one device
+    (chunks of 512; windowed layers 1024), so on one card the two names are
+    the same function.  Decode runs the einsum path under both, as in the
+    reference.
 
-Not ported yet (they raise ``NotImplementedError``; ROADMAP.md queue 1): the
-``blocked`` / ``blocked_unroll`` context-parallel forms, the int8 KV cache and
-cross-attention.
+Non-causal attention (the encoder) and cross-attention run the einsum path
+under every name: the reference calls its kernels for causal attention only.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,20 +33,21 @@ from ..configs.base import ModelConfig
 from .layers import apply_rope, dtype_of, rope_tables
 from .params import ParamStore
 
-ATTN_IMPLS = ("cuda", "einsum")
+ATTN_IMPLS = ("cuda", "einsum", "blocked", "blocked_unroll")
+# query rows a chunk of _attend_blocked: global layers (the one-device
+# fallback of the reference's _attend_cp), windowed layers
+BLOCKED_CHUNK = {"global": 512, "window": 1024}
 
 
 def _check_cfg(cfg: ModelConfig):
     if cfg.attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported (have {ATTN_IMPLS}); "
-            "the blocked/context-parallel forms are ROADMAP.md queue 1, "
-            "'models/attention.py: what the first slice left out'")
-    if cfg.kv_cache_dtype != "model":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported; the int8 "
-            "KV cache is ROADMAP.md queue 1, 'models/attention.py: what the "
-            "first slice left out'")
+            f"attn_impl={cfg.attn_impl!r} is not one of the port's {ATTN_IMPLS}"
+            " (the reference's 'pallas' kernels are 'cuda' here)")
+
+
+def _kv_int8(cfg: ModelConfig) -> bool:
+    return cfg.kv_cache_dtype == "int8"
 
 
 def init_attention(ps: ParamStore, path: str, cfg: ModelConfig,
@@ -83,6 +91,46 @@ def _attend_einsum(q, k, v, mask, softcap, scale):
     return out.reshape(B, Sq, H, Dh)
 
 
+def _attend_blocked(q, k, v, *, causal: bool, window: Optional[int],
+                    softcap: Optional[float], scale: float,
+                    chunk: int = 1024, scores_f32: bool = True):
+    """Blocked attention in plain torch: query chunks of ``chunk`` rows, each
+    against the key range it can see (causal: up to its last row; a window:
+    from ``k_lo``, rounded down to a multiple of 128), masked with -1e30
+    and softmaxed whole (no online softmax).  Scores in f32, or in the input
+    dtype when ``scores_f32`` is False.  q: (B,Sq,H,Dh); k,v: (B,Sk,KV,Dh).
+    """
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, Dh)
+    chunk = min(chunk, Sq)
+    outs = []
+    for i0 in range(0, Sq, chunk):
+        i1 = min(i0 + chunk, Sq)
+        k_hi = min(i1, Sk) if causal else Sk
+        k_lo = 0
+        if window is not None:
+            k_lo = max(0, ((i0 - window + 1) // 128) * 128)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, i0:i1],
+                         k[:, k_lo:k_hi]) * scale
+        s = s.to(torch.float32 if scores_f32 else q.dtype)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        rows = i0 + torch.arange(i1 - i0, device=q.device)[:, None]
+        cols = k_lo + torch.arange(k_hi - k_lo, device=q.device)[None, :]
+        m = torch.ones((i1 - i0, k_hi - k_lo), dtype=torch.bool,
+                       device=q.device)
+        if causal:
+            m &= cols <= rows
+        if window is not None:
+            m &= cols > rows - window
+        s = torch.where(m, s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v[:, k_lo:k_hi]))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(B, Sq, H, Dh)
+
+
 def make_causal_mask(sq: int, sk: int, q_offset, window: Optional[int],
                      device=None):
     """(1,1,Sq,Sk) bool; window=None => full causal, else sliding window."""
@@ -111,6 +159,11 @@ def self_attention(p, cfg: ModelConfig, x: torch.Tensor,
         from ..kernels import ops as kops
         out = kops.flash_attention(q, k, v, causal=True, window=window,
                                    softcap=cfg.attn_softcap, scale=scale)
+    elif cfg.attn_impl in ("blocked", "blocked_unroll"):
+        chunk = BLOCKED_CHUNK["global" if window is None else "window"]
+        out = _attend_blocked(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap, scale=scale,
+                              chunk=chunk, scores_f32=cfg.attn_scores_f32)
     else:
         mask = make_causal_mask(S, S, 0, window, x.device) if causal else None
         out = _attend_einsum(q, k, v, mask, cfg.attn_softcap, scale)
@@ -120,24 +173,62 @@ def self_attention(p, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
-def cross_attention(p, cfg: ModelConfig, x, enc_kv):
-    raise NotImplementedError(
-        "cross_attention (encoder-decoder models) is not ported; ROADMAP.md "
-        "queue 1, 'models/attention.py: what the first slice left out'")
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder->encoder attention; enc_kv are precomputed (B,Se,KV,Dh).  No
+    mask and no softcap, whatever ``cfg.attn_softcap`` says (the
+    reference's)."""
+    H, Dh = cfg.num_heads, cfg.head_dim
+    q = _proj(x, p["wq"], H, Dh)
+    k, v = enc_kv
+    out = _attend_einsum(q, k.to(x.dtype), v.to(x.dtype), None, None,
+                         Dh ** -0.5)
+    return _unproj(out, p["wo"], x.dtype)
+
+
+def encode_cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    return _proj(enc_out, p["wk"], KV, Dh), _proj(enc_out, p["wv"], KV, Dh)
 
 
 # ---------------------------------------------------------------- KV cache
 
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8.  x: (..., Dh) -> (q, scale(...,1)).
+    The scale is computed and applied in f32; only the stored scale is bf16.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  127 is a
+    tensor on x's device: a CUDA tensor divided by a Python number is
+    multiplied by its rounded reciprocal instead, which moves codes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / amax.new_tensor(127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return q.to(dtype) * scale.to(dtype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window: Optional[int], device="cuda") -> Dict:
-    """One layer's KV cache.  Local layers get a ring buffer of window size."""
+    """One layer's KV cache.  Local layers get a ring buffer of window size.
+    ``kv_cache_dtype='int8'`` stores quantised K/V and per-(token, head) bf16
+    scales."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     L = min(max_len, window) if window is not None else max_len
     shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
-    dt = dtype_of(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if _kv_int8(cfg):
+        sshape = shape[:-1] + (1,)
+        spec = {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_scale": (sshape, torch.bfloat16),
+                "v_scale": (sshape, torch.bfloat16)}
+    else:
+        spec = {"k": (shape, dtype_of(cfg)), "v": (shape, dtype_of(cfg))}
+    return {name: torch.zeros(shp, dtype=dt, device=dev)
+            for name, (shp, dt) in spec.items()}
 
 
 def build_cache_from_prefill(cfg: ModelConfig, k: torch.Tensor,
@@ -168,6 +259,11 @@ def build_cache_from_prefill(cfg: ModelConfig, k: torch.Tensor,
         cv = v.new_zeros((B, L) + v.shape[2:])
         ck[:, slots] = k[:, S - n:]
         cv[:, slots] = v[:, S - n:]
+    if _kv_int8(cfg):
+        # the whole arranged cache, padding rows included (scale 1e-6/127)
+        kq, ks = quantize_kv(ck)
+        vq, vs = quantize_kv(cv)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     return {"k": ck, "v": cv}
 
 
@@ -218,7 +314,9 @@ def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
 
     The reference rewrites the whole cache through a ``where`` (a workaround
     for its SPMD partitioner); here the one new row of each slot is written
-    IN PLACE into ``cache`` and the same tensors are returned.
+    IN PLACE into ``cache`` and the same tensors are returned.  An int8 cache
+    takes the quantised row and its scale, and the whole cache is
+    dequantised to the model dtype before attention, as in the reference.
     """
     _check_cfg(cfg)
     B, _, D = x.shape
@@ -233,19 +331,26 @@ def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     q, k = qk[:, :, :H], qk[:, :, H:]
     v = _proj(x, p["wv"], KV, Dh)
 
-    ck, cv = cache["k"], cache["v"]
-    slot, valid = plan.slot_valid(window, ck.shape[1])
-    ck[plan.rows, slot] = k[:, 0].to(ck.dtype)
-    cv[plan.rows, slot] = v[:, 0].to(cv.dtype)
+    slot, valid = plan.slot_valid(window, cache["k"].shape[1])
+    if _kv_int8(cfg):
+        for name, new in (("k", k), ("v", v)):
+            q8, scale = quantize_kv(new[:, 0])
+            cache[name][plan.rows, slot] = q8
+            cache[f"{name}_scale"][plan.rows, slot] = scale
+        ck = dequantize_kv(cache["k"], cache["k_scale"], dt)
+        cv = dequantize_kv(cache["v"], cache["v_scale"], dt)
+    else:
+        cache["k"][plan.rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][plan.rows, slot] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"].to(dt), cache["v"].to(dt)
 
     if cfg.attn_impl == "cuda":
         from ..kernels import ops as kops
-        out = kops.decode_attention(q, ck.to(dt), cv.to(dt), valid,
+        out = kops.decode_attention(q, ck, cv, valid,
                                     softcap=cfg.attn_softcap,
                                     scale=Dh ** -0.5)
     else:
         mask = valid[:, None, None, :]                            # (B,1,1,L)
-        out = _attend_einsum(q, ck.to(dt), cv.to(dt), mask,
-                             cfg.attn_softcap, Dh ** -0.5)
+        out = _attend_einsum(q, ck, cv, mask, cfg.attn_softcap, Dh ** -0.5)
     y = _unproj(out, p["wo"], dt)
-    return y, {"k": ck, "v": cv}
+    return y, cache

@@ -6,13 +6,22 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-The twin of ``src/repro/models/model.py`` for decoder-only language models:
-``global`` / ``local`` attention blocks with a dense MLP, Griffin ``rglru``
-blocks (recurrentgemma) and Mamba2 ``mamba2`` blocks.  Batches are dicts:
-``{"tokens": (B,S) int}``.  Vision/audio front ends and encoder-decoder
-models raise ``NotImplementedError`` (ROADMAP.md queue 1).  Everything runs
-eagerly and without autograd state: call under ``torch.no_grad()`` when
-serving.
+The twin of ``src/repro/models/model.py``: decoder-only language models
+(``global`` / ``local`` attention blocks with a dense MLP, Griffin ``rglru``
+blocks, Mamba2 ``mamba2`` blocks), a vision prefix (paligemma) and an
+encoder-decoder with an audio front end (seamless).  Batches are dicts:
+
+    lm families:  {"tokens": (B,S) int, "labels": (B,S) int}
+    vision:       + {"patch_embeds": (B, num_prefix_tokens, D)}
+    audio:        {"frames": (B, S_enc, D), "tokens", "labels"}
+
+The front ends are stubs, as in the reference: precomputed embeddings are
+projected by ``frontend/proj``.  A vision prefix takes the first
+``num_prefix_tokens`` positions, so decode positions are offset by it and
+``max_len`` covers prefix, prompt and new tokens; an encoder-decoder's
+``init_cache`` takes ``enc_len``.  Mixture-of-experts models raise
+``NotImplementedError`` (ROADMAP.md queue 1).  Everything runs eagerly and
+without autograd state: call under ``torch.no_grad()`` when serving.
 """
 from __future__ import annotations
 
@@ -30,10 +39,6 @@ from .params import ParamStore, tree_leaves
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.frontend is not None or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: vision/audio front ends and encoder-decoder "
-                "models are not ported yet (ROADMAP.md queue 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -41,6 +46,11 @@ class Model:
     def _init(self, ps: ParamStore):
         cfg = self.cfg
         init_embeddings(ps, cfg)
+        if cfg.frontend in ("vision", "audio"):
+            ps.param("frontend/proj", (cfg.d_model, cfg.d_model), "fan_in")
+        if cfg.is_encoder_decoder:
+            tf.init_stack(ps, "encoder", cfg, encoder=True)
+            init_rmsnorm(ps, "enc_norm", cfg.d_model, None)
         tf.init_stack(ps, "decoder", cfg)
         init_rmsnorm(ps, "final_norm", cfg.d_model, None)
 
@@ -64,15 +74,44 @@ class Model:
     def param_count(self) -> int:
         return sum(leaf.numel() for leaf in tree_leaves(self.abstract_params()))
 
-    # ------------------------------------------------------------- train
+    # ------------------------------------------------------------- helpers
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         return torch.arange(x.shape[1], device=x.device)[None, :]
 
-    def forward_logits(self, params, batch) -> torch.Tensor:
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        """Token embeddings; a vision model's projected patch embeddings
+        (cast to the model dtype) are prepended."""
         cfg = self.cfg
         x = embed_tokens(params, cfg, batch["tokens"])
-        x = tf.apply_stack(params["decoder"], cfg, x, self._positions(x))
+        if cfg.frontend == "vision":
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe @ params["frontend"]["proj"].to(x.dtype), x],
+                          dim=1)
+        return x
+
+    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+        """The encoder's output over ``batch["frames"]`` (None for a
+        decoder-only model): frames cast to the model dtype, projected, the
+        encoder stack at positions 0..S_enc-1, then ``enc_norm``."""
+        cfg = self.cfg
+        if not cfg.is_encoder_decoder:
+            return None
+        dt = dtype_of(cfg)
+        enc_in = batch["frames"].to(dt) @ params["frontend"]["proj"].to(dt)
+        h = tf.apply_stack(params["encoder"], cfg, enc_in,
+                           self._positions(enc_in), encoder=True)
+        return apply_rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+    # ------------------------------------------------------------- train
+    def forward_logits(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        enc_out = self._encode(params, batch)
+        x = self._embed_inputs(params, batch)
+        x = tf.apply_stack(params["decoder"], cfg, x, self._positions(x),
+                           enc_out=enc_out)
         x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.frontend == "vision":          # logits over text positions only
+            x = x[:, cfg.num_prefix_tokens:, :]
         return lm_logits(params, cfg, x)
 
     def loss_fn(self, params, batch) -> torch.Tensor:
@@ -80,23 +119,28 @@ class Model:
         return cross_entropy(logits, batch["labels"])
 
     # ------------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_len: int, device=None):
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   enc_len: int = 0):
+        """An empty decode cache; ``enc_len``: the encoder positions an
+        encoder-decoder model's cross K/V hold."""
         dev = self.device if device is None else resolve_device(device)
-        return tf.init_stack_cache(self.cfg, batch, max_len, dev)
+        return tf.init_stack_cache(self.cfg, batch, max_len, dev, enc_len)
 
     def prefill(self, params, batch, max_len: int):
         """Returns (last-position logits, cache ready for decode)."""
         cfg = self.cfg
-        x = embed_tokens(params, cfg, batch["tokens"])
+        enc_out = self._encode(params, batch)
+        x = self._embed_inputs(params, batch)
         x, cache = tf.prefill_stack(params["decoder"], cfg, x,
-                                    self._positions(x), max_len)
+                                    self._positions(x), max_len,
+                                    enc_out=enc_out)
         x = apply_rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         return lm_logits(params, cfg, x), cache
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos):
         """tokens: (B,1) int; pos: position of the new token, an int or a
-        per-slot (B,) tensor.  ``cache`` (K/V rows and recurrent states) is
-        updated in place and returned."""
+        per-slot (B,) tensor (a vision model's counts its prefix).  ``cache``
+        (K/V rows and recurrent states) is updated in place and returned."""
         cfg = self.cfg
         x = embed_tokens(params, cfg, tokens)
         x, cache = tf.decode_stack(params["decoder"], cfg, x, cache, pos)

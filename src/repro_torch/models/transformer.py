@@ -8,12 +8,15 @@ runs the stack under ``lax.scan``, this runs a Python loop over that axis and
 hands each repeat a VIEW of the stacked leaves (no copy).  The non-divisible
 remainder runs as a tail.
 
-Ported block types: ``global`` and ``local`` with a dense MLP, ``rglru``
-(Griffin recurrence + MLP) and ``mamba2`` (SSD, no MLP).  ``enc``, ``xdec``
-and MoE raise ``NotImplementedError`` (ROADMAP.md queue 1 names the slice each
-belongs to).  Decode updates every cache IN PLACE: each block gets a view of
-its repeat of the stacked cache and writes its new K/V row or its new
-recurrent state into it.
+Block types: ``global`` and ``local`` with a dense MLP, ``rglru`` (Griffin
+recurrence + MLP), ``mamba2`` (SSD, no MLP), ``enc`` (non-causal
+self-attention + MLP: the encoder of an encoder-decoder model) and ``xdec``
+(causal self-attention, then cross-attention over the encoder's output, then
+MLP).  MoE blocks raise ``NotImplementedError`` (ROADMAP.md queue 1).  Decode
+updates every cache IN PLACE: each block gets a view of its repeat of the
+stacked cache and writes its new K/V row or its new recurrent state into it;
+an ``xdec`` block's cross K/V (``ck`` / ``cv``, made at prefill) are read
+only.
 """
 from __future__ import annotations
 
@@ -21,24 +24,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import griffin, ssm
-from .layers import apply_mlp, apply_rmsnorm, init_mlp, init_rmsnorm
+from .layers import apply_mlp, apply_rmsnorm, dtype_of, init_mlp, init_rmsnorm
 from .params import ParamStore, tree_map
 
-_LATER = {
-    "enc": "cross_attention / encoder-decoder stacks",
-    "xdec": "cross_attention / encoder-decoder stacks",
-}
+BLOCK_TYPES = ("global", "local", "rglru", "mamba2", "enc", "xdec")
 
 
 def _check_block(cfg: ModelConfig, btype: str):
-    if btype in _LATER:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported yet: it comes with "
-            f"{_LATER[btype]} (ROADMAP.md queue 1)")
-    if btype not in ("global", "local", "rglru", "mamba2"):
+    if btype not in BLOCK_TYPES:
         raise ValueError(f"unknown block type {btype!r}")
     if cfg.num_experts > 0:
         raise NotImplementedError(
@@ -82,6 +79,9 @@ def init_block(ps: ParamStore, path: str, cfg: ModelConfig, btype: str,
         griffin.init_griffin(ps, f"{path}/rec", cfg, stacked)
     else:
         attn.init_attention(ps, f"{path}/attn", cfg, stacked)
+        if btype == "xdec":
+            init_rmsnorm(ps, f"{path}/normx", D, stacked)
+            attn.init_attention(ps, f"{path}/xattn", cfg, stacked)
     init_rmsnorm(ps, f"{path}/norm2", D, stacked)
     init_mlp(ps, f"{path}/mlp", cfg, cfg.d_ff, stacked)
 
@@ -102,9 +102,17 @@ def _ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + apply_mlp(p["mlp"], cfg, h)
 
 
+def _cross(p, cfg: ModelConfig, x: torch.Tensor, kv) -> torch.Tensor:
+    """An ``xdec`` block's cross-attention sublayer over encoder K/V ``kv``."""
+    h = apply_rmsnorm(p["normx"], x, cfg.norm_eps)
+    return x + attn.cross_attention(p["xattn"], cfg, h, kv)
+
+
 def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
-                positions: torch.Tensor):
-    """Training forward for one block."""
+                positions: torch.Tensor,
+                enc_out: Optional[torch.Tensor] = None):
+    """Training forward for one block (``enc_out``: the encoder's output,
+    for ``xdec`` blocks)."""
     _check_block(cfg, btype)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if btype == "mamba2":
@@ -113,27 +121,44 @@ def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
         x = x + griffin.apply_griffin(p["rec"], cfg, h)
     else:
         x = x + attn.self_attention(p["attn"], cfg, h, positions,
-                                    _window(cfg, btype), causal=True)
+                                    _window(cfg, btype),
+                                    causal=btype != "enc")
+        if btype == "xdec":
+            x = _cross(p, cfg, x, attn.encode_cross_kv(p["xattn"], cfg,
+                                                       enc_out))
     return _ffn(p, cfg, x)
 
 
 # ---------------------------------------------------------------- cache
 
 def init_block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
-                     device="cuda") -> Dict:
+                     device="cuda", enc_len: int = 0) -> Dict:
+    """One block's decode cache; an ``xdec`` block's adds the cross K/V of
+    ``enc_len`` encoder positions (model dtype, never int8)."""
     _check_block(cfg, btype)
+    if btype == "enc":
+        raise ValueError("an encoder block keeps no decode cache")
     if btype == "rglru":
         return {"rec": griffin.init_griffin_cache(cfg, batch, device)}
     if btype == "mamba2":
         return {"ssm": ssm.init_mamba_cache(cfg, batch, device)}
-    return {"kv": attn.init_cache(cfg, batch, max_len, _window(cfg, btype),
-                                  device)}
+    c = {"kv": attn.init_cache(cfg, batch, max_len, _window(cfg, btype),
+                               device)}
+    if btype == "xdec":
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        c["ck"], c["cv"] = (torch.zeros(shape, dtype=dtype_of(cfg),
+                                        device=resolve_device(device))
+                            for _ in range(2))
+    return c
 
 
 def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
-                  positions: torch.Tensor, max_len: int):
+                  positions: torch.Tensor, max_len: int,
+                  enc_out: Optional[torch.Tensor] = None):
     """Forward + cache construction (serving prefill)."""
     _check_block(cfg, btype)
+    if btype == "enc":
+        raise ValueError("an encoder block keeps no decode cache")
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if btype == "mamba2":
         y, mcache = ssm.apply_mamba(p["mamba"], cfg, h, return_cache=True)
@@ -147,7 +172,12 @@ def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
                                         causal=True, return_kv=True)
         cache = {"kv": attn.build_cache_from_prefill(cfg, k, v, max_len,
                                                      window)}
-    return _ffn(p, cfg, x + y), cache
+    x = x + y
+    if btype == "xdec":
+        cache["ck"], cache["cv"] = attn.encode_cross_kv(p["xattn"], cfg,
+                                                        enc_out)
+        x = _cross(p, cfg, x, (cache["ck"], cache["cv"]))
+    return _ffn(p, cfg, x), cache
 
 
 def decode_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor, cache: Dict,
@@ -163,7 +193,10 @@ def decode_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor, cache: Dict,
     else:
         y, _ = attn.decode_self_attention(p["attn"], cfg, h, cache["kv"], pos,
                                           _window(cfg, btype), plan)
-    return _ffn(p, cfg, x + y), cache
+    x = x + y
+    if btype == "xdec":
+        x = _cross(p, cfg, x, (cache["ck"], cache["cv"]))
+    return _ffn(p, cfg, x), cache
 
 
 # ---------------------------------------------------------------- stacks
@@ -174,33 +207,38 @@ def _repeat(tree, r: int):
 
 
 def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, encoder: bool = False):
-    """Training forward through the whole stack."""
+                positions: torch.Tensor, encoder: bool = False,
+                enc_out: Optional[torch.Tensor] = None):
+    """Training forward through the whole stack (the encoder's with
+    ``encoder=True``)."""
     pat, reps, tail = stack_layout(cfg, encoder)
     for r in range(reps):
         psl = _repeat(params["stack"], r)
         for i, bt in enumerate(pat):
-            x = apply_block(psl[f"p{i}"], cfg, bt, x, positions)
+            x = apply_block(psl[f"p{i}"], cfg, bt, x, positions, enc_out)
     for j, bt in enumerate(tail):
-        x = apply_block(params["tail"][f"t{j}"], cfg, bt, x, positions)
+        x = apply_block(params["tail"][f"t{j}"], cfg, bt, x, positions,
+                        enc_out)
     return x
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     device="cuda") -> Dict:
+                     device="cuda", enc_len: int = 0) -> Dict:
     pat, reps, tail = stack_layout(cfg)
     out: Dict[str, Any] = {"stack": {}, "tail": {}}
     for i, bt in enumerate(pat):
-        one = init_block_cache(cfg, bt, batch, max_len, device)
+        one = init_block_cache(cfg, bt, batch, max_len, device, enc_len)
         out["stack"][f"p{i}"] = tree_map(
             lambda a: a.new_zeros((reps,) + a.shape), one)
     for j, bt in enumerate(tail):
-        out["tail"][f"t{j}"] = init_block_cache(cfg, bt, batch, max_len, device)
+        out["tail"][f"t{j}"] = init_block_cache(cfg, bt, batch, max_len,
+                                                device, enc_len)
     return out
 
 
 def prefill_stack(params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, max_len: int):
+                  positions: torch.Tensor, max_len: int,
+                  enc_out: Optional[torch.Tensor] = None):
     pat, reps, tail = stack_layout(cfg)
     cache: Dict[str, Any] = {"stack": {}, "tail": {}}
     slices = []
@@ -209,13 +247,13 @@ def prefill_stack(params, cfg: ModelConfig, x: torch.Tensor,
         caches = {}
         for i, bt in enumerate(pat):
             x, caches[f"p{i}"] = prefill_block(psl[f"p{i}"], cfg, bt, x,
-                                               positions, max_len)
+                                               positions, max_len, enc_out)
         slices.append(caches)
     if slices:
         cache["stack"] = tree_map(lambda *xs: torch.stack(xs), *slices)
     for j, bt in enumerate(tail):
         x, cache["tail"][f"t{j}"] = prefill_block(
-            params["tail"][f"t{j}"], cfg, bt, x, positions, max_len)
+            params["tail"][f"t{j}"], cfg, bt, x, positions, max_len, enc_out)
     return x, cache
 
 

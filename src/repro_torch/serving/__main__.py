@@ -11,7 +11,11 @@ Mamba2 (mamba2-130m) and Griffin (recurrentgemma-2b).
     python -m repro_torch.serving --arch recurrentgemma-2b --reduced --device cpu
 
 A mamba2 prompt's length must be a multiple of min(256, length), as in the
-reference.
+reference.  paligemma-3b and seamless-m4t-large-v2 are not served here: the
+engine admits a request with its tokens only, as the reference's does, and
+these need patch embeddings or audio frames beside them (and seamless an
+encoder length in its cache); drive them through ``Model.prefill`` /
+``Model.decode_step`` (README.md).
 """
 import argparse
 import time
@@ -29,7 +33,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serving")
     ap.add_argument("--arch", default="gemma2-2b",
                     help="gemma2-2b, granite-3-8b, mistral-nemo-12b, "
-                         "starcoder2-7b, mamba2-130m or recurrentgemma-2b")
+                         "starcoder2-7b, mamba2-130m or recurrentgemma-2b "
+                         "(paligemma-3b and seamless-m4t-large-v2 take "
+                         "patch embeddings or frames the engine does not "
+                         "admit: drive them through Model)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (float32, window 32)")
     ap.add_argument("--device", default="cuda")
@@ -43,6 +50,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.frontend is not None or cfg.is_encoder_decoder:
+        ap.error(f"{args.arch} takes {cfg.frontend} inputs beside its tokens, "
+                 "which the engine does not admit: drive it through "
+                 "Model.prefill / Model.decode_step")
     if args.reduced:
         cfg = reduced(cfg).replace(window_size=32)
     cfg = cfg.replace(attn_impl=args.attn_impl)

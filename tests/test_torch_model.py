@@ -22,7 +22,9 @@ TOL = 1e-4
 B, S, N_PRE = 2, 40, 34              # S > window 32: the ring buffers wrap
 PORTED = ["gemma2-2b", "granite-3-8b", "mistral-nemo-12b", "starcoder2-7b",
           "mamba2-130m", "recurrentgemma-2b"]
-NOT_PORTED = sorted(set(ARCHITECTURES) - set(PORTED))
+# the vision-prefix and encoder-decoder families: tests/test_torch_encdec.py
+FRONT_ENDS = ["paligemma-3b", "seamless-m4t-large-v2"]
+NOT_PORTED = sorted(set(ARCHITECTURES) - set(PORTED) - set(FRONT_ENDS))
 
 
 @pytest.fixture(scope="module", params=[
@@ -110,6 +112,44 @@ def test_prefill_then_decode_matches_forward(arch, impl):
             assert_close(logits[:, 0], full[:, i], TOL)
 
 
+@pytest.mark.parametrize("jax_impl,torch_impl", [("einsum", "einsum"),
+                                                 ("pallas", "cuda")])
+def test_int8_cache_prefill_and_decode_match_jax(jax_impl, torch_impl):
+    """gemma2-2b with ``kv_cache_dtype="int8"`` (window 32: the ring caches
+    wrap): prefill, then 6 decode steps; logits every step at 1e-4 and the
+    caches leaf by leaf, the codes equal.  The quantisation itself is bit for
+    bit (tests/test_torch_attention.py); what reaches it differs by a few ulp
+    (matrix products summed in another order), which could move a code that
+    sits on a rounding tie by one step of amax/127, about 1e-2 on a logit.
+    At these seeds none moves, so the model's 1e-4 holds and is kept."""
+    jcfg, tcfg = config_pair("gemma2-2b", jax_impl, torch_impl,
+                             window_size=32, kv_cache_dtype="int8")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    tmodel = build_model(tcfg, device="cpu")
+    tparams = from_jax_params(numpy_tree(jparams), device="cpu")
+    tokens = np.random.default_rng(3).integers(0, jcfg.vocab_size, (B, S))
+    with torch.no_grad():
+        tl, tc = tmodel.prefill(tparams,
+                                {"tokens": torch.from_numpy(tokens[:, :N_PRE])},
+                                S + 8)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :N_PRE])},
+                            S + 8)
+    assert tc["stack"]["p0"]["kv"]["k"].dtype == torch.int8
+    assert tc["stack"]["p0"]["kv"]["k_scale"].dtype == torch.bfloat16
+    assert_close(tl, jl, TOL)
+    assert_trees_close(tc, numpy_tree(jc), TOL)
+    jdecode = jax.jit(jmodel.decode_step)
+    for i in range(N_PRE, S):
+        with torch.no_grad():
+            tl, tc = tmodel.decode_step(tparams, tc,
+                                        torch.from_numpy(tokens[:, i:i + 1]), i)
+        jl, jc = jdecode(jparams, jc, jnp.asarray(tokens[:, i:i + 1]),
+                         jnp.int32(i))
+        assert_close(tl, jl, TOL)
+    assert_trees_close(tc, numpy_tree(jc), TOL)
+
+
 def test_cuda_path_matches_einsum_path():
     """cfg.attn_impl='cuda' reproduces the einsum forward (the twin of the
     reference's pallas-vs-einsum test, same 3e-2)."""
@@ -175,7 +215,7 @@ def test_bf16_params_carry_across_exactly():
 
 def test_full_width_parameter_counts_equal_the_reference():
     from repro.configs import get_config as jax_get_config
-    for arch in PORTED:
+    for arch in PORTED + FRONT_ENDS:
         want = jax_build_model(jax_get_config(arch)).param_count()
         assert build_model(get_config(arch), device="cpu").param_count() == want
 

@@ -149,6 +149,61 @@ def test_engine_emits_the_jax_engines_tokens(serve_setup):
         assert echo < 0.5, (len(p), echo)
 
 
+@pytest.mark.parametrize("impl", ["cuda", "einsum"])
+def test_int8_engine_emits_the_jax_engines_tokens(impl):
+    """gemma2-2b with the int8 KV cache through both engines: the cache's
+    int8 and bf16-scale leaves go through slot admission unchanged; five
+    prompts through two slots (40 > window 32 wraps the ring) give the JAX
+    engine's tokens and its logits at every prefill and decode step, at the
+    model's 1e-4 (see tests/test_torch_model.py's int8 test for why it
+    holds)."""
+    jcfg, tcfg = config_pair("gemma2-2b", "einsum", impl, window_size=32,
+                             kv_cache_dtype="int8")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    jparams = {**jparams, "embed": {**jparams["embed"],
+                                    "tok": jparams["embed"]["tok"] * 0.1}}
+    params = from_jax_params(numpy_tree(jparams), device="cpu")
+    model = build_model(tcfg, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, tcfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 40, 9, 3, 17)]
+    eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
+    kv = eng.cache["stack"]["p0"]["kv"]
+    assert kv["k"].dtype == torch.int8 and kv["v_scale"].dtype == torch.bfloat16
+    rows = record_logits(eng, model, "prefill", "decode_step")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=5)
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    jeng = JaxServeEngine(jmodel, jparams, num_slots=2, max_len=64)
+    jrows = record_logits(jeng, jeng, "_prefill", "_decode")
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(prompts)]
+    jeng.run(jreqs)
+    assert [r.output for r in reqs] == [r.output for r in jreqs]
+    assert eng.cache["stack"]["p0"]["kv"]["k"].dtype == torch.int8
+    V = tcfg.vocab_size
+    for r in reqs:
+        got, want = np.stack(rows[r.rid]), np.stack(jrows[r.rid])
+        assert got.shape == want.shape == (5, tcfg.padded_vocab)
+        assert_close(got[:, :V], want[:, :V], TOL)
+    with torch.no_grad():
+        logits = model.forward_logits(params,
+                                      {"tokens": torch.tensor(prompts[1][None])})
+    assert echo_share(logits[..., :V], prompts[1][None]) < 0.5
+
+
+def test_cli_refuses_the_front_end_families(capsys):
+    """``python -m repro_torch.serving`` refuses paligemma-3b and
+    seamless-m4t-large-v2 (the engine admits tokens only) with the way to
+    drive them."""
+    from repro_torch.serving.__main__ import main
+    for arch in ("paligemma-3b", "seamless-m4t-large-v2"):
+        with pytest.raises(SystemExit):
+            main(["--arch", arch, "--reduced", "--device", "cpu"])
+        assert "Model.prefill" in capsys.readouterr().err
+
+
 def test_engine_stops_at_eos_and_at_max_len(serve_setup):
     cfg, model, params, _, _ = serve_setup
     prompt = np.arange(1, 6, dtype=np.int32)

@@ -8,8 +8,10 @@ permutation, the thermal grid and the policy stack.
 Tolerances (those of tests/test_torch_scenario.py): makespan and the
 schedule arrays exact; latency, throughput, energy and per-PE busy time
 1e-6 relative (sums torch and XLA take in different orders); peak
-temperature 1e-5.  Against the port's ``run`` the same.  A lane of a stacked
-scan against its design alone: every output bit for bit.
+temperature 1e-5.  Against the port's ``run`` the same, and latency, energy
+and per-PE busy time bit for bit (the epilogue sums each lane in a fixed
+order).  A lane of a stacked scan against its design alone: every output bit
+for bit.
 """
 import dataclasses
 import importlib
@@ -100,7 +102,12 @@ def assert_lane_is_run(sr: SweepResult, idx, res):
     for name in ("avg_latency_us", "throughput_jobs_per_ms", "energy_j"):
         np.testing.assert_allclose(getattr(sr, name)[idx], getattr(res, name),
                                    rtol=1e-6, atol=0, err_msg=name)
+    # the epilogue's sums: the same bits in a sweep's launch as alone
+    for name in ("avg_latency_us", "energy_j"):
+        assert getattr(sr, name)[idx] == getattr(res, name), name
     P = res.utilization.shape[0]
+    np.testing.assert_array_equal(sr.busy_per_pe_us[idx][:P],
+                                  res.raw["busy_per_pe_us"].numpy()[:P])
     np.testing.assert_allclose(sr.utilization[idx][:P], res.utilization,
                                rtol=1e-6, atol=1e-12)
     assert np.all(sr.busy_per_pe_us[idx][P:] == 0)
@@ -600,3 +607,103 @@ def test_stack_policies_validates_as_the_reference():
             j_stack_policies([JPolicy(**{f.name: getattr(p, f.name)
                                          for f in dataclasses.fields(p)})
                               for p in bad])
+
+
+# ------------------------------------------------ the epilogue's fixed order
+
+def _np_tree(x):
+    """The epilogue's order in numpy: zeros to a power of two, then halves
+    added elementwise (f32 stays f32)."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, width - n)])
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _np_epilogue(tables, arrival, app_idx, start, finish, onpe, onopp):
+    """Latency, energy and busy time of one design's lanes, summed in the
+    fixed order by numpy."""
+    valid = tables.valid.numpy()[app_idx]                           # (L, J, T)
+    busy = np.where(valid, finish - start, np.float32(0))
+    fin = np.where(valid, finish, np.float32(0))
+    makespan = fin.max(axis=(1, 2))
+    L, J = arrival.shape
+    latency = _np_tree(fin.max(axis=2) - arrival) / np.float32(J)
+    if onopp is None:
+        p_task = tables.power_active.numpy()[onpe]
+    else:
+        p_task = tables.power_active_opp.numpy()[onpe, onopp]
+    e_active = _np_tree((busy * p_task).reshape(L, -1))
+    busy_pe = np.stack([_np_tree(np.where(onpe == pe, busy, np.float32(0))
+                                 .reshape(L, -1))
+                        for pe in range(tables.num_pes)], axis=1)
+    e_idle = _np_tree(tables.power_idle.numpy()
+                      * np.maximum(makespan[:, None] - busy_pe, np.float32(0)))
+    return {"avg_job_latency_us": latency, "busy_per_pe_us": busy_pe,
+            "energy_j": (e_active + e_idle) * np.float32(1e-6)}
+
+
+@pytest.mark.parametrize("dtpm", [False, True], ids=["static", "dtpm"])
+def test_epilogue_gives_a_lane_the_same_bits_in_any_call(dtpm):
+    """A lane's latency, energy and per-PE busy time are the same bits
+    whether ``_epilogue`` sees it alone or among other lanes (what makes a
+    chunked sweep equal the unchunked one, and a sweep lane its ``run``, on
+    any device); each equals a numpy model of the fixed tree order bit for
+    bit (torch's own CPU reductions might hide a device's other order); and
+    each is within 1e-6 of the JAX package's.  45 jobs of wifi_tx+wifi_rx
+    (J·T and J no power of two), 4 lanes; DTPM prices each task at its
+    latched OPP."""
+    from repro.core import build_tables as j_build_tables
+    from repro.core import make_soc_table2 as j_soc
+    from repro.core import poisson_trace as j_poisson_trace
+    from repro.core import get_application as j_app
+    from repro.core.simkernel_jax import simulate_batch as j_simulate_batch
+    from repro.core.simkernel_jax import simulate_jax_dtpm
+
+    names = ["wifi_tx", "wifi_rx"]
+    gov = JOndemand() if dtpm else None
+    tb = j_build_tables(j_soc(), [j_app(n) for n in names], governor=gov)
+    tt = skt.tables_from_numpy(jax_tree_numpy(tb), tb.t_max, tb.num_pes, "cpu")
+    traces = [j_poisson_trace(r, 45, names, seed=s)
+              for r in (5.0, 30.0) for s in (0, 1)]
+    arr = np.stack([t.arrival_us for t in traces]).astype(np.float32)
+    idx = np.stack([t.app_index for t in traces])
+    L = len(traces)
+    pol = tdvfs.OndemandGovernor().policy() if dtpm else None
+    lanes = tdvfs.policy_lanes(pol, L) if dtpm else None
+    scan = k1.epoch_scan_plain(tt, "etf", torch.from_numpy(arr),
+                               torch.from_numpy(idx), gov=lanes)
+    sched = list(scan[:4]) + ([scan[4]] if dtpm else [])
+    ta, ti = torch.from_numpy(arr), torch.from_numpy(idx).int()
+    whole = skt._epilogue(tt, ta, ti, *sched)
+    model = _np_epilogue(tt, arr, idx, scan[1].numpy(), scan[2].numpy(),
+                         scan[3].long().numpy(),
+                         scan[4].long().numpy() if dtpm else None)
+    sums = ("avg_job_latency_us", "energy_j", "busy_per_pe_us")
+    for k in range(L):
+        one = skt._epilogue(tt, ta[k:k + 1], ti[k:k + 1],
+                            *[x[k:k + 1] for x in sched])
+        for key in sums:
+            assert torch.equal(one[key][0], whole[key][k]), (k, key)
+    for key in sums:
+        np.testing.assert_array_equal(whole[key].numpy(), model[key],
+                                      err_msg=key)
+    if dtpm:
+        want = [simulate_jax_dtpm(tb, "etf", t.arrival_us, t.app_index,
+                                  gov.policy()) for t in traces[:2]]
+        want = {key: np.stack([np.asarray(w[key]) for w in want])
+                for key in sums}
+    else:
+        want = j_simulate_batch(tb, "etf", arr, idx)
+    for key in sums:
+        np.testing.assert_allclose(whole[key].numpy()[:len(want[key])],
+                                   np.asarray(want[key]), rtol=1e-6, atol=0,
+                                   err_msg=key)
+
+
+def jax_tree_numpy(tb):
+    import jax
+    return jax.tree_util.tree_map(np.asarray, tb)
