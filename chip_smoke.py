@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--verbose] [--profile]
 
 Drives the port's main paths — ``ServeEngine`` -> prefill -> decode for
-gemma2-2b (with the model-dtype and the int8 KV cache), recurrentgemma-2b and
-mamba2-130m, ``Model.prefill`` -> ``decode_step`` for paligemma-3b (a vision
+gemma2-2b (with the model-dtype and the int8 KV cache), recurrentgemma-2b,
+mamba2-130m and the mixture-of-experts deepseek-moe-16b and dbrx-132b,
+``Model.prefill`` -> ``decode_step`` for paligemma-3b (a vision
 prefix) and seamless-m4t-large-v2 (encoder-decoder), and the DS3 scenario path
 ``Scenario`` -> ``run`` / ``simulate_batch`` / ``sweep`` -> the epoch scan —
 through the entry points a user would call, and holds every CUDA kernel of
@@ -41,24 +42,33 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            cache) and seamless-m4t-large-v2's decoder (16 on 16, head_dim 64,
            a group of one: K2 at S = 64 and 32; K3 on 48 slots); no softcap,
            so the library call computes the same function there and is held
-           against the plain version too;
-4. reduced the reduced gemma2-2b, mamba2-130m and recurrentgemma-2b in f32,
+           against the plain version too.  The same for the MoE serves'
+           shapes: deepseek-moe-16b (16 heads on 16, head_dim 128) and
+           dbrx-132b (48 on 8, head_dim 128), K2 at B=1 S=2,048, K3 at B=4
+           on an 8,192-slot cache (no softcap either);
+4. reduced the reduced gemma2-2b, mamba2-130m, recurrentgemma-2b and
+           deepseek-moe-16b (capacity factor num_experts / top_k, which
+           drops nothing: the oracle's forward and the engine route
+           different groups) in f32,
            with the embedding scaled by 0.1 so the greedy token is not the
            input echoed (asserted: under half of the positions): engine output
            equals teacher-forced greedy decoding; the logits of every prefill
            and decode step equal ``forward_logits`` at that position (1e-3);
            logits of the kernel path and the einsum path agree within 3e-2;
-           then reduced gemma2-2b, recurrentgemma-2b and mamba2-130m in bf16
-           (the tensor-core paths of K2 and K4; mamba2's prompt of 512 tokens
-           is two chunks): kernel-path logits vs the einsum path within 2e-2,
-           and no farther from an f32 forward than twice the einsum path;
-5. full    each of the three at full width (gemma2-2b 26 layers, recurrentgemma-
-           2b 26, mamba2-130m 24), bf16, seeded random weights: 8 requests with
-           Poisson arrivals, 16 new tokens each, through a 4-slot engine with
-           an 8192-token cache.  Every kernel's launch count is set to 0 just
-           before each serve and read just after, and must equal what the
-           model's layers imply (e.g. recurrentgemma-2b: K5 18 and K2 8 per
-           request, K3 8 per tick);
+           then the four reduced models in bf16 (the tensor-core paths of K2
+           and K4; mamba2's prompt of 512 tokens is two chunks): kernel-path
+           logits vs the einsum path within 2e-2 (absolute part of the
+           logits' scale where it exceeds 1: deepseek's untied head), and no
+           farther from an f32 forward than twice the einsum path;
+5. full    each of the four at full width (gemma2-2b 26 layers, recurrentgemma-
+           2b 26, mamba2-130m 24, deepseek-moe-16b 28: 16.88 G parameters, its
+           prompts inside the MoE group rule, 4,096 two groups of 2,048), bf16,
+           seeded random weights: 8 requests with Poisson arrivals, 16 new
+           tokens each, through a 4-slot engine with an 8192-token cache.
+           Every kernel's launch count is set to 0 just before each serve and
+           read just after, and must equal what the model's layers imply
+           (e.g. recurrentgemma-2b: K5 18 and K2 8 per request, K3 8 per
+           tick; deepseek-moe-16b: K2 28 per request, K3 28 per tick);
 6. scenario the DS3 simulator with K1, the epoch scan: wifi_tx x {etf, met,
            table} at 80 jobs and 2, 20, 60 jobs/ms through
            ``run(backend="torch")``, and the comm-free etf case, equal to K1's
@@ -222,7 +232,24 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            beside phase 5's; (d) reduced gemma2-2b f32 with ``attn_impl``
            "blocked" and "blocked_unroll" over 1,100 positions (3 query
            chunks at global layers, 2 at windowed ones) against "einsum",
-           forward and prefill + 4 decode steps at 1e-4, K2/K3 not launched.
+           forward and prefill + 4 decode steps at 1e-4, K2/K3 not launched;
+11. moe    the mixture-of-experts layer (``models/moe.py``, no kernel of its
+           own: einsums, a stable sort, gathers): (a) the reduced
+           deepseek-moe-16b and dbrx-132b layers in f32 on the card against
+           the same weights on the CPU, at the configs' capacity factor and
+           at 0.25 (pairs drop): top-k indices and kept (token, choice)
+           pairs equal, ``apply_moe`` in both forms within 1e-5, onehot vs
+           sort on the card within 1e-5; (b) dbrx-132b at full width with 4
+           of its 40 layers (131.6 G parameters, 263 GB of bf16 weights
+           whole, against the card's 80 GB) through the engine as phase 5
+           serves (deepseek's prompts), K2 4 per request and K3 4 per tick,
+           exact; (c) one deepseek-moe-16b layer at full width in bf16, both
+           forms, at a prefill group of 2,048 tokens (C = 240) and a 4-slot
+           decode tick (C = 8; both forms read every expert's weights, the
+           bound only those of the experts the tokens reach): device ms,
+           the eager call, the byte/FLOP bound (the onehot form's dispatch
+           and combine einsums counted), onehot vs sort within 2e-2 of the
+           outputs' scale plus relative.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -280,11 +307,12 @@ from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import telemetry as obs_tel  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
-from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.models.params import ParamStore, tree_map  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
                                   pe_loss_faults, run, sweep, tables_for)
@@ -310,11 +338,13 @@ KERNELS = {"flash_attention": k2, "decode_attention": k3, "ssd_scan": k4,
            "rg_lru": k5, "epoch_scan": k1}
 # the serves of phase 5: prompt lengths (mamba2's inside the reference's
 # chunk rule, a multiple of min(256, length); recurrentgemma's 5000 wraps
-# its 2048-slot ring)
+# its 2048-slot ring; deepseek's inside the MoE group rule, a multiple of
+# min(2048, length): 4096 is two groups)
 PROMPT_LENS = {
     "gemma2-2b": [37, 128, 512, 1000, 2048, 5000, 64, 300],
     "recurrentgemma-2b": [37, 128, 512, 1000, 2048, 5000, 64, 300],
     "mamba2-130m": [37, 64, 128, 256, 512, 1024, 2048, 4096],
+    "deepseek-moe-16b": [37, 128, 512, 1000, 2048, 4096, 64, 300],
 }
 NEW_TOKENS = 16
 
@@ -666,27 +696,34 @@ def phase_decode(gen):
     return entry
 
 
-# the K2/K3 shapes of phase 10's two models: paligemma-3b (8 heads on one KV
-# head, head_dim 256) and seamless-m4t-large-v2's decoder (16 heads on 16,
-# head_dim 64: a group of one); no softcap, so scaled_dot_product_attention
-# computes the same function.  K2 at B=1 and at phase 10's batch of 4 (a
-# prefill of 256 patches + 64 tokens; 32 tokens), K3 at phase 10's caches
-# (256 + 64 + 16 = 336 slots, 32 + 16 = 48) with four slots at different
-# positions
-ENCDEC_FLASH = {"paligemma-3b": [(1, 320, 8, 1, 256), (4, 320, 8, 1, 256)],
-                "seamless-m4t-large-v2": [(1, 64, 16, 16, 64), (4, 32, 16, 16, 64)]}
-ENCDEC_DECODE = {"paligemma-3b": (4, 336, 8, 1, 256, [327, 320, 335, 330]),
-                 "seamless-m4t-large-v2": (4, 48, 16, 16, 64, [40, 32, 47, 35])}
+# the K2/K3 shapes of the models with no softcap, where
+# scaled_dot_product_attention computes the same function: phase 10's
+# paligemma-3b (8 heads on one KV head, head_dim 256) and
+# seamless-m4t-large-v2's decoder (16 heads on 16, head_dim 64: a group of
+# one), K2 at B=1 and at phase 10's batch of 4 (a prefill of 256 patches + 64
+# tokens; 32 tokens), K3 at phase 10's caches (256 + 64 + 16 = 336 slots,
+# 32 + 16 = 48); and the MoE serves of phases 5 and 11, deepseek-moe-16b (16
+# heads on 16, head_dim 128) and dbrx-132b (48 on 8: a group of 6), K2 at a
+# prefill of 2,048 tokens, K3 at their 4-slot 8,192-token caches.  K3's four
+# slots stand at different positions
+NOCAP_FLASH = {"paligemma-3b": [(1, 320, 8, 1, 256), (4, 320, 8, 1, 256)],
+               "seamless-m4t-large-v2": [(1, 64, 16, 16, 64), (4, 32, 16, 16, 64)],
+               "deepseek-moe-16b": [(1, 2048, 16, 16, 128)],
+               "dbrx-132b": [(1, 2048, 48, 8, 128)]}
+NOCAP_DECODE = {"paligemma-3b": (4, 336, 8, 1, 256, [327, 320, 335, 330]),
+                "seamless-m4t-large-v2": (4, 48, 16, 16, 64, [40, 32, 47, 35]),
+                "deepseek-moe-16b": (4, 8192, 16, 16, 128, [4111, 2063, 1015, 315]),
+                "dbrx-132b": (4, 8192, 48, 8, 128, [4111, 2063, 1015, 315])}
 
 
-def phase_encdec_kernels(gen):
-    """K2 and K3 against their plain versions at phase 10's shapes (bf16 and
-    f32), and ``scaled_dot_product_attention`` against the plain version too
-    (it computes the same function here); in bf16 the kernel, its eager
-    call, the plain version, the bound and the library call timed.  Returns
-    {kernel: {"<arch> ...": entry}}."""
+def phase_nocap_kernels(gen):
+    """K2 and K3 against their plain versions at the no-softcap models'
+    shapes (bf16 and f32), and ``scaled_dot_product_attention`` against the
+    plain version too (it computes the same function here); in bf16 the
+    kernel, its eager call, the plain version, the bound and the library
+    call timed.  Returns {kernel: {"<arch> ...": entry}}."""
     out = {"flash_attention": {}, "decode_attention": {}}
-    for arch, shapes in ENCDEC_FLASH.items():
+    for arch, shapes in NOCAP_FLASH.items():
         for b, S, h, kv, dh in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 q = randn(gen, (b, S, h, dh), dtype)
@@ -717,7 +754,7 @@ def phase_encdec_kernels(gen):
                              f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
                              f"library {lib:.4f} ms")
                 log(line)
-    for arch, (b, L, h, kv, dh, pos) in ENCDEC_DECODE.items():
+    for arch, (b, L, h, kv, dh, pos) in NOCAP_DECODE.items():
         valid = full_valid(L, pos)
         for dtype in (torch.bfloat16, torch.float32):
             q = randn(gen, (b, 1, h, dh), dtype)
@@ -1006,6 +1043,12 @@ def record_logits(eng):
 def phase_reduced(arch):
     cfg = reduced(get_config(arch)).replace(window_size=32)
     assert cfg.attn_impl == "cuda" and cfg.dtype == "float32"
+    if cfg.num_experts:
+        # a capacity that drops nothing: the oracle's forward routes the
+        # whole sequence as one group, the engine the prompt and then each
+        # tick's slot tokens, so a capacity that drops pairs would drop
+        # different ones (the reference's semantics)
+        cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
     model = build_model(cfg, device=DEV)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
     # the tied, sqrt(d_model)-scaled embedding of random weights makes the
@@ -1091,10 +1134,17 @@ def phase_reduced_bf16(arch):
     # or seg, the decay weights and the carried state (mamba2), the kernels
     # round only P before P·V or seg·x.  So they are held to the bf16
     # tolerance of the kernel tests, 2e-2 absolute plus relative (the logits
-    # are below 1 here; a CPU rehearsal differs by 5e-3); and the kernel path
-    # must be no farther from f32 than twice the einsum path's distance.
-    err = compare(kern, ein, 2e-2, f"reduced {arch} bf16 forward_logits cuda "
-                                   "vs einsum")
+    # of the tied embeddings are below 1 here; a CPU rehearsal differs by
+    # 5e-3); and the kernel path must be no farther from f32 than twice the
+    # einsum path's distance.  The absolute part is taken of the logits'
+    # scale where that exceeds 1: deepseek-moe-16b's untied head gives
+    # logits up to ~4, each path ~4e-2 from f32 where a logit is near 0 (a
+    # CPU rehearsal), so both are divided by max(1, max |f32 logit|) first
+    # (1 for the other families).
+    scale = max(1.0, float(ref.abs().max()))
+    err = scale * compare(kern / scale, ein / scale, 2e-2,
+                          f"reduced {arch} bf16 forward_logits cuda vs einsum "
+                          f"(over logit scale {scale:.2f})")
     e_kern = float((kern - ref).abs().max())
     e_ein = float((ein - ref).abs().max())
     if not e_kern <= 2 * e_ein + 1e-3:
@@ -1199,10 +1249,15 @@ SERVED = {}
 
 @torch.no_grad()
 def phase_full(arch: str, smi: str, with_profile: bool = False,
-               kv_cache_dtype: str = "model"):
+               kv_cache_dtype: str = "model", num_layers=None,
+               prompt_lens=None):
+    """The full-width serve of ``arch`` (``num_layers`` cuts the depth only;
+    ``prompt_lens`` default: the arch's ``PROMPT_LENS``)."""
     cfg = get_config(arch).replace(kv_cache_dtype=kv_cache_dtype)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     assert cfg.dtype == "bfloat16" and cfg.attn_impl == "cuda"
-    prompt_lens = PROMPT_LENS[arch]
+    prompt_lens = prompt_lens or PROMPT_LENS[arch]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEV)
@@ -3371,6 +3426,175 @@ def phase_encdec(smi: str, gen) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 11
+
+MOE_ARCHS = ("deepseek-moe-16b", "dbrx-132b")
+# (a) the reduced layers: a batch of 4 x 64 tokens in groups of 128 (two
+# groups), at the configs' capacity factor and at 0.25, where pairs drop
+MOE_REDUCED_X, MOE_REDUCED_GROUP, MOE_DROP_CF = (4, 64), 128, 0.25
+# (b) dbrx-132b's depth: 4 of its 40 layers (263 GB of bf16 weights whole,
+# against the card's 80 GB)
+DBRX_LAYERS = 4
+# (c) one deepseek-moe-16b layer at full width: a prefill group and a 4-slot
+# decode tick
+MOE_LAYER_TOKENS = {"prefill group": (1, 2048), "decode tick": (4, 1)}
+
+
+def moe_layer_params(cfg, seed: int, device):
+    """One MoE layer's parameters as ``init_moe`` draws them."""
+    ps = ParamStore(torch.Generator(device=device).manual_seed(seed),
+                    torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+                    device)
+    moe.init_moe(ps, "moe", cfg, None)
+    return ps.params["moe"]
+
+
+def kept_pairs(topi: torch.Tensor, G: int, E: int, C: int) -> torch.Tensor:
+    """(G, S·k) bool: which (token, choice) pairs, in (token, choice) order,
+    rank below the capacity among their expert's pairs (the reference's
+    rule, from the top-k indices alone)."""
+    oh = F.one_hot(topi.reshape(G, -1), E)
+    return ((oh.cumsum(1) - oh) * oh).sum(-1) < C
+
+
+@torch.no_grad()
+def phase_moe_reduced():
+    """(a) The reduced layers in f32, on the card against the same weights
+    on the CPU: the top-k indices equal, the kept pairs equal, ``apply_moe``
+    in both forms within 1e-5; on the card onehot against sort within 1e-5.
+    At capacity factor 0.25 pairs must drop."""
+    B, S = MOE_REDUCED_X
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    lines = []
+    for arch in MOE_ARCHS:
+        base = reduced(get_config(arch))
+        assert base.dtype == "float32"
+        for cf in (base.capacity_factor, MOE_DROP_CF):
+            cfg = base.replace(capacity_factor=cf)
+            p = moe_layer_params(cfg, 0, DEV)
+            pc = tree_map(lambda t: t.cpu(), p)
+            x = randn(gen, (B, S, cfg.d_model), torch.float32)
+            G, gs = B * S // MOE_REDUCED_GROUP, MOE_REDUCED_GROUP
+            C = moe._capacity(gs, cfg)
+            _, topi, _ = moe._router_probs(p, cfg, x.reshape(B * S, -1))
+            _, topi_c, _ = moe._router_probs(pc, cfg, x.reshape(B * S, -1).cpu())
+            kept = kept_pairs(topi, G, cfg.num_experts, C)
+            if not (torch.equal(topi.cpu(), topi_c) and torch.equal(
+                    kept.cpu(), kept_pairs(topi_c, G, cfg.num_experts, C))):
+                raise AssertionError(f"reduced {arch} MoE cf {cf}: top-k or "
+                                     "kept pairs differ card vs CPU")
+            n_kept, n_pairs = int(kept.sum()), kept.numel()
+            if cf == MOE_DROP_CF and n_kept == n_pairs:
+                raise AssertionError(f"reduced {arch} MoE cf {cf}: no pair "
+                                     "dropped")
+            outs, errs = {}, []
+            for impl in moe.MOE_IMPL:
+                outs[impl] = moe.apply_moe(p, cfg, x, impl=impl,
+                                           group_size=gs)
+                want = moe.apply_moe(pc, cfg, x.cpu(), impl=impl,
+                                     group_size=gs).to(DEV)
+                errs.append(compare(outs[impl], want, 1e-5,
+                                    f"reduced {arch} MoE {impl} cf {cf} card "
+                                    "vs CPU"))
+            e_forms = compare(outs["onehot"], outs["sort"], 1e-5,
+                              f"reduced {arch} MoE cf {cf} onehot vs sort")
+            lines.append(f"{arch} cf {cf:g}: C={C}, {n_kept} of {n_pairs} "
+                         f"pairs kept (= CPU), card vs CPU onehot "
+                         f"{errs[0]:.2e} sort {errs[1]:.2e}, onehot vs sort "
+                         f"{e_forms:.2e}")
+    log("[moe] (a) reduced layers f32, top-k and kept pairs equal card vs "
+        "CPU: " + "; ".join(lines))
+
+
+def moe_layer_bound_ms(cfg, T: int, G: int, C: int, kept: int, used: int,
+                       onehot: bool):
+    """(ms, 'bytes'|'operations') of one MoE layer on T bf16 tokens: the
+    larger of the bytes (the router (f32), the weights of the ``used``
+    routed experts that this run's tokens reach and of the shared experts
+    read once, x read and y written once) over the memory rate, and this
+    run's FLOPs over the bf16 peak: the router, the ``kept`` pairs' expert
+    products (3 of 2·D·F each), the shared experts' (3 of 2·D·F·n_shared a
+    token), and for the onehot form its dispatch and combine einsums,
+    2·S·E·C·D each a group."""
+    D, Fe, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    ns = cfg.num_shared_experts
+    nbytes = 4 * D * E + 2 * 3 * used * D * Fe + 2 * 3 * D * Fe * ns + 2 * 2 * T * D
+    flops = 2 * T * D * E + 6 * D * Fe * kept + 6 * D * Fe * ns * T
+    if onehot:
+        flops += 2 * (2 * (T // G) * E * C * D) * G
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+@torch.no_grad()
+def phase_moe_layer(smi: str):
+    """(c) One deepseek-moe-16b MoE layer at full width in bf16, both forms,
+    at a prefill group of 2,048 tokens and a 4-token decode tick: device ms
+    (CUDA-graph replays timed by CUDA events, median of 5), the eager call,
+    the bound, and onehot against sort within bf16's 2e-2 (of the outputs'
+    scale) absolute plus relative."""
+    cfg = get_config("deepseek-moe-16b")
+    assert cfg.dtype == "bfloat16"
+    torch.cuda.empty_cache()
+    p = moe_layer_params(cfg, 0, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    for case, (B, S) in MOE_LAYER_TOKENS.items():
+        T = B * S
+        gs = min(cfg.moe_group_size, T)
+        G, C = T // gs, moe._capacity(gs, cfg)
+        xs = [randn(gen, (B, S, cfg.d_model), torch.bfloat16) for _ in range(3)]
+        _, topi, _ = moe._router_probs(p, cfg, xs[0].reshape(T, -1))
+        keep = kept_pairs(topi, G, cfg.num_experts, C)
+        kept = int(keep.sum())
+        used = int(topi.reshape(G, -1)[keep].unique().numel())
+        ys = {}
+        for impl in moe.MOE_IMPL:
+            def call(x, impl=impl):
+                return moe.apply_moe(p, cfg, x, impl=impl,
+                                     group_size=cfg.moe_group_size)
+            ys[impl] = call(xs[0])
+            ms = device_ms([lambda x=x: call(x) for x in xs])
+            eager = eager_ms(lambda: call(xs[0]), iters=5)
+            bound, by = moe_layer_bound_ms(cfg, T, G, C, kept, used,
+                                           impl == "onehot")
+            log(f"[moe] (c) deepseek-moe-16b layer, {case} B={B} S={S} (G={G}, "
+                f"C={C}, {kept} of {T * cfg.top_k} pairs kept, {used} of "
+                f"{cfg.num_experts} experts reached), {impl}: "
+                f"{ms:.4f} ms (eager call {eager:.4f} ms), bound "
+                f"{bound:.5f} ms ({by})  [{smi}]")
+        # the init's expert weights (fan-in over E·D, as the reference's)
+        # make small outputs, far below bf16's 2e-2 absolute: the forms are
+        # held to 2e-2 of the outputs' largest magnitude plus relative
+        scale = float(ys["sort"].float().abs().max())
+        err = scale * compare(ys["onehot"].float() / scale,
+                              ys["sort"].float() / scale, 2e-2,
+                              f"deepseek-moe-16b layer {case} onehot vs sort "
+                              "(over the outputs' scale)")
+        log(f"[moe] (c) {case}: onehot vs sort max_abs_err {err:.3e} (outputs "
+            f"up to {scale:.3e})")
+    del p
+    torch.cuda.empty_cache()
+
+
+def phase_moe(smi: str):
+    """Phase 11: (a) the reduced layers card vs CPU, (b) dbrx-132b at full
+    width and 4 of 40 layers through the engine, (c) one deepseek-moe-16b
+    layer timed.  Returns the main path's launches ((b))."""
+    t_phase = time.perf_counter()
+    phase_moe_reduced()
+    full = get_config("dbrx-132b")
+    n = build_model(full, device=DEV).param_count()     # shapes only
+    log(f"[moe] (b) dbrx-132b at full width with {DBRX_LAYERS} of its "
+        f"{full.num_layers} layers: {full.num_layers - DBRX_LAYERS} cut, since "
+        f"its {n / 1e9:.1f} G parameters are {2 * n / 1e9:.0f} GB of bf16 "
+        "weights against the card's 80 GB")
+    launches = phase_full("dbrx-132b", smi, num_layers=DBRX_LAYERS,
+                          prompt_lens=PROMPT_LENS["deepseek-moe-16b"])
+    phase_moe_layer(smi)
+    log(f"[moe] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -3393,8 +3617,8 @@ def main():
                 "decode_attention": phase_decode(gen),
                 "ssd_scan": phase_ssd(gen, args.profile),
                 "rg_lru": phase_rglru(gen)}
-    for name, entries in phase_encdec_kernels(gen).items():
-        measured[name]["at_phase_10_shapes"] = entries
+    for name, entries in phase_nocap_kernels(gen).items():
+        measured[name]["no_softcap_shapes"] = entries
     torch.cuda.empty_cache()
     for arch in PROMPT_LENS:
         phase_reduced(arch)
@@ -3417,6 +3641,8 @@ def main():
     for name, n in phase_obs(smi).items():
         launches[name] += n
     for name, n in phase_encdec(smi, gen).items():
+        launches[name] += n
+    for name, n in phase_moe(smi).items():
         launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]

@@ -7,9 +7,10 @@
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
 The twin of ``src/repro/models/model.py``: decoder-only language models
-(``global`` / ``local`` attention blocks with a dense MLP, Griffin ``rglru``
-blocks, Mamba2 ``mamba2`` blocks), a vision prefix (paligemma) and an
-encoder-decoder with an audio front end (seamless).  Batches are dicts:
+(``global`` / ``local`` attention blocks with a dense MLP or a
+mixture-of-experts layer, Griffin ``rglru`` blocks, Mamba2 ``mamba2``
+blocks), a vision prefix (paligemma) and an encoder-decoder with an audio
+front end (seamless).  Batches are dicts:
 
     lm families:  {"tokens": (B,S) int, "labels": (B,S) int}
     vision:       + {"patch_embeds": (B, num_prefix_tokens, D)}
@@ -19,8 +20,9 @@ The front ends are stubs, as in the reference: precomputed embeddings are
 projected by ``frontend/proj``.  A vision prefix takes the first
 ``num_prefix_tokens`` positions, so decode positions are offset by it and
 ``max_len`` covers prefix, prompt and new tokens; an encoder-decoder's
-``init_cache`` takes ``enc_len``.  Mixture-of-experts models raise
-``NotImplementedError`` (ROADMAP.md queue 1).  Everything runs eagerly and
+``init_cache`` takes ``enc_len``.  A mixture-of-experts model routes its
+tokens in groups of ``min(cfg.moe_group_size, B·S)``, which must divide B·S
+(``ValueError``), prefill and decode tick alike.  Everything runs eagerly and
 without autograd state: call under ``torch.no_grad()`` when serving.
 """
 from __future__ import annotations

@@ -8,15 +8,15 @@ runs the stack under ``lax.scan``, this runs a Python loop over that axis and
 hands each repeat a VIEW of the stacked leaves (no copy).  The non-divisible
 remainder runs as a tail.
 
-Block types: ``global`` and ``local`` with a dense MLP, ``rglru`` (Griffin
-recurrence + MLP), ``mamba2`` (SSD, no MLP), ``enc`` (non-causal
-self-attention + MLP: the encoder of an encoder-decoder model) and ``xdec``
-(causal self-attention, then cross-attention over the encoder's output, then
-MLP).  MoE blocks raise ``NotImplementedError`` (ROADMAP.md queue 1).  Decode
-updates every cache IN PLACE: each block gets a view of its repeat of the
-stacked cache and writes its new K/V row or its new recurrent state into it;
-an ``xdec`` block's cross K/V (``ck`` / ``cv``, made at prefill) are read
-only.
+Block types: ``global`` and ``local`` with a dense MLP, or, when the config
+has experts (``num_experts > 0``), a mixture-of-experts layer
+(``models/moe.py``) in its place; ``rglru`` (Griffin recurrence + MLP),
+``mamba2`` (SSD, no MLP), ``enc`` (non-causal self-attention + MLP: the
+encoder of an encoder-decoder model) and ``xdec`` (causal self-attention,
+then cross-attention over the encoder's output, then MLP).  Decode updates
+every cache IN PLACE: each block gets a view of its repeat of the stacked
+cache and writes its new K/V row or its new recurrent state into it; an
+``xdec`` block's cross K/V (``ck`` / ``cv``, made at prefill) are read only.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from . import attention as attn
-from . import griffin, ssm
+from . import griffin, moe, ssm
 from .layers import apply_mlp, apply_rmsnorm, dtype_of, init_mlp, init_rmsnorm
 from .params import ParamStore, tree_map
 
@@ -37,10 +37,6 @@ BLOCK_TYPES = ("global", "local", "rglru", "mamba2", "enc", "xdec")
 def _check_block(cfg: ModelConfig, btype: str):
     if btype not in BLOCK_TYPES:
         raise ValueError(f"unknown block type {btype!r}")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts blocks are not ported yet: they come with "
-            "models/moe.py (ROADMAP.md queue 1)")
 
 
 def pattern_of(cfg: ModelConfig, encoder: bool = False) -> Tuple[str, ...]:
@@ -83,7 +79,10 @@ def init_block(ps: ParamStore, path: str, cfg: ModelConfig, btype: str,
             init_rmsnorm(ps, f"{path}/normx", D, stacked)
             attn.init_attention(ps, f"{path}/xattn", cfg, stacked)
     init_rmsnorm(ps, f"{path}/norm2", D, stacked)
-    init_mlp(ps, f"{path}/mlp", cfg, cfg.d_ff, stacked)
+    if cfg.num_experts > 0 and btype != "rglru":   # the reference's tree
+        moe.init_moe(ps, f"{path}/moe", cfg, stacked)
+    else:
+        init_mlp(ps, f"{path}/mlp", cfg, cfg.d_ff, stacked)
 
 
 def init_stack(ps: ParamStore, path: str, cfg: ModelConfig,
@@ -99,6 +98,9 @@ def init_stack(ps: ParamStore, path: str, cfg: ModelConfig,
 
 def _ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + moe.apply_moe(p["moe"], cfg, h, impl=cfg.moe_impl,
+                                 group_size=cfg.moe_group_size)
     return x + apply_mlp(p["mlp"], cfg, h)
 
 

@@ -4,14 +4,17 @@ A decoder-only model with random weights serves a stream of requests generated
 by the paper's job generator; reports per-request latency and engine
 throughput.  The twin of ``examples/serve_decode.py``.  The families it
 serves: attention (gemma2-2b, granite-3-8b, mistral-nemo-12b, starcoder2-7b),
-Mamba2 (mamba2-130m) and Griffin (recurrentgemma-2b).
+mixture-of-experts (deepseek-moe-16b, dbrx-132b), Mamba2 (mamba2-130m) and
+Griffin (recurrentgemma-2b).
 
     python -m repro_torch.serving --arch gemma2-2b                # full width, on the GPU
-    python -m repro_torch.serving --arch mamba2-130m
+    python -m repro_torch.serving --arch deepseek-moe-16b
     python -m repro_torch.serving --arch recurrentgemma-2b --reduced --device cpu
 
-A mamba2 prompt's length must be a multiple of min(256, length), as in the
-reference.  paligemma-3b and seamless-m4t-large-v2 are not served here: the
+A mamba2 prompt's length must be a multiple of min(256, length), and an MoE
+prompt's a multiple of min(moe_group_size, length) (2,048), as in the
+reference (``ValueError``).  dbrx-132b at full width holds 263 GB of bf16
+weights, more than one 80 GB card: serve it ``--reduced``.  paligemma-3b and seamless-m4t-large-v2 are not served here: the
 engine admits a request with its tokens only, as the reference's does, and
 these need patch embeddings or audio frames beside them (and seamless an
 encoder length in its cache); drive them through ``Model.prefill`` /
@@ -33,7 +36,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serving")
     ap.add_argument("--arch", default="gemma2-2b",
                     help="gemma2-2b, granite-3-8b, mistral-nemo-12b, "
-                         "starcoder2-7b, mamba2-130m or recurrentgemma-2b "
+                         "starcoder2-7b, deepseek-moe-16b, dbrx-132b (an MoE "
+                         "prompt's length a multiple of min(2048, length)), "
+                         "mamba2-130m or recurrentgemma-2b "
                          "(paligemma-3b and seamless-m4t-large-v2 take "
                          "patch embeddings or frames the engine does not "
                          "admit: drive them through Model)")

@@ -30,7 +30,8 @@ from repro_torch.core import poisson_trace
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.kernels import ops, ref
-for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b"):
+for arch in ("gemma2-2b", "mamba2-130m", "recurrentgemma-2b",
+             "deepseek-moe-16b"):
     cfg = reduced(get_config(arch)).replace(window_size=32)
     model = build_model(cfg, device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))

@@ -1,7 +1,7 @@
 """The port's serving engine: the twins of the serving tests of
-tests/test_train_and_serve.py for gemma2-2b, mamba2-130m and
-recurrentgemma-2b, and the JAX ``ServeEngine``'s tokens AND logits on the same
-prompts from converted weights.
+tests/test_train_and_serve.py for gemma2-2b, mamba2-130m, recurrentgemma-2b
+and deepseek-moe-16b, and the JAX ``ServeEngine``'s tokens AND logits on the
+same prompts from converted weights.
 
 With seeded random weights and the tied, sqrt(d_model)-scaled embedding, the
 greedy token of these reduced models is the input token at every position,
@@ -31,7 +31,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-4
 SETUPS = [(arch, impl) for arch in ("gemma2-2b", "mamba2-130m",
-                                    "recurrentgemma-2b")
+                                    "recurrentgemma-2b", "deepseek-moe-16b")
           for impl in ("cuda", "einsum")]
 
 
@@ -66,12 +66,18 @@ def _greedy_reference(model, params, prompt, n_new):
 
 def test_engine_matches_teacher_forced_greedy(serve_setup):
     """Tokens equal teacher-forced greedy decoding, and the logits of every
-    step equal the forward's at that position."""
+    step equal the forward's at that position.  An MoE model runs with a
+    capacity that drops nothing: the forward routes the whole sequence as
+    one group, the engine the prompt and then each tick's slot tokens, so a
+    capacity that drops pairs would drop different ones (as the reference
+    would)."""
     cfg, model, params, _, _ = serve_setup
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 9)]
-    model = build_model(model.cfg, device="cpu")       # wrapped below
+    model = build_model(cfg, device="cpu")             # wrapped below
     eng = ServeEngine(model, params, num_slots=2, max_len=64, device="cpu")
     rows = record_logits(eng, model, "prefill", "decode_step")
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
@@ -191,6 +197,34 @@ def test_int8_engine_emits_the_jax_engines_tokens(impl):
         logits = model.forward_logits(params,
                                       {"tokens": torch.tensor(prompts[1][None])})
     assert echo_share(logits[..., :V], prompts[1][None]) < 0.5
+
+
+def test_slots_decode_as_if_served_alone(serve_setup):
+    """Four requests through four slots emit the tokens each emits through
+    an engine of one slot.  An MoE tick routes its four slot tokens as one
+    group, whose capacity (8) is at least the 4 pairs one expert can get,
+    so no slot's token is dropped because of the others."""
+    cfg, model, params, _, _ = serve_setup
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (7, 3, 12, 5)]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    ServeEngine(model, params, num_slots=4, max_len=64, device="cpu").run(reqs)
+    for r in reqs:
+        alone = Request(rid=r.rid, prompt=r.prompt, max_new_tokens=6)
+        ServeEngine(model, params, num_slots=1, max_len=64,
+                    device="cpu").run([alone])
+        assert r.output == alone.output, (r.rid, r.output, alone.output)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_cli_serves_the_moe_families(arch, capsys):
+    from repro_torch.serving.__main__ import main
+    main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
+          "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert f"{arch} on cpu: 3 requests, 9 tokens" in out
 
 
 def test_cli_refuses_the_front_end_families(capsys):
