@@ -10,7 +10,9 @@ mamba2-130m and the mixture-of-experts deepseek-moe-16b and dbrx-132b,
 prefix) and seamless-m4t-large-v2 (encoder-decoder), and the DS3 scenario path
 ``Scenario`` -> ``run`` / ``simulate_batch`` / ``sweep`` -> the epoch scan —
 through the entry points a user would call, and holds every CUDA kernel of
-those paths against its plain PyTorch version.  Needs one CUDA device;
+those paths against its plain PyTorch version; then trains mamba2-130m and
+gemma2-2b at published widths (``repro_torch.launch.train``), a path with no
+kernel.  Needs one CUDA device;
 without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
@@ -249,7 +251,34 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            bound only those of the experts the tokens reach): device ms,
            the eager call, the byte/FLOP bound (the onehot form's dispatch
            and combine einsums counted), onehot vs sort within 2e-2 of the
-           outputs' scale plus relative.
+           outputs' scale plus relative;
+12. train  the training path (``repro_torch.launch.train``, ``steps``,
+           ``optim``, ``data``, ``checkpoint``), which runs
+           ``attn_impl="blocked"`` and no kernel: (a) K2-K5 at small shapes,
+           one input requiring grad: each wrapper raises under grad (no
+           kernel has a backward) and launches once under ``no_grad``; (b)
+           reduced mamba2-130m and gemma2-2b in f32, one
+           ``init_params(device="cpu")`` tree on the card and on the CPU,
+           B=8 S=256: the loss within 1e-5 (relative), every gradient leaf
+           within 1e-4 of its largest entry and none zero, one AdamW update
+           from the same gradients within 1e-6; (c) mamba2-130m at
+           published width and depth through ``train(preset="full")`` (bf16,
+           ``remat="full"``, B=8 S=256 lr 3e-3, the reference trainer's
+           defaults): 30 steps, losses finite and the mean of the last 5
+           below the first 5's, median step ms, tokens/s, peak memory and
+           straggler events; then 10 steps unbroken against
+           ``train_with_retries(fail_at=7, ckpt_every=5)`` (checkpoint under
+           ``build/train/``): every leaf equal bit for bit (every step under
+           ``torch.use_deterministic_algorithms(True)``, so
+           ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before anything runs);
+           (d) gemma2-2b at published width and depth (2.6 G parameters,
+           bf16, ``remat="full"``, f32 master and moments) through
+           ``make_train_step``, B=4 S=256, 5 steps: losses and gradient
+           norms finite, median step ms, tokens/s, peak memory; (e)
+           reduced mamba2-130m through ``train`` with ``accum=4`` and with
+           ``compress_grads=True``, 10 steps each: finite, and the loss
+           falls under compression.  The kernels' counts are set to 0
+           before (c) and must still be 0 after (e).
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -266,6 +295,7 @@ line before both.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -276,8 +306,14 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+import os
+
+# phase 12 trains under torch.use_deterministic_algorithms(True), which needs
+# cuBLAS's workspace fixed before the process's first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
@@ -296,6 +332,7 @@ from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E4
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
 from repro_torch.core.resources import CommModel, make_soc_table2  # noqa: E402
 from repro_torch.core.schedulers import get_scheduler  # noqa: E402
+from repro_torch.data import SyntheticLMPipeline  # noqa: E402
 from repro_torch.dse import (DesignPoint, DesignSpace, evaluate,  # noqa: E402
                              pareto_mask, pareto_search, stack_tables,
                              stack_traces)
@@ -306,13 +343,19 @@ from repro_torch.kernels import epoch_scan as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
+from repro_torch.launch.steps import (batch_to, init_opt_state,  # noqa: E402
+                                      make_train_step)
+from repro_torch.launch.train import (deterministic, train,  # noqa: E402
+                                      train_config, train_with_retries)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import telemetry as obs_tel  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
-from repro_torch.models.params import ParamStore, tree_map  # noqa: E402
+from repro_torch.models.params import (ParamStore, tree_leaves,  # noqa: E402
+                                       tree_map)
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
                                   pe_loss_faults, run, sweep, tables_for)
@@ -3595,6 +3638,278 @@ def phase_moe(smi: str):
     return launches
 
 
+# ------------------------------------------------------------------ phase 12
+
+TRAIN_ARCHS = ("mamba2-130m", "gemma2-2b")
+TRAIN_LOSS_TOL = 1e-5       # (b) card vs CPU, relative
+TRAIN_LEAF_TOL = 1e-4       # (b) a gradient leaf, of its largest entry
+ADAMW_TOL = 1e-6            # (b) one update from the same gradients
+# the reference trainer's defaults (launch/train.py), and its resume test's
+# shape (tests/test_train_and_serve.py) at them
+TRAIN_B, TRAIN_S, TRAIN_LR = 8, 256, 3e-3
+TRAIN_STEPS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_EVERY = 30, 10, 7, 5
+GEMMA_B, GEMMA_STEPS = 4, 5
+SIDE_STEPS = 10             # (e) accumulation, compression
+DET_PAIRS = 3               # (c), (d): steps with and without the mode
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def phase_train_repair(gen):
+    """(a) K2-K5 at small shapes: with an input that requires grad the
+    wrapper raises while autograd records; under ``no_grad`` it launches
+    once (these launches compare, they are not a main path's)."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    cs = -torch.rand((1, 1, 16, 2), generator=gen, device=DEV).cumsum(2)
+    kv = (r(1, 8, 1, 64), r(1, 8, 1, 64))
+    cases = {"flash_attention": (k2.flash_attention, (r(1, 8, 2, 64), *kv)),
+             "decode_attention": (k3.decode_attention, (
+                 r(1, 1, 2, 64), *kv,
+                 torch.ones(8, dtype=torch.bool, device=DEV))),
+             "ssd_scan": (k4.ssd_scan, (r(1, 1, 16, 2, 16),
+                                        r(1, 1, 16, 2).abs(), cs,
+                                        r(1, 1, 16, 16), r(1, 1, 16, 16))),
+             "rg_lru": (k5.rg_lru, (torch.rand((1, 8, 4), generator=gen,
+                                               device=DEV), r(1, 8, 4)))}
+    for name, (fn, args) in cases.items():
+        args[0].requires_grad_(True)
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[train] (a) {name} launched under grad")
+        before = KERNELS[name].launches
+        with torch.no_grad():
+            out = fn(*args)
+        torch.cuda.synchronize()
+        out = out[0] if isinstance(out, tuple) else out
+        if KERNELS[name].launches != before + 1 or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"[train] (a) {name} under no_grad: "
+                                 f"{KERNELS[name].launches - before} launches")
+    log("[train] (a) K2-K5 each raise under grad with an input that "
+        "requires grad, and launch once each under no_grad")
+
+
+def loss_and_grads(model, params, batch):
+    """The loss and every leaf's gradient (``tree_leaves`` order)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = model.loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+    return loss.detach(), grads
+
+
+def leaf_err(got, want) -> float:
+    """max |got - want| over the largest |want| (got moved to want's device)."""
+    g, w = got.detach().float().to(want.device), want.detach().float()
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def phase_train_card_vs_cpu():
+    """(b) reduced mamba2-130m and gemma2-2b, f32, ``blocked``: the same
+    ``init_params(device="cpu")`` tree on the card and on the CPU, one batch:
+    the loss, every gradient leaf, and one AdamW update from the CPU's
+    gradients on both sides."""
+    for arch in TRAIN_ARCHS:
+        cfg = reduced(get_config(arch)).replace(attn_impl="blocked")
+        cpu = torch.device("cpu")
+        host = build_model(cfg, device=cpu).init_params(
+            torch.Generator().manual_seed(0))
+        dev = tree_map(lambda t: t.to(DEV), host)
+        b = SyntheticLMPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S).batch_at(0)
+        l_h, g_h = loss_and_grads(build_model(cfg, device=cpu), host,
+                                  batch_to(b, cpu))
+        l_d, g_d = loss_and_grads(build_model(cfg, device=DEV), dev,
+                                  batch_to(b, DEV))
+        loss_err = abs(float(l_d) - float(l_h)) / abs(float(l_h))
+        if not loss_err <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"[train] (b) {arch}: loss {float(l_d)} on "
+                                 f"the card, {float(l_h)} on the CPU")
+        if any(g is None or not bool(g.any()) for g in g_d):
+            raise AssertionError(f"[train] (b) {arch}: a gradient leaf is "
+                                 "None or all zero")
+        worst = max(leaf_err(a, b) for a, b in zip(g_d, g_h))
+        if not worst <= TRAIN_LEAF_TOL:
+            raise AssertionError(f"[train] (b) {arch}: a gradient leaf "
+                                 f"{worst:.2e} of its largest entry away")
+        it = iter(g_h)
+        grads_h = tree_map(lambda _: next(it), host)
+        out = {}
+        for side, params, grads in (("cpu", host, grads_h),
+                                    ("card", dev, tree_map(
+                                        lambda t: t.to(DEV), grads_h))):
+            new, opt, gn = adamw_update(AdamWConfig(lr=TRAIN_LR), grads,
+                                        adamw_init(params), params=params)
+            out[side] = tree_leaves(new) + tree_leaves(opt) + [gn]
+        upd = max(leaf_err(a, b) for a, b in zip(out["card"], out["cpu"]))
+        if not upd <= ADAMW_TOL:
+            raise AssertionError(f"[train] (b) {arch}: AdamW on the card "
+                                 f"{upd:.2e} from the CPU's")
+        log(f"[train] (b) {arch} reduced f32 blocked, B={TRAIN_B} "
+            f"S={TRAIN_S}, card vs CPU: loss {float(l_d):.6f} (rel err "
+            f"{loss_err:.2e}, tol {TRAIN_LOSS_TOL}), {len(g_d)} gradient "
+            f"leaves, none zero, worst {worst:.2e} of the leaf's largest "
+            f"entry (tol {TRAIN_LEAF_TOL}); one AdamW update from the same "
+            f"gradients: params, master, moments, step and norm within "
+            f"{upd:.2e} (tol {ADAMW_TOL})")
+
+
+def timed_steps(step, params, opt, pipe, start: int, n: int, det: bool):
+    """``n`` steps from ``pipe``'s step ``start`` (under the trainer's
+    deterministic mode if ``det``): (params, opt, losses, gradient norms,
+    seconds a step, each synchronised)."""
+    losses, norms, times = [], [], []
+    with deterministic() if det else contextlib.nullcontext():
+        for s in range(start, start + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, pipe.batch_at(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+    return params, opt, losses, norms, times
+
+
+def deterministic_cost(step, params, opt, pipe, start: int, n: int) -> str:
+    """Median step ms with and without the deterministic mode, ``n`` steps
+    each in alternating pairs, continuing from ``params`` (they are consumed)."""
+    ms = {True: [], False: []}
+    for i in range(n):
+        for det in (False, True):
+            params, opt, _, _, t = timed_steps(step, params, opt, pipe,
+                                               start + 2 * i + det, 1, det)
+            ms[det] += t
+    on, off = (float(np.median(ms[d])) * 1e3 for d in (True, False))
+    return (f"median step {on:.2f} ms under the deterministic mode, "
+            f"{off:.2f} ms without ({(on / off - 1) * 100:+.1f}%)")
+
+
+def phase_train_mamba(smi: str):
+    """(c) mamba2-130m at published width and depth through ``train`` (the
+    reference trainer's default arch, preset full: bf16, ``remat="full"``,
+    B=8, S=256): the loss falls over 30 steps; a run preempted at step 7 and
+    resumed from the step-5 checkpoint ends bit for bit where an unbroken run
+    of 10 steps does."""
+    kw = dict(arch="mamba2-130m", preset="full", batch=TRAIN_B, seq=TRAIN_S,
+              lr=TRAIN_LR, device=DEV)
+    cfg = train_config("mamba2-130m", "full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses, wd = train(steps=TRAIN_STEPS, log_every=TRAIN_STEPS, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"[train] (c) mamba2-130m losses {losses}")
+    ms = float(np.median(wd.times)) * 1e3
+    log(f"[train] (c) mamba2-130m full width ({cfg.num_layers} layers, "
+        f"{cfg.dtype}, remat {cfg.remat}, {cfg.attn_impl}), B={TRAIN_B} "
+        f"S={TRAIN_S} lr "
+        f"{TRAIN_LR}: {TRAIN_STEPS} steps in {wall:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, last 5 {last:.4f}), median step {ms:.2f} ms = "
+        f"{TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB, straggler events {len(wd.events)}  [{smi}]")
+
+    ckpt = TRAIN_DIR / "resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    straight, _, _ = train(steps=RESUME_STEPS, log_every=RESUME_STEPS, **kw)
+    resumed, _, _ = train_with_retries(
+        steps=RESUME_STEPS, ckpt_dir=str(ckpt), ckpt_every=RESUME_EVERY,
+        fail_at=RESUME_FAIL_AT, log_every=RESUME_STEPS, **kw)
+    pairs = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    differ = [i for i, (a, b) in enumerate(pairs)
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if differ or not pairs:
+        raise AssertionError(f"[train] (c) resumed run: {len(differ)} of "
+                             f"{len(pairs)} leaves differ from the unbroken "
+                             "run")
+    log(f"[train] (c) preempted at step {RESUME_FAIL_AT}, resumed from the "
+        f"step-{RESUME_EVERY} checkpoint: all {len(pairs)} leaves equal the "
+        f"unbroken {RESUME_STEPS}-step run bit for bit "
+        f"({time.perf_counter() - t0:.1f} s for both runs)")
+    step = make_train_step(build_model(cfg, device=DEV),
+                           AdamWConfig(lr=TRAIN_LR))
+    cost = deterministic_cost(step, straight, init_opt_state(straight),
+                              SyntheticLMPipeline(cfg.vocab_size, TRAIN_B,
+                                                  TRAIN_S), 0, DET_PAIRS)
+    log(f"[train] (c) mamba2-130m: {cost}  [{smi}]")
+
+
+def phase_train_gemma(smi: str):
+    """(d) gemma2-2b at published width and depth (bf16, ``remat="full"``)
+    through ``make_train_step``, as ``train`` drives it: B=4, S=256, 5
+    steps, the loss and the gradient norm finite."""
+    cfg = train_config("gemma2-2b", "full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEV)
+    n = model.param_count()
+    params = model.init_params(torch.Generator(DEV).manual_seed(0))
+    opt = init_opt_state(params)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    pipe = SyntheticLMPipeline(cfg.vocab_size, GEMMA_B, TRAIN_S)
+    params, opt, losses, norms, times = timed_steps(step, params, opt, pipe,
+                                                    0, GEMMA_STEPS, True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"[train] (d) gemma2-2b losses {losses}, "
+                             f"gradient norms {norms}")
+    ms = float(np.median(times)) * 1e3
+    log(f"[train] (d) gemma2-2b full width ({n / 1e9:.3f} G parameters, "
+        f"{cfg.num_layers} layers, {cfg.dtype}, remat {cfg.remat}, "
+        f"{cfg.attn_impl}, f32 master and moments), B={GEMMA_B} S={TRAIN_S}: "
+        f"losses "
+        f"{[round(x, 4) for x in losses]}, gradient norms "
+        f"{[round(x, 3) for x in norms]}, median step {ms:.2f} ms = "
+        f"{GEMMA_B * TRAIN_S / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB  [{smi}]")
+    cost = deterministic_cost(step, params, opt, pipe, GEMMA_STEPS, DET_PAIRS)
+    log(f"[train] (d) gemma2-2b: {cost}  [{smi}]")
+    del params, opt, step, model
+    torch.cuda.empty_cache()
+
+
+def phase_train_side():
+    """(e) reduced mamba2-130m through ``train`` on the card: accumulation
+    over 4 microbatches and int8 error-feedback compression, 10 steps each."""
+    kw = dict(arch="mamba2-130m", preset="tiny", steps=SIDE_STEPS,
+              batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR, device=DEV,
+              log_every=SIDE_STEPS)
+    _, acc, _ = train(accum=4, **kw)
+    _, comp, _ = train(compress_grads=True, **kw)
+    if not (np.isfinite(acc).all() and np.isfinite(comp).all()) or \
+            not np.mean(comp[-5:]) < np.mean(comp[:5]):
+        raise AssertionError(f"[train] (e) accum {acc}, compressed {comp}")
+    log(f"[train] (e) reduced mamba2-130m, {SIDE_STEPS} steps: accum 4 loss "
+        f"{acc[0]:.4f} -> {acc[-1]:.4f}; int8 compression {comp[0]:.4f} -> "
+        f"{comp[-1]:.4f} (mean of the first 5 {np.mean(comp[:5]):.4f}, last "
+        f"5 {np.mean(comp[-5:]):.4f})")
+
+
+def phase_train(smi: str, gen):
+    """Phase 12: (a) the kernels refuse grad; (b) card vs CPU; (c)-(e) the
+    training runs, in which no kernel may launch (training runs
+    ``blocked``)."""
+    t_phase = time.perf_counter()
+    phase_train_repair(gen)
+    phase_train_card_vs_cpu()
+    counts_zero()
+    phase_train_mamba(smi)
+    phase_train_gemma(smi)
+    phase_train_side()
+    if any(counts().values()):
+        raise AssertionError(f"[train] kernels launched while training: "
+                             f"{counts()}")
+    log(f"[train] (c)-(e) launched no kernel; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -3644,6 +3959,7 @@ def main():
         launches[name] += n
     for name, n in phase_moe(smi).items():
         launches[name] += n
+    phase_train(smi, gen)
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]
     measured["epoch_scan_dtpm"]["sweep_dtpm_grid"] = sweep_measured["dtpm_grid"]

@@ -10,7 +10,8 @@ shared headers and the flags: an edited source is rebuilt, an unchanged one is r
 
 A failed build raises with the compiler's output; nothing falls back.
 ``REPRO_TORCH_BUILD_DIR`` moves the build directory, ``NVCC`` names the
-compiler.
+compiler.  :func:`refuse_grad` is the check every wrapper makes before a
+launch: a kernel has no backward.
 """
 from __future__ import annotations
 
@@ -22,11 +23,30 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise while autograd is recording and a floating input requires grad.
+
+    A launch writes a fresh output that autograd knows nothing of, so a loss
+    taken through it would backpropagate without error and give no gradient
+    to what reaches it only through the kernel.  None of the kernels has a
+    backward (nor has any TPU kernel they port); training runs
+    ``attn_impl="blocked"``, as the reference does."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward (no TPU original has "
+            "one) and an input requires grad; training runs "
+            "attn_impl='blocked', as the reference does, and serving calls "
+            "the kernel under torch.no_grad()")
 
 
 def build_dir() -> Path:

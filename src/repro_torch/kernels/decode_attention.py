@@ -143,6 +143,7 @@ def decode_attention(q, k, v, valid, *, softcap: Optional[float] = None,
                                       scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")

@@ -8,7 +8,9 @@ calls ``epoch_scan``.  The reference transposes to (B,H,S,Dh) and
 transposed or copied here.
 
 For a CUDA tensor a wrapper launches its kernel or raises; only a CPU tensor
-goes to the kernel's plain PyTorch version.
+goes to the kernel's plain PyTorch version.  A kernel has no backward, so on a
+CUDA tensor a wrapper also raises while autograd records and an input
+requires grad (``_build.refuse_grad``): train on ``attn_impl="blocked"``.
 """
 from __future__ import annotations
 

@@ -125,6 +125,7 @@ def rg_lru(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return rg_lru_plain(a, x)
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru: no kernel for device {a.device}")
+    _build.refuse_grad("rg_lru", a, x)
     if a.ndim != 3 or x.shape != a.shape or min(a.shape) < 1:
         raise ValueError(f"rg_lru: shapes a {tuple(a.shape)}, x {tuple(x.shape)}")
     for name, t in (("a", a), ("x", x)):

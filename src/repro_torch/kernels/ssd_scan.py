@@ -141,6 +141,7 @@ def ssd_scan(x, dt, cs, Bm, Cm):
         return ssd_scan_plain(x, dt, cs, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _build.refuse_grad("ssd_scan", x, dt, cs, Bm, Cm)
     _check(x, dt, cs, Bm, Cm)
     Bsz, nc, c, H, P = x.shape
     N = Bm.shape[-1]

@@ -22,8 +22,11 @@ projected by ``frontend/proj``.  A vision prefix takes the first
 ``max_len`` covers prefix, prompt and new tokens; an encoder-decoder's
 ``init_cache`` takes ``enc_len``.  A mixture-of-experts model routes its
 tokens in groups of ``min(cfg.moe_group_size, B·S)``, which must divide B·S
-(``ValueError``), prefill and decode tick alike.  Everything runs eagerly and
-without autograd state: call under ``torch.no_grad()`` when serving.
+(``ValueError``), prefill and decode tick alike.  Everything runs eagerly;
+``loss_fn`` differentiates through the ``einsum`` and ``blocked`` paths (what
+``launch/train.py`` trains on), while the CUDA kernels of ``attn_impl="cuda"``
+have no backward and refuse to launch under grad: serve under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 

@@ -63,6 +63,22 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return (g * torch.rsqrt(var + eps) * w).to(y.dtype)
 
 
+def inclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``, except under ``torch.use_deterministic_algorithms``
+    (the mode ``launch/train.py`` trains in): torch has no deterministic float cumsum on
+    a CUDA tensor and raises there, so the sum is then taken on any device in
+    log2(n) vector steps of one fixed order (Hillis-Steele: after the step of
+    distance d, element t holds the sum of (t-2d, t])."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return torch.cumsum(x, dim)
+    d, n = 1, x.shape[dim]
+    while d < n:
+        x = torch.cat([x.narrow(dim, 0, d),
+                       x.narrow(dim, d, n - d) + x.narrow(dim, 0, n - d)], dim)
+        d *= 2
+    return x
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, use_kernel: bool = False):
     """Chunked SSD.  x:(B,L,H,P) dt:(B,L,H) A:(H,) Bm,Cm:(B,L,N).
 
@@ -82,17 +98,22 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, use_kernel: bool = False)
     Cc = Cm.reshape(B, nc, chunk, N)
 
     dA = dtc * A                                           # (B,nc,c,H) f32, <=0
-    cs = torch.cumsum(dA, dim=2)                           # inclusive cumsum
+    cs = inclusive_cumsum(dA, dim=2)
 
     if use_kernel:
         from ..kernels import ops as kops
         return kops.ssd_scan(xc, dtc, dA, cs, Bc, Cc, h0=h0)
 
     # ---- intra-chunk (diagonal block) -------------------------------------
-    # decay(i, j) = exp(cs_i - cs_j) for i >= j  (per head)
+    # decay(i, j) = exp(cs_i - cs_j) for i >= j  (per head).  The mask is
+    # applied before exp: for i < j, cs_i - cs_j > 0 overflows exp at a chunk
+    # of 256, and where(mask, exp(di), 0)'s backward would then multiply that
+    # inf by 0 (the reference's form, whose gradient is NaN there); the
+    # forward's values are the same bits.
     di = cs[:, :, :, None, :] - cs[:, :, None, :, :]       # (B,nc,c,c,H)
     mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(di), 0.0)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], di,
+                                  -torch.inf))
     att = torch.einsum("bzin,bzjn->bzij", Cc.float(), Bc.float())
     w = att[..., None] * decay * dtc[:, :, None, :, :]     # (B,nc,c,c,H)
     y_diag = torch.einsum("bzijh,bzjhp->bzihp", w.to(dtt), xc)

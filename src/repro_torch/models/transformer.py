@@ -6,7 +6,9 @@ each pattern position are *stacked* along a leading repeat axis, as in the
 reference (so its parameter tree converts leaf for leaf); where the reference
 runs the stack under ``lax.scan``, this runs a Python loop over that axis and
 hands each repeat a VIEW of the stacked leaves (no copy).  The non-divisible
-remainder runs as a tail.
+remainder runs as a tail.  For training, ``cfg.remat`` wraps each repeat in
+``torch.utils.checkpoint`` as the reference wraps it in ``jax.checkpoint``
+(``full``; ``selective`` keeps the non-batched products).
 
 Block types: ``global`` and ``local`` with a dense MLP, or, when the config
 has experts (``num_experts > 0``), a mixture-of-experts layer
@@ -20,9 +22,12 @@ cache and writes its new K/V row or its new recurrent state into it; an
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -208,16 +213,47 @@ def _repeat(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
 
+def _save_mm(ctx, op, *args, **kwargs):
+    """The ``selective`` policy: keep the outputs of ``aten.mm`` — the
+    products with no batch dimension (projections, MLP, logits), what the
+    reference's ``dots_with_no_batch_dims_saveable`` keeps — and recompute
+    everything else, the attention's batched ``bmm`` included."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``cfg.remat`` around one repeat of the block pattern, as the
+    reference's ``_remat_wrap``: ``full`` keeps only the repeat's input and
+    recomputes the rest in the backward; ``selective`` keeps ``aten.mm``'s
+    outputs too (:func:`_save_mm`).  Values do not change."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "selective":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_mm))
+    if cfg.remat != "none":
+        raise ValueError(f"remat={cfg.remat!r} (none, full, selective)")
+    return fn
+
+
 def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, encoder: bool = False,
                 enc_out: Optional[torch.Tensor] = None):
     """Training forward through the whole stack (the encoder's with
-    ``encoder=True``)."""
+    ``encoder=True``); ``cfg.remat`` wraps each repeat of the pattern."""
     pat, reps, tail = stack_layout(cfg, encoder)
-    for r in range(reps):
-        psl = _repeat(params["stack"], r)
+
+    def one_repeat(x, psl):
         for i, bt in enumerate(pat):
             x = apply_block(psl[f"p{i}"], cfg, bt, x, positions, enc_out)
+        return x
+
+    body = _remat_wrap(cfg, one_repeat)
+    for r in range(reps):
+        x = body(x, _repeat(params["stack"], r))
     for j, bt in enumerate(tail):
         x = apply_block(params["tail"][f"t{j}"], cfg, bt, x, positions,
                         enc_out)

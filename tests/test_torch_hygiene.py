@@ -14,9 +14,10 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.\S*)?\s+import)",
+    r"^\s*(import\s+(jax|repro|ml_dtypes)(\.|\s|,|$)"
+    r"|from\s+(jax|repro|ml_dtypes)(\.\S*)?\s+import)",
     re.MULTILINE)
 
 CPU_SERVE = r"""
@@ -57,6 +58,12 @@ pts = DesignSpace().sample_lhs(3, seed=0)
 ev = evaluate(pts, Scenario().applications(), [Scenario().job_trace()],
               device="cpu", chunk=2)
 assert ev.front_mask().any() and metrics.counter("scenario.sweep.chunks").value == 2
+import tempfile
+from repro_torch.launch.train import train_with_retries
+with tempfile.TemporaryDirectory() as d:
+    _, losses, _ = train_with_retries(steps=3, batch=2, seq=16, ckpt_dir=d,
+                                      ckpt_every=2, fail_at=2, device="cpu")
+assert len(losses) == 1 and all(np.isfinite(losses))
 bad = sorted(m for m in sys.modules
              if sys.modules[m] is not None
              and (m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -102,10 +109,12 @@ def test_no_jax_or_repro_import_in_port_sources(path):
 def test_source_scan_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "from repro.configs import base", "    import repro",
-                 "from repro import core", "import jax, numpy"):
+                 "from repro import core", "import jax, numpy",
+                 "import ml_dtypes", "from ml_dtypes import bfloat16"):
         assert FORBIDDEN.search(line), line
     for line in ("import repro_torch", "from repro_torch.configs import base",
-                 "from .. import resolve_device", "# import jax would break"):
+                 "from .. import resolve_device", "# import jax would break",
+                 "bf16 arrives as ml_dtypes.bfloat16"):
         assert not FORBIDDEN.search(line), line
 
 
@@ -175,6 +184,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             call()
     proc = _run(["-m", "repro_torch.dse.reports", "--designs", "2"])
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+
+    from repro_torch.launch.train import train, train_with_retries
+    for call in (lambda: train(steps=1),
+                 lambda: train_with_retries(steps=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    for args in (["-m", "repro_torch.launch.train", "--preset", "tiny"],
+                 [str(ROOT / "examples" / "train_lm_torch.py")],
+                 [str(ROOT / "examples" / "serve_decode_torch.py")]):
+        proc = _run(args)
+        assert proc.returncode != 0 and "device='cpu'" in proc.stderr, args
+        assert "retry" not in proc.stdout, args
 
 
 def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
