@@ -12,7 +12,9 @@ prefix) and seamless-m4t-large-v2 (encoder-decoder), and the DS3 scenario path
 through the entry points a user would call, and holds every CUDA kernel of
 those paths against its plain PyTorch version; then trains mamba2-130m and
 gemma2-2b at published widths (``repro_torch.launch.train``), a path with no
-kernel.  Needs one CUDA device;
+kernel, and drives the layouts and launch tools (the GPipe schedule at
+granite-3-8b's published width, the ``meta`` dry-run against the card, the
+autotune example on K1).  Needs one CUDA device;
 without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
@@ -278,7 +280,35 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            reduced mamba2-130m through ``train`` with ``accum=4`` and with
            ``compress_grads=True``, 10 steps each: finite, and the loss
            falls under compression.  The kernels' counts are set to 0
-           before (c) and must still be 0 after (e).
+           before (c) and must still be 0 after (e);
+13. layouts the layouts and launch tools (``repro_torch.sharding``,
+           ``launch/mesh``, ``specs``, ``dryrun``, ``roofline``,
+           ``hillclimb``, ``models/pipeline.py``, the autotune example):
+           (a) the GPipe schedule: reduced granite-3-8b in f32 (the
+           reference test's case: 2 repeats on 2 stages, 2 microbatches,
+           B=4 S=32, a (2,2,2) mesh's ``train_pp`` rules) pipelined on the
+           card against the plain stack on the card and the same call on
+           the CPU (loss 1e-5 relative, every gradient leaf 1e-4 of its
+           largest entry); granite-3-8b at published width (40 layers,
+           8.17 G parameters, bf16, ``blocked``, ``remat="full"``), 4
+           stages x 4 microbatches, B=4 S=256, against the plain stack
+           (loss 2e-2 relative, every leaf 2e-2 of its largest, none zero):
+           the loss+grad step's median ms of 3 (synchronised) both ways and
+           the peak memory; (b) the dry-run held to the card: gemma2-2b
+           train at B=2 S=1024 and mamba2-130m long_500k decode on the host
+           mesh, the ``meta`` matmul FLOPs equal to ``FlopCounterMode``'s
+           count of the same step on the card (exact), the accounted
+           argument bytes against what materialising parameters, optimizer
+           state, batch and cache allocates (1%); then the three hillclimb
+           cells on pod16x16 with their roofline terms; (c) a 8192^3 bf16
+           ``torch.matmul`` and a 4 GiB device copy (CUDA events, median of
+           5) beside the data sheet's rates, failing above 105% of them;
+           (d) reduced granite-3-8b: 5 steps on the card, saved, restored
+           on the CPU under a (2,4) mesh's rules, 5 more, within 5e-3 of 10
+           unbroken CPU steps; (e) the autotune example's simulation on the
+           card, K1 once a layout (3, exact), each layout's step equal to
+           the event-heap simulator on the CPU within 1e-6.  (a)-(d) launch
+           no kernel.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -324,7 +354,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
 from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
 from repro_torch.core.applications import _chain, wifi_tx  # noqa: E402
 from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E402
@@ -343,6 +374,8 @@ from repro_torch.kernels import epoch_scan as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, rules_for  # noqa: E402
 from repro_torch.launch.steps import (batch_to, init_opt_state,  # noqa: E402
                                       make_train_step)
 from repro_torch.launch.train import (deterministic, train,  # noqa: E402
@@ -362,6 +395,7 @@ from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
 from repro_torch.scenario.faults import (fault_scan_steps,  # noqa: E402
                                          normalize_failures, stack_fault_plans)
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
+from repro_torch.sharding import Mesh, use_mesh  # noqa: E402
 
 # the modules (the package's `sweep` and `run` attributes are the functions)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
@@ -3910,6 +3944,323 @@ def phase_train(smi: str, gen):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 13
+
+PP_REDUCED = dict(stages=2, micro=2, B=4, S=32)      # tests/test_pipeline.py
+PP_FULL = dict(stages=4, micro=4, B=4, S=256)        # granite-3-8b as published
+PP_LOSS_TOL = 1e-5          # (a) reduced f32: relative
+PP_LEAF_TOL = 1e-4          # (a) reduced f32: of the leaf's largest entry
+PP_BF16_TOL = 2e-2          # (a) full width bf16: loss relative, and a leaf
+PP_REPS = 3                 # (a) timed loss+grad steps each way
+DRY_CELLS = (("gemma2-2b", ShapeConfig("train_s1024_b2", 1024, 2, "train")),
+             ("mamba2-130m", "long_500k"))
+DRY_MEM_TOL = 0.01          # (b) accounted vs allocated argument bytes
+HILLCLIMB_KEYS = ("moe", "decode", "long")
+RATE_N = 8192               # (c) an N^3 bf16 matmul
+RATE_COPY_BYTES = 4 * 2 ** 30
+RATE_CAP = 1.05             # (c) no rate above 105% of the data sheet's
+ELASTIC_STEPS, ELASTIC_B, ELASTIC_S, ELASTIC_LR = 5, 8, 32, 1e-3
+ELASTIC_TOL = 5e-3          # (d) tests/test_elastic_resume.py's bound
+ELASTIC_DIR = ROOT / "build" / "elastic"
+EXAMPLE_ARCH, EXAMPLE_SHAPE = "granite-3-8b", "train_4k"
+
+
+def pp_loss_and_grads(cfg, params, batch, stages: int, micro: int):
+    """Loss and every gradient leaf of the plain stack (``stages`` 0) or
+    the GPipe schedule under a (stages, 2, 2) mesh's ``train_pp`` rules."""
+    B = batch["tokens"].shape[0]
+    mesh = Mesh((max(stages, 1), 2, 2), ("pod", "data", "model"))
+    if stages:
+        cfg = cfg.replace(pipeline_stages=stages, pipeline_microbatches=micro)
+    with use_mesh(mesh, rules_for(mesh, batch_size=B, kind="train_pp")):
+        return loss_and_grads(build_model(cfg, device=tree_leaves(
+            params)[0].device), params, batch)
+
+
+def token_batch(vocab: int, B: int, S: int, device, seed: int):
+    t = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (B, S))).to(device)
+    return {"tokens": t, "labels": torch.roll(t, -1, 1)}
+
+
+def sliced_leaf_err(got, want) -> float:
+    """:func:`leaf_err` taken a leading slice at a time (a stacked leaf of
+    a published-width model in f32 would take gigabytes at once)."""
+    if got.ndim < 2:
+        return leaf_err(got, want)
+    diff = max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+    return diff / max(max(float(w.float().abs().max()) for w in want), 1e-30)
+
+
+def phase_layouts_gpipe(smi: str):
+    """(a) The GPipe schedule: reduced granite-3-8b in f32 (the reference
+    test's case) pipelined on the card against the plain stack on the card
+    and the same call on the CPU; then granite-3-8b at published width in
+    bf16 (``blocked``, ``remat="full"``), 4 stages x 4 microbatches."""
+    cpu = torch.device("cpu")
+    r = PP_REDUCED
+    cfg = reduced(get_config("granite-3-8b")).replace(attn_impl="blocked")
+    host = build_model(cfg, device=cpu).init_params(
+        torch.Generator().manual_seed(0))
+    dev = tree_map(lambda t: t.to(DEV), host)
+    hb = token_batch(cfg.vocab_size, r["B"], r["S"], cpu, 1)
+    db = {k: v.to(DEV) for k, v in hb.items()}
+    l_pp, g_pp = pp_loss_and_grads(cfg, dev, db, r["stages"], r["micro"])
+    l_pl, g_pl = pp_loss_and_grads(cfg, dev, db, 0, 0)
+    l_cpu, g_cpu = pp_loss_and_grads(cfg, host, hb, r["stages"], r["micro"])
+    errs = {}
+    for what, (l_w, g_w) in {"plain stack on the card": (l_pl, g_pl),
+                             "same call on the CPU": (l_cpu, g_cpu)}.items():
+        le = abs(float(l_pp) - float(l_w)) / abs(float(l_w))
+        ge = max(leaf_err(a, b) for a, b in zip(g_pp, g_w))
+        if not (le <= PP_LOSS_TOL and ge <= PP_LEAF_TOL):
+            raise AssertionError(f"[layouts] (a) reduced pipeline vs {what}: "
+                                 f"loss {le:.2e}, worst leaf {ge:.2e}")
+        errs[what] = (le, ge)
+    if any(not bool(g.any()) for g in g_pp):
+        raise AssertionError("[layouts] (a) a pipelined gradient leaf is zero")
+    log(f"[layouts] (a) GPipe, reduced granite-3-8b f32 blocked, "
+        f"{r['stages']} stages x {r['micro']} microbatches, B={r['B']} "
+        f"S={r['S']}, (2,2,2) mesh train_pp rules: loss {float(l_pp):.6f}; "
+        + "; ".join(f"vs the {w}: loss {le:.2e} rel (tol {PP_LOSS_TOL}), "
+                    f"{len(g_pp)} leaves, worst {ge:.2e} of the leaf's "
+                    f"largest (tol {PP_LEAF_TOL})"
+                    for w, (le, ge) in errs.items()))
+
+    f = PP_FULL
+    cfg = get_config("granite-3-8b").replace(attn_impl="blocked",
+                                             remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEV)
+    n = model.param_count()
+    params = model.init_params(torch.Generator(DEV).manual_seed(0))
+    batch = token_batch(cfg.vocab_size, f["B"], f["S"], DEV, 2)
+    ms = {}
+    for stages in (f["stages"], 0):
+        times = []
+        for _ in range(PP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pp_loss_and_grads(cfg, params, batch, stages, f["micro"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+        ms[stages] = float(np.median(times)) * 1e3
+    l_pp, g_pp = pp_loss_and_grads(cfg, params, batch, f["stages"], f["micro"])
+    l_pl, g_pl = pp_loss_and_grads(cfg, params, batch, 0, 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    le = abs(float(l_pp) - float(l_pl)) / abs(float(l_pl))
+    ge = max(sliced_leaf_err(a, b) for a, b in zip(g_pp, g_pl))
+    zero = sum(not bool(g.any()) for g in g_pp)
+    if not (np.isfinite(float(l_pp)) and le <= PP_BF16_TOL
+            and ge <= PP_BF16_TOL and zero == 0):
+        raise AssertionError(f"[layouts] (a) granite-3-8b pipeline vs plain: "
+                             f"loss {le:.2e}, worst leaf {ge:.2e}, {zero} "
+                             "zero leaves")
+    log(f"[layouts] (a) GPipe, granite-3-8b full width ({n / 1e9:.3f} G "
+        f"parameters, {cfg.num_layers} layers, {cfg.dtype}, remat "
+        f"{cfg.remat}, {cfg.attn_impl}), {f['stages']} stages x "
+        f"{f['micro']} microbatches, B={f['B']} S={f['S']}: loss "
+        f"{float(l_pp):.4f} vs plain {float(l_pl):.4f} ({le:.2e} rel, tol "
+        f"{PP_BF16_TOL}), {len(g_pp)} gradient leaves, none zero, worst "
+        f"{ge:.2e} of the leaf's largest (tol {PP_BF16_TOL}); loss+grad step "
+        f"median of {PP_REPS} (synchronised) {ms[f['stages']]:.2f} ms "
+        f"pipelined, {ms[0]:.2f} ms plain; peak memory {peak:.2f} GiB  "
+        f"[{smi}]")
+    del params, g_pp, g_pl, model
+    torch.cuda.empty_cache()
+
+
+def phase_layouts_dryrun(smi: str):
+    """(b) The dry-run held to the card: for each of ``DRY_CELLS`` on the
+    host mesh, the ``meta`` count of the step against ``FlopCounterMode``'s
+    count of the same step run on the card, and the accounted argument
+    bytes against what materialising them allocates; then the hillclimb
+    cells on pod16x16 with their roofline terms."""
+    for arch, shape in DRY_CELLS:
+        cell = dryrun.build_cell(arch, shape, False, mesh_shape=(1, 1))
+        t0 = time.perf_counter()
+        outs, f_meta, b_meta = dryrun.count_step(cell.step, cell.args)
+        t_meta = time.perf_counter() - t0
+        acct = dryrun.memory_analysis(cell, outs)["argument_size_in_bytes"]
+        del outs
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        args = dryrun.real_args(cell, DEV, seed=0)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        if not abs(grown - acct) <= DRY_MEM_TOL * acct:
+            raise AssertionError(f"[layouts] (b) {arch} {cell.shape.name}: "
+                                 f"{acct} bytes accounted, {grown} allocated")
+        t0 = time.perf_counter()
+        _, f_card, b_card = dryrun.count_step(cell.step, args)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        if f_card != f_meta or f_meta <= 0:
+            raise AssertionError(f"[layouts] (b) {arch} {cell.shape.name}: "
+                                 f"{f_meta} FLOPs on meta, {f_card} on the "
+                                 "card")
+        log(f"[layouts] (b) {arch} {cell.shape.name} (B="
+            f"{cell.shape.global_batch} S={cell.shape.seq_len}, "
+            f"{cell.shape.kind}, host mesh, {cell.accum} microbatch(es)): "
+            f"matmul FLOPs {f_meta} on meta = {f_card} on the card (exact); "
+            f"bytes {b_meta} on meta, {b_card} on the card "
+            f"({b_card / b_meta - 1:+.2e}); argument bytes {acct} accounted, "
+            f"{grown} allocated ({grown / acct - 1:+.2e}, tol {DRY_MEM_TOL}); "
+            f"counted in {t_meta:.1f} s on meta, the card's step "
+            f"{t_card:.2f} s under the counters  [{smi}]")
+        del args
+        torch.cuda.empty_cache()
+    for key in HILLCLIMB_KEYS:
+        arch, shape, _ = hillclimb.CELLS[key]
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, save=False, device=DEV)
+        t = roofline.cell_terms(rec)
+        log(f"[layouts] (b) hillclimb cell {key}: {arch} x {shape} x "
+            f"pod16x16 ({rec['num_devices']} devices, perfectly "
+            f"partitioned): {rec['flops']:.4e} matmul FLOPs and "
+            f"{rec['bytes_accessed']:.4e} bytes a device, compute "
+            f"{t['t_compute']:.4e} s, memory {t['t_memory']:.4e} s, "
+            f"collective n/a, dominant {t['dominant']}, MODEL/counted "
+            f"{t['model_flops_frac']:.3f}, arguments "
+            f"{rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.2f} GB"
+            f" a device (fits {rec['fits']}); counted in "
+            f"{time.perf_counter() - t0:.1f} s (H100 SXM data-sheet peaks)")
+
+
+def phase_layouts_rates(smi: str):
+    """(c) The card's own matmul and copy rates beside the data sheet's
+    (CUDA events, median of 5); a rate above 105% of the data sheet's means
+    the timing is broken."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    a = torch.randn((RATE_N, RATE_N), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    b = torch.randn((RATE_N, RATE_N), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    mm = eager_ms(lambda: torch.matmul(a, b, out=c), iters=5)
+    del a, b, c
+    src = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    cp = eager_ms(lambda: dst.copy_(src), iters=5)
+    del src, dst
+    torch.cuda.empty_cache()
+    flops = 2 * RATE_N ** 3 / (mm * 1e-3)
+    bps = 2 * RATE_COPY_BYTES / (cp * 1e-3)
+    if flops > RATE_CAP * PEAK_BF16_FLOPS or bps > RATE_CAP * PEAK_BYTES_S:
+        raise AssertionError(f"[layouts] (c) {flops:.3e} FLOP/s, {bps:.3e} "
+                             "B/s: above the data sheet")
+    log(f"[layouts] (c) the card's rates (CUDA events, median of 5): "
+        f"{RATE_N}^3 bf16 torch.matmul {mm:.4f} ms = {flops / 1e12:.1f} "
+        f"TFLOP/s ({flops / PEAK_BF16_FLOPS:.1%} of the data sheet's "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f}); a {RATE_COPY_BYTES / 2 ** 30:.0f} "
+        f"GiB device copy {cp:.4f} ms = {bps / 1e12:.3f} TB/s read+write "
+        f"({bps / PEAK_BYTES_S:.1%} of {PEAK_BYTES_S / 1e12:.2f})  [{smi}]")
+
+
+def elastic_steps(cfg, params, opt, device, start: int, stop: int, mesh):
+    """Steps ``start``..``stop`` of the reduced granite run under ``mesh``'s
+    rules on ``device`` (the data pipeline addressed by step)."""
+    with use_mesh(mesh, rules_for(mesh, batch_size=ELASTIC_B)):
+        step = make_train_step(build_model(cfg, device=device),
+                               AdamWConfig(lr=ELASTIC_LR))
+        pipe = SyntheticLMPipeline(cfg.vocab_size, ELASTIC_B, ELASTIC_S)
+        for t in range(start, stop):
+            params, opt, m = step(params, opt, pipe.batch_at(t))
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"[layouts] (d) loss at step {t}")
+        pipe.state.step = stop
+    return params, opt, pipe
+
+
+def phase_layouts_elastic():
+    """(d) Across meshes on one card: reduced granite-3-8b takes 5 steps on
+    the card under the host mesh's rules, saves, restores on the CPU under
+    a (2,4) mesh's rules and takes 5 more; its final parameters against 10
+    unbroken CPU steps."""
+    cpu = torch.device("cpu")
+    cfg = reduced(get_config("granite-3-8b")).replace(attn_impl="blocked")
+    init = build_model(cfg, device=cpu).init_params(
+        torch.Generator().manual_seed(0))
+    dev = tree_map(lambda t: t.to(DEV), init)
+    dev, opt, pipe = elastic_steps(cfg, dev, init_opt_state(dev), DEV, 0,
+                                   ELASTIC_STEPS, make_host_mesh())
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    mgr = CheckpointManager(str(ELASTIC_DIR))
+    mgr.save(ELASTIC_STEPS, {"params": dev, "opt": opt},
+             meta={"data": pipe.state_dict()})
+    state, meta = mgr.restore(device=cpu)
+    resumed, _, _ = elastic_steps(cfg, state["params"], state["opt"], cpu,
+                                  meta["data"]["step"], 2 * ELASTIC_STEPS,
+                                  Mesh((2, 4), ("data", "model")))
+    straight, _, _ = elastic_steps(cfg, init, init_opt_state(init), cpu, 0,
+                                   2 * ELASTIC_STEPS, make_host_mesh())
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tree_leaves(resumed), tree_leaves(straight)))
+    if not err < ELASTIC_TOL:
+        raise AssertionError(f"[layouts] (d) resumed across meshes {err:.2e} "
+                             "from the unbroken CPU run")
+    log(f"[layouts] (d) reduced granite-3-8b f32: {ELASTIC_STEPS} steps on "
+        f"the card (host mesh), saved, restored on the CPU under a (2,4) "
+        f"mesh's rules, {ELASTIC_STEPS} more: final parameters within "
+        f"{err:.2e} of {2 * ELASTIC_STEPS} unbroken CPU steps (tol "
+        f"{ELASTIC_TOL})")
+
+
+def phase_layouts_example(smi: str) -> int:
+    """(e) ``examples/autotune_sharding_torch.py`` on the card: one K1
+    launch a layout; each simulated step against the event-heap simulator
+    on the CPU."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        ex = importlib.import_module("autotune_sharding_torch")
+    finally:
+        sys.path.pop(0)
+    counts_zero()
+    rows = ex.simulate_layouts(EXAMPLE_ARCH, EXAMPLE_SHAPE, DEV)
+    got = k1_counts()
+    want = {name: 0 for name in got}
+    want["epoch_scan"] = len(ex.CANDIDATES)
+    if got != want or counts()["epoch_scan"] != len(ex.CANDIDATES):
+        raise AssertionError(f"[layouts] (e) K1 launches {got}, expected "
+                             f"{want}")
+    for (name, _, _, step_ms), (_, _, _, db, app, trace) in zip(
+            rows, ex.layouts(EXAMPLE_ARCH, EXAMPLE_SHAPE)):
+        ref = simkernel_ref.simulate(db, [app], trace, get_scheduler(
+            "etf")).makespan_us / 1e3
+        if not abs(step_ms - ref) <= 1e-6 * abs(ref):
+            raise AssertionError(f"[layouts] (e) {name}: {step_ms} ms on the "
+                                 f"card, {ref} ms by the event heap")
+    best = min(rows, key=lambda r: r[3])
+    log(f"[layouts] (e) autotune example, {EXAMPLE_ARCH} x {EXAMPLE_SHAPE}: "
+        + ", ".join(f"{r[0]} {r[3]:.4f} ms" for r in rows)
+        + f" simulated (each = the event-heap simulator on the CPU within "
+          f"1e-6); selected {best[0]}; K1 launches {got}  [{smi}]")
+    return len(ex.CANDIDATES)
+
+
+def phase_layouts(smi: str) -> dict:
+    """Phase 13: layouts and launch tools.  (a)-(d) launch no kernel; (e)
+    launches K1 once a layout (its count is returned)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counts_zero()
+    phase_layouts_gpipe(smi)
+    phase_layouts_dryrun(smi)
+    phase_layouts_rates(smi)
+    phase_layouts_elastic()
+    if any(counts().values()):
+        raise AssertionError(f"[layouts] (a)-(d) launched kernels: "
+                             f"{counts()}")
+    k1_example = phase_layouts_example(smi)
+    log(f"[layouts] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"epoch_scan": k1_example}
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -3960,6 +4311,8 @@ def main():
     for name, n in phase_moe(smi).items():
         launches[name] += n
     phase_train(smi, gen)
+    for name, n in phase_layouts(smi).items():
+        launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]
     measured["epoch_scan_dtpm"]["sweep_dtpm_grid"] = sweep_measured["dtpm_grid"]

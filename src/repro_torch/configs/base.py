@@ -68,7 +68,7 @@ class ModelConfig:
     kv_cache_dtype: str = "model"     # model (= dtype) | int8 (quantised KV)
     attn_scores_f32: bool = True      # False: bf16 score tensors (halves the
                                       # blocked-attention HBM term)
-    pipeline_stages: int = 1          # >1: GPipe stages (not ported yet)
+    pipeline_stages: int = 1          # >1: GPipe stages over the mesh's pod
     pipeline_microbatches: int = 8
 
     def __post_init__(self):

@@ -4,8 +4,10 @@
         --preset tiny --steps 200 --batch 8 --seq 256 [--device cpu]
 
 The twin of ``src/repro/launch/train.py``, on one device (``--device``,
-default ``cuda``; the reference's mesh is queue 1 item 15, and
-``--production-mesh`` or ``pipeline_stages > 1`` raise ``NotImplementedError``).
+default ``cuda``).  ``--production-mesh`` raises at once: the 256-device
+mesh cannot run on one card (the reference's ``make_production_mesh`` fails
+too without 256 devices).  ``pipeline_stages > 1`` needs a mesh with a
+``pod`` axis installed (``sharding.use_mesh``), as in the reference.
 Both presets train on ``attn_impl="blocked"``, the reference's default: the
 port's CUDA kernels (``attn_impl="cuda"``) have no backward and refuse to
 launch under grad.  ``tiny`` is the reduced config in f32 without remat;
@@ -45,9 +47,8 @@ from ..configs import get_config, reduced
 from ..data import SyntheticLMPipeline
 from ..models import build_model
 from ..optim import AdamWConfig
+from .mesh import make_production_mesh
 from .steps import init_opt_state, make_train_step
-
-ITEM_15 = "ROADMAP queue 1 item 15 (layouts and launch tools)"
 
 
 class StragglerWatchdog:
@@ -95,8 +96,6 @@ def train_config(arch: str, preset: str):
     if cfg.family in ("vlm", "audio") and preset != "tiny":
         raise ValueError("frontend stubs: the trainer takes LM families at "
                          "full scale")
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(f"pipeline_stages > 1: {ITEM_15}")
     return cfg
 
 
@@ -108,7 +107,10 @@ def train(arch: str = "mamba2-130m", preset: str = "tiny", steps: int = 50,
           log_every: int = 10, production_mesh: bool = False,
           device="cuda"):
     if production_mesh:
-        raise NotImplementedError(f"the production mesh: {ITEM_15}")
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        raise ValueError(
+            f"the production mesh has {make_production_mesh().size} devices; "
+            f"this process has {n} CUDA device(s)")
     # read once, at the process's first cuBLAS call: set it before that
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)

@@ -1,9 +1,10 @@
 """Model substrate of the port: layers, attention, stacks, the Model API.
 
 Differences from ``repro.models`` that hold for every module here: the
-reference annotates activations and parameters with logical sharding axes
+reference also annotates activations with logical sharding axes
 (``sharding.shard(...)``, no-ops outside a mesh); the port runs on one device
-and drops them.  ``jit`` has no counterpart (PyTorch runs eagerly), and the
+and drops those (parameters keep theirs: ``Model.param_logical`` /
+``param_pspecs``).  ``jit`` has no counterpart (PyTorch runs eagerly), and the
 ``lax.scan`` over layers is a Python loop over views of the stacked leaves.
 """
 from .model import Model, build_model

@@ -54,10 +54,11 @@ def init_attention(ps: ParamStore, path: str, cfg: ModelConfig,
                    stacked: Optional[int]):
     D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pre = (stacked,) if stacked else ()
-    ps.param(f"{path}/wq", pre + (D, H * Dh), "fan_in")
-    ps.param(f"{path}/wk", pre + (D, KV * Dh), "fan_in")
-    ps.param(f"{path}/wv", pre + (D, KV * Dh), "fan_in")
-    ps.param(f"{path}/wo", pre + (H * Dh, D), "fan_in")
+    pax = (None,) if stacked else ()
+    ps.param(f"{path}/wq", pre + (D, H * Dh), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/wk", pre + (D, KV * Dh), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/wv", pre + (D, KV * Dh), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/wo", pre + (H * Dh, D), pax + ("model", "fsdp"), "fan_in")
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, heads: int,

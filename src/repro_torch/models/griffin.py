@@ -36,18 +36,22 @@ def init_griffin(ps: ParamStore, path: str, cfg: ModelConfig,
     H = cfg.num_heads                         # gate blocks
     bw = W // H
     pre = (stacked,) if stacked else ()
-    ps.param(f"{path}/w_x", pre + (D, W), "fan_in")
-    ps.param(f"{path}/w_gate", pre + (D, W), "fan_in")
-    ps.param(f"{path}/conv_w", pre + (cfg.conv_width, W), "normal", scale=0.1)
-    ps.param(f"{path}/conv_b", pre + (W,), "zeros")
-    ps.param(f"{path}/wa", pre + (H, bw, bw), "fan_in")
-    ps.param(f"{path}/ba", pre + (W,), "zeros", dtype=torch.float32)
-    ps.param(f"{path}/wi", pre + (H, bw, bw), "fan_in")
-    ps.param(f"{path}/bi", pre + (W,), "zeros", dtype=torch.float32)
-    # Λ init so that a = exp(-c·softplus(Λ)) lands in (0.9, 0.999)
-    ps.param(f"{path}/lam", pre + (W,), "normal", scale=0.5,
+    pax = (None,) if stacked else ()
+    ps.param(f"{path}/w_x", pre + (D, W), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/w_gate", pre + (D, W), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/conv_w", pre + (cfg.conv_width, W), pax + (None, "model"),
+             "normal", scale=0.1)
+    ps.param(f"{path}/conv_b", pre + (W,), pax + ("model",), "zeros")
+    ps.param(f"{path}/wa", pre + (H, bw, bw), pax + (None, None, None), "fan_in")
+    ps.param(f"{path}/ba", pre + (W,), pax + ("model",), "zeros",
              dtype=torch.float32)
-    ps.param(f"{path}/w_out", pre + (W, D), "fan_in")
+    ps.param(f"{path}/wi", pre + (H, bw, bw), pax + (None, None, None), "fan_in")
+    ps.param(f"{path}/bi", pre + (W,), pax + ("model",), "zeros",
+             dtype=torch.float32)
+    # Λ init so that a = exp(-c·softplus(Λ)) lands in (0.9, 0.999)
+    ps.param(f"{path}/lam", pre + (W,), pax + ("model",), "normal", scale=0.5,
+             dtype=torch.float32)
+    ps.param(f"{path}/w_out", pre + (W, D), pax + ("model", "fsdp"), "fan_in")
 
 
 def _block_linear(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,8 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def init_rmsnorm(ps: ParamStore, path: str, dim: int, stacked: Optional[int]):
     shape = (stacked, dim) if stacked else (dim,)
-    ps.param(f"{path}/scale", shape, init="ones", dtype=torch.float32)
+    axes = (None, "embed") if stacked else ("embed",)
+    ps.param(f"{path}/scale", shape, axes, init="ones", dtype=torch.float32)
 
 
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -75,10 +76,12 @@ def init_mlp(ps: ParamStore, path: str, cfg: ModelConfig, d_ff: int,
              stacked: Optional[int]):
     D, F_ = cfg.d_model, d_ff
     pre = (stacked,) if stacked else ()
+    pax = (None,) if stacked else ()
     if cfg.act in ("silu", "geglu"):          # only these are gated
-        ps.param(f"{path}/w_gate", pre + (D, F_), "fan_in")
-    ps.param(f"{path}/w_in", pre + (D, F_), "fan_in")
-    ps.param(f"{path}/w_out", pre + (F_, D), "fan_in")
+        ps.param(f"{path}/w_gate", pre + (D, F_), pax + ("fsdp", "model"),
+                 "fan_in")
+    ps.param(f"{path}/w_in", pre + (D, F_), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/w_out", pre + (F_, D), pax + ("model", "fsdp"), "fan_in")
 
 
 def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -137,10 +140,11 @@ def shift_in(taps: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
 def init_embeddings(ps: ParamStore, cfg: ModelConfig):
     # std 1/sqrt(D): with the sqrt(D) embedding multiplier the residual
     # stream starts at unit RMS and tied logits stay O(1)
-    ps.param("embed/tok", (cfg.padded_vocab, cfg.d_model), "normal",
-             scale=cfg.d_model ** -0.5)
+    ps.param("embed/tok", (cfg.padded_vocab, cfg.d_model), ("model", "fsdp"),
+             "normal", scale=cfg.d_model ** -0.5)
     if not cfg.tie_embeddings:
-        ps.param("embed/head", (cfg.d_model, cfg.padded_vocab), "fan_in")
+        ps.param("embed/head", (cfg.d_model, cfg.padded_vocab),
+                 ("fsdp", "model"), "fan_in")
 
 
 def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:

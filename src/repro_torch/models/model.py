@@ -52,7 +52,8 @@ class Model:
         cfg = self.cfg
         init_embeddings(ps, cfg)
         if cfg.frontend in ("vision", "audio"):
-            ps.param("frontend/proj", (cfg.d_model, cfg.d_model), "fan_in")
+            ps.param("frontend/proj", (cfg.d_model, cfg.d_model),
+                     ("fsdp", None), "fan_in")
         if cfg.is_encoder_decoder:
             tf.init_stack(ps, "encoder", cfg, encoder=True)
             init_rmsnorm(ps, "enc_norm", cfg.d_model, None)
@@ -72,9 +73,21 @@ class Model:
 
     def abstract_params(self):
         """The parameter tree on the ``meta`` device: shapes, no storage."""
+        return self._abstract_store().params
+
+    def _abstract_store(self) -> ParamStore:
         ps = ParamStore(None, dtype_of(self.cfg), abstract=True)
         self._init(ps)
-        return ps.params
+        return ps
+
+    def param_pspecs(self):
+        """The :class:`~repro_torch.sharding.P` tree under the installed
+        rules (``sharding.use_mesh``), under the parameters' paths."""
+        return self._abstract_store().specs
+
+    def param_logical(self):
+        """Each parameter's logical axes, under its path."""
+        return self._abstract_store().logical
 
     def param_count(self) -> int:
         return sum(leaf.numel() for leaf in tree_leaves(self.abstract_params()))

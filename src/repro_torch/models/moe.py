@@ -38,10 +38,15 @@ def init_moe(ps: ParamStore, path: str, cfg: ModelConfig,
              stacked: Optional[int]):
     D, F_, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     pre = (stacked,) if stacked else ()
-    ps.param(f"{path}/router", pre + (D, E), "fan_in", dtype=torch.float32)
-    ps.param(f"{path}/w_gate", pre + (E, D, F_), "fan_in")
-    ps.param(f"{path}/w_in", pre + (E, D, F_), "fan_in")
-    ps.param(f"{path}/w_out", pre + (E, F_, D), "fan_in")
+    pax = (None,) if stacked else ()
+    ps.param(f"{path}/router", pre + (D, E), pax + ("fsdp", None), "fan_in",
+             dtype=torch.float32)
+    ps.param(f"{path}/w_gate", pre + (E, D, F_), pax + ("expert", "fsdp", None),
+             "fan_in")
+    ps.param(f"{path}/w_in", pre + (E, D, F_), pax + ("expert", "fsdp", None),
+             "fan_in")
+    ps.param(f"{path}/w_out", pre + (E, F_, D), pax + ("expert", None, "fsdp"),
+             "fan_in")
     if cfg.num_shared_experts:
         init_mlp(ps, f"{path}/shared", cfg,
                  cfg.moe_d_ff * cfg.num_shared_experts, stacked)

@@ -6,7 +6,9 @@ tensors under the reference's path strings, or — ``abstract=True`` — tensors
 the ``meta`` device that carry shape and dtype but no storage.  Random numbers
 come from an explicit ``torch.Generator``; they do not equal the reference's
 ``jax.random`` draws, so comparisons with the reference convert its tree with
-:func:`from_jax_params` instead.  The reference's sharding axes are dropped.
+:func:`from_jax_params` instead.  Each declaration also records its logical
+axes (``logical``) and their :class:`~repro_torch.sharding.P` under the
+installed rules (``specs``), under the same paths, as the reference does.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..sharding import logical_to_pspec
 
 
 def _set_path(tree: Dict, path: str, leaf: Any) -> None:
@@ -38,11 +41,16 @@ class ParamStore:
         self.device = torch.device("meta") if abstract \
             else resolve_device(device)
         self.params: Dict = {}
+        self.specs: Dict = {}
+        self.logical: Dict = {}
 
-    def param(self, path: str, shape: Sequence[int], init: str = "normal",
+    def param(self, path: str, shape: Sequence[int],
+              axes: Sequence[Optional[str]], init: str = "normal",
               scale: Optional[float] = None,
               dtype: Optional[torch.dtype] = None):
         shape = tuple(int(s) for s in shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"{path}: axes {axes} vs shape {shape}")
         dt = dtype or self.dtype
         if self.abstract:
             leaf = torch.empty(shape, dtype=dt, device="meta")
@@ -63,6 +71,8 @@ class ParamStore:
         else:
             raise ValueError(f"unknown init {init!r}")
         _set_path(self.params, path, leaf)
+        _set_path(self.specs, path, logical_to_pspec(axes))
+        _set_path(self.logical, path, tuple(axes))
         return leaf
 
 

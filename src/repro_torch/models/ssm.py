@@ -35,17 +35,22 @@ def init_mamba(ps: ParamStore, path: str, cfg: ModelConfig,
     N = cfg.ssm_state
     conv_ch = Din + 2 * N                  # x, B, C are convolved
     pre = (stacked,) if stacked else ()
-    ps.param(f"{path}/in_z", pre + (D, Din), "fan_in")
-    ps.param(f"{path}/in_xbc", pre + (D, conv_ch), "fan_in")
-    ps.param(f"{path}/in_dt", pre + (D, H), "fan_in")
-    ps.param(f"{path}/conv_w", pre + (cfg.conv_width, conv_ch), "normal",
-             scale=0.1)
-    ps.param(f"{path}/conv_b", pre + (conv_ch,), "zeros")
-    ps.param(f"{path}/A_log", pre + (H,), "zeros", dtype=torch.float32)
-    ps.param(f"{path}/D", pre + (H,), "ones", dtype=torch.float32)
-    ps.param(f"{path}/dt_bias", pre + (H,), "zeros", dtype=torch.float32)
-    ps.param(f"{path}/norm", pre + (Din,), "ones", dtype=torch.float32)
-    ps.param(f"{path}/out_proj", pre + (Din, D), "fan_in")
+    pax = (None,) if stacked else ()
+    ps.param(f"{path}/in_z", pre + (D, Din), pax + ("fsdp", "model"), "fan_in")
+    ps.param(f"{path}/in_xbc", pre + (D, conv_ch), pax + ("fsdp", "model"),
+             "fan_in")
+    ps.param(f"{path}/in_dt", pre + (D, H), pax + ("fsdp", None), "fan_in")
+    ps.param(f"{path}/conv_w", pre + (cfg.conv_width, conv_ch),
+             pax + (None, "model"), "normal", scale=0.1)
+    ps.param(f"{path}/conv_b", pre + (conv_ch,), pax + ("model",), "zeros")
+    ps.param(f"{path}/A_log", pre + (H,), pax + (None,), "zeros",
+             dtype=torch.float32)
+    ps.param(f"{path}/D", pre + (H,), pax + (None,), "ones", dtype=torch.float32)
+    ps.param(f"{path}/dt_bias", pre + (H,), pax + (None,), "zeros",
+             dtype=torch.float32)
+    ps.param(f"{path}/norm", pre + (Din,), pax + ("model",), "ones",
+             dtype=torch.float32)
+    ps.param(f"{path}/out_proj", pre + (Din, D), pax + ("model", "fsdp"), "fan_in")
 
 
 def _in_proj(p, x: torch.Tensor):

@@ -35,6 +35,7 @@ from . import attention as attn
 from . import griffin, moe, ssm
 from .layers import apply_mlp, apply_rmsnorm, dtype_of, init_mlp, init_rmsnorm
 from .params import ParamStore, tree_map
+from .pipeline import pipeline_stack
 
 BLOCK_TYPES = ("global", "local", "rglru", "mamba2", "enc", "xdec")
 
@@ -243,7 +244,9 @@ def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, encoder: bool = False,
                 enc_out: Optional[torch.Tensor] = None):
     """Training forward through the whole stack (the encoder's with
-    ``encoder=True``); ``cfg.remat`` wraps each repeat of the pattern."""
+    ``encoder=True``); ``cfg.remat`` wraps each repeat of the pattern.  A
+    decoder stack with ``cfg.pipeline_stages > 1`` runs as a GPipe pipeline
+    (``models/pipeline.py``)."""
     pat, reps, tail = stack_layout(cfg, encoder)
 
     def one_repeat(x, psl):
@@ -252,8 +255,14 @@ def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
         return x
 
     body = _remat_wrap(cfg, one_repeat)
-    for r in range(reps):
-        x = body(x, _repeat(params["stack"], r))
+    if reps and cfg.pipeline_stages > 1 and not encoder:
+        if tail:
+            raise ValueError("pipeline mode: layers % pattern must be 0")
+        x = pipeline_stack(params["stack"], cfg, x, positions, body,
+                           cfg.pipeline_microbatches)
+    else:
+        for r in range(reps):
+            x = body(x, _repeat(params["stack"], r))
     for j, bt in enumerate(tail):
         x = apply_block(params["tail"][f"t{j}"], cfg, bt, x, positions,
                         enc_out)

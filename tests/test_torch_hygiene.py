@@ -99,6 +99,24 @@ def test_importing_the_port_builds_nothing(tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_importing_the_port_sets_no_environment_variable():
+    """Every module of the port, the examples' twins and ``chip_smoke.py``'s
+    imports leave ``os.environ`` as they found it (the reference's dry-run
+    sets ``XLA_FLAGS`` at import; the port's does not)."""
+    code = ("import importlib, os, pkgutil, sys, repro_torch\n"
+            "before = dict(os.environ)\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    if not m.name.endswith('__main__'):\n"
+            "        importlib.import_module(m.name)\n"
+            "sys.path.insert(0, sys.argv[1])\n"
+            "import autotune_sharding_torch, dse_pareto_torch\n"
+            "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
+            "print('ENV UNCHANGED')\n")
+    proc = _run(["-c", code, str(ROOT / "examples")])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "ENV UNCHANGED" in proc.stdout
+
+
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_port_sources(path):
@@ -191,6 +209,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     for args in (["-m", "repro_torch.launch.train", "--preset", "tiny"],
+                 ["-m", "repro_torch.launch.dryrun", "--arch", "mamba2-130m",
+                  "--shape", "long_500k"],
+                 ["-m", "repro_torch.launch.hillclimb", "--cell", "long"],
+                 [str(ROOT / "examples" / "autotune_sharding_torch.py")],
                  [str(ROOT / "examples" / "train_lm_torch.py")],
                  [str(ROOT / "examples" / "serve_decode_torch.py")]):
         proc = _run(args)

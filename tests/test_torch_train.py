@@ -110,7 +110,7 @@ def test_presets_train_blocked_and_refuse_what_is_not_ported():
         "blocked", "none", "float32", 64)
     assert (full.attn_impl, full.remat, full.dtype, full.d_model) == (
         "blocked", "full", "bfloat16", get_config("gemma2-2b").d_model)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="has 256 devices; this process has"):
         train_with_retries(production_mesh=True, steps=1, device=CPU)
     with pytest.raises(ValueError, match="frontend"):
         train_config("paligemma-3b", "full")
