@@ -308,7 +308,19 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            unbroken CPU steps; (e) the autotune example's simulation on the
            card, K1 once a layout (3, exact), each layout's step equal to
            the event-heap simulator on the CPU within 1e-6.  (a)-(d) launch
-           no kernel.
+           no kernel;
+14. lint   the port's static linter and its counter gate
+           (``repro_torch.analysis``): (a) ``python -m repro_torch.analysis
+           --strict`` on this checkout in a process of its own, exit 0, with
+           the files it scanned, its findings by rule (active and waived)
+           and its wall time, and the analysis alone timed in this process;
+           (b) phase 7's smallest sweep (3 designs x 3
+           rates) as a user calls it, K1 once (exact), its
+           ``obs.bench.rows_payload(device=the card)`` written to a
+           temporary ``BENCH_*.json`` and gated: against a contract equal
+           to the counts it carries, no finding; against the same contract
+           one lower on any one counter, exactly one CC001 finding, naming
+           that counter.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -333,6 +345,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -340,6 +353,7 @@ import os
 
 # phase 12 trains under torch.use_deterministic_algorithms(True), which needs
 # cuBLAS's workspace fixed before the process's first cuBLAS call
+# lint: waive TX003 -- a program, not a module (ROADMAP, "Bit-exact resume")
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
@@ -382,6 +396,9 @@ from repro_torch.launch.train import (deterministic, train,  # noqa: E402
                                       train_config, train_with_retries)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.analysis import (compile_gate, load_config,  # noqa: E402
+                                  run_analysis)
+from repro_torch.obs import bench as obs_bench  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import telemetry as obs_tel  # noqa: E402
@@ -521,7 +538,7 @@ def phase_build(verbose: bool):
     t0 = time.perf_counter()
     libs = _build.build_all(verbose=verbose)
     for name in libs:
-        _build.load(name)
+        _build.load(name)  # lint: waive TX003 -- opens each built library once
     log(f"[build] {len(libs)} CUDA sources ({', '.join(sorted(libs))}) built "
         f"and loaded in {time.perf_counter() - t0:.1f} s into "
         f"{_build.build_dir()}")
@@ -4261,6 +4278,113 @@ def phase_layouts(smi: str) -> dict:
     return {"epoch_scan": k1_example}
 
 
+# ------------------------------------------------------------------ lint
+
+def phase_lint(smi: str) -> dict:
+    """Phase 14: (a) the port's linter on this checkout, as a user runs it;
+    (b) its counter gate on the card's own counters: the manifest of a sweep
+    on the card, gated against contracts at and one below its counts.
+    Returns (b)'s K1 launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the linter, in a process of its own
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--strict",
+             "--report", str(tmp / "lint.json")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        lint_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[lint] python -m repro_torch.analysis "
+                                 f"--strict exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        rep = json.loads((tmp / "lint.json").read_text())
+        by_rule = {}
+        for f in rep["findings"]:
+            active, waived = by_rule.get(f["code"], (0, 0))
+            by_rule[f["code"]] = (active + (not f["waived"]),
+                                  waived + f["waived"])
+        if rep["summary"]["active"]:
+            raise AssertionError(f"[lint] active findings: {rep['summary']}")
+        # the analysis alone, in this process (the subprocess's wall also
+        # holds the interpreter's start and torch's import)
+        t0 = time.perf_counter()
+        again = run_analysis(load_config(ROOT), strict=True)
+        analysis_s = time.perf_counter() - t0
+        if not again.ok or len(again.findings) != len(rep["findings"]):
+            raise AssertionError(f"[lint] in-process analysis: "
+                                 f"{len(again.active)} active, "
+                                 f"{len(again.findings)} findings")
+        log(f"[lint] (a) python -m repro_torch.analysis --strict: exit 0, "
+            f"{len(rep['files'])} files, rules {','.join(rep['rules'])}, "
+            f"findings by rule (active, waived) "
+            + ", ".join(f"{c} {a}/{w}" for c, (a, w) in sorted(by_rule.items()))
+            + f"; {lint_s:.2f} s wall in all, the analysis alone "
+              f"{analysis_s:.2f} s in process (Python "
+              f"{sys.version.split()[0]})  [{smi}]")
+
+        # (b) the gate on the card's counters: phase 7's smallest sweep
+        mix = Scenario(apps=("wifi_tx", "wifi_rx"),
+                       trace=TraceSpec(rate_jobs_per_ms=20.0,
+                                       num_jobs=SWEEP_JOBS, seed=1))
+        axes = {"design": SWEEP_DESIGNS, "rate": SWEEP_RATES}
+        counts_zero()
+        for key in sweep_mod.scan_calls:
+            sweep_mod.scan_calls[key] = 0
+        t0 = time.perf_counter()
+        sr = sweep(mix, axes)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        assert_counts({"epoch_scan": 1}, "[lint] sweep design x rate")
+        if not np.isfinite(sr.avg_latency_us).all() or sr.num_points != 9:
+            raise AssertionError(f"[lint] sweep: {sr.num_points} points, "
+                                 f"latency {sr.avg_latency_us}")
+        payload = obs_bench.rows_payload(
+            [("points", sr.num_points, "design x rate"),
+             ("avg_latency_us", float(np.mean(sr.avg_latency_us)), "mean")],
+            "lint_sweep", wall_s, device=DEV)
+        if payload["manifest"]["device_platform"] != "gpu":
+            raise AssertionError(f"[lint] manifest {payload['manifest']}")
+        got = compile_gate.bench_counters(payload)
+        want = {f"k1_launches.{n}": int(n == "epoch_scan")
+                for n in K1_VARIANTS.values()}
+        want.update({f"scan_calls.{n}": int(n == "epoch_scan")
+                     for n in K1_VARIANTS.values()})
+        if got != want:
+            raise AssertionError(f"[lint] the manifest's counters {got}, "
+                                 f"expected {want}")
+        bench = tmp / "BENCH_lint_sweep.json"
+        bench.write_text(json.dumps(payload))
+
+        def gate(contract: dict) -> list:
+            path = tmp / "contracts.json"
+            path.write_text(json.dumps({
+                "schema": compile_gate.CONTRACTS_SCHEMA,
+                "contracts": {"lint_sweep": contract}}))
+            return compile_gate.check_compile_gate(path, [bench])
+
+        found = gate(dict(got))
+        if found:
+            raise AssertionError(f"[lint] the gate at the printed counts: "
+                                 f"{[f.render() for f in found]}")
+        for name, n in sorted(got.items()):
+            found = gate(dict(got, **{name: n - 1}))
+            if len(found) != 1 or found[0].code != "CC001" \
+                    or f"`{name}`" not in found[0].message \
+                    or "+1 over budget" not in found[0].message:
+                raise AssertionError(f"[lint] the gate with `{name}` one "
+                                     f"below: {[f.render() for f in found]}")
+    log(f"[lint] (b) sweep of {sr.num_points} points on the card: counters "
+        + ", ".join(f"{k} {v}" for k, v in sorted(got.items()) if v)
+        + f" (the other {sum(not v for v in got.values())} 0); gated at "
+          f"those counts: no finding; each of the {len(got)} counters one "
+          f"lower: exactly one CC001 finding naming it")
+    log(f"[lint] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"epoch_scan": 1}
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -4312,6 +4436,8 @@ def main():
         launches[name] += n
     phase_train(smi, gen)
     for name, n in phase_layouts(smi).items():
+        launches[name] += n
+    for name, n in phase_lint(smi).items():
         launches[name] += n
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]

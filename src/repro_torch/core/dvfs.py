@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -99,7 +99,9 @@ class GovernorPolicy:
     thermal_dt_s: float = 50.0e-6
 
 
-def validate_policy_params(sample_window_us, up_threshold, thermal_dt_s):
+def validate_policy_params(sample_window_us: Union[float, Sequence[float]],
+                           up_threshold: Union[float, Sequence[float]],
+                           thermal_dt_s: Union[float, Sequence[float]]):
     """Positivity checks every dynamic-policy entry point shares (governor
     constructor and the kernels' entry points).  Accepts scalars
     or arrays (stacked policy lanes)."""
@@ -181,7 +183,7 @@ def throttle_index_torch(idx: torch.Tensor, temp_c: torch.Tensor,
                        torch.zeros_like(idx), idx)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class PolicyLanes:
     """Dynamic policies as per-lane float32 tensors on the host: what the
     DTPM epoch scan reads, the same values for its kernel and its plain
@@ -243,7 +245,10 @@ def policy_lanes(policies, lanes: int) -> PolicyLanes:
     dts = [float(np.float32(p.thermal_dt_s)) for p in pols]
     rc = {dt: exact_step_matrices(torch.tensor(dt, dtype=torch.float32))
           for dt in set(dts)}
-    f32 = lambda xs: torch.tensor(np.asarray(xs, np.float32))
+
+    def f32(xs: List[float]) -> torch.Tensor:
+        return torch.tensor(np.asarray(xs, np.float32))
+
     return PolicyLanes(
         window=f32([p.sample_window_us for p in pols]),
         up=f32([p.up_threshold for p in pols]),

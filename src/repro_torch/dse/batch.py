@@ -35,7 +35,7 @@ from ..core.thermal import NODE_ACCEL, cluster_nodes
 from .space import DesignPoint
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class DesignBatch:
     """D stacked designs ready for batched simulation.
 

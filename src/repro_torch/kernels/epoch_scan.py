@@ -145,7 +145,9 @@ def lane_designs(tables, L: int, device=None) -> torch.Tensor:
 def lane_p_max(tables, L: int) -> list:
     """Each lane's design's largest active power (the DTPM tables'
     ``power_active_opp``), the scale :func:`quanta` takes per lane."""
+    # lint: waive TX001 -- once a launch: the exponents are host integers
     p_max = per_design(tables, "power_active_opp").flatten(1).amax(1).tolist()
+    # lint: waive TX001 -- once a launch: each lane's design, on the host
     return [p_max[d] for d in lane_designs(tables, L).tolist()]
 
 
@@ -155,6 +157,7 @@ def _check_table(tables, policy: str):
     design of a stack, elementwise)."""
     if policy == "table":
         pe = tables.table_pe
+        # lint: waive TX001 -- a check once a launch: a bad entry reads PE -1
         if bool((tables.valid & ((pe < 0) | (pe >= tables.num_pes))).any()):
             raise ValueError("table policy: a valid task has no table entry "
                              f"(table_pe == -1) or one outside 0..{tables.num_pes - 1}")
@@ -181,7 +184,7 @@ def quanta(window: torch.Tensor, p_max) -> torch.Tensor:
     overlap, so a PE's window sum stays below ``2**(QUANTUM_BITS + 1)`` (the
     roundings add at most half a unit a term) and a domain's of at most 32
     PEs below 2**53: exact in int64 and in a double, in any order."""
-    windows = window.tolist()
+    windows = window.tolist()  # lint: waive TX001 -- once a launch, host ints
     if isinstance(p_max, (int, float)):
         p_max = [p_max] * len(windows)
     out = []
@@ -604,6 +607,7 @@ def _check_faults(faults, policy: str, L: int, P: int) -> torch.Tensor:
     if faults.shape != (L, P):
         raise ValueError(f"epoch_scan: fault plans {tuple(faults.shape)}, "
                          f"{L} lanes of {P} PEs need {(L, P)}")
+    # lint: waive TX001 -- a check once a launch: NaN would never fire
     if bool(torch.isnan(faults).any()):
         raise ValueError("epoch_scan: a fail time is NaN")
     return faults.to(torch.float32)
@@ -751,6 +755,7 @@ def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
     return info
 
 
+# lint: waive KL001 -- its inputs are tables, traces and fail times: no grad
 def epoch_scan(tables, policy: str, arrival: torch.Tensor,
                app_idx: torch.Tensor, gov=None, faults=None):
     """(L, J) lanes of one table set -> (scheduled, start, finish, onpe), each
@@ -794,6 +799,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
         raise ValueError(f"epoch_scan: {J} jobs of {T} tasks on {P} PEs need "
                          f"{nbytes} bytes of shared memory a block; the card "
                          f"has {MAX_SHARED}")
+    # lint: waive TX001 -- a check once a launch: K1 would read out of bounds
     if bool(((app_idx < 0) | (app_idx >= A)).any()):
         raise ValueError(f"epoch_scan: an app index outside 0..{A - 1}")
     prep = _prepare(tables, policy)
@@ -820,6 +826,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
         fault_args = [faults.contiguous(),
                       torch.empty((L, J, T), dtype=torch.float32, device=dev),
                       fault_outs[0]]
+        # lint: waive TX001 -- once a launch: the step cap is a kernel argument
         cap = [fault_scan_steps(J, T, int(torch.isfinite(faults).sum(1).max()))]
     global launches
     with torch.cuda.device(dev):

@@ -157,7 +157,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                    key_tile(S, Dh, B, H, sms))
 
 
-def _launch(q, k, v, causal, window, softcap, scale, bk: int):
+def _launch(q, k, v, causal: bool, window: Optional[int],
+            softcap: Optional[float], scale: float, bk: int):
     """One launch on checked inputs with ``bk`` keys per tile (bf16)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]

@@ -152,7 +152,7 @@ def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = F.embedding(tokens, p["embed"]["tok"]).to(dt)
     # gemma-style scale; the multiplier is rounded to the model dtype first
     mult = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dt)
-    return x * float(mult)
+    return x * float(mult)  # lint: waive TX001 -- a CPU tensor: no sync
 
 
 def lm_logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

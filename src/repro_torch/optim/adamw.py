@@ -99,10 +99,12 @@ def adamw_update(cfg: AdamWConfig, grads: Pytree, opt_state: Pytree,
     def upd(g, m, v, w):
         g = g.float() * scale                      # a new tensor
         m2 = m.float()                             # m itself when f32
+        # lint: waive DN001 -- m2 is m when f32, on purpose (else copied back)
         m2.mul_(cfg.b1)
         t = (1.0 - cfg.b1) * g
         m2.add_(t)                                 # b1·m + (1-b1)·g
         v2 = v.float()
+        # lint: waive DN001 -- v2 is v when f32, on purpose (else copied back)
         v2.mul_(cfg.b2)
         g.square_()
         g.mul_(1.0 - cfg.b2)

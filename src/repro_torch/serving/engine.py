@@ -91,7 +91,8 @@ class ServeEngine:
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     toks, pos)
         self.ticks += 1
-        nxt_all = torch.argmax(logits[:, -1], dim=-1).tolist()  # the one sync
+        # lint: waive TX001 -- the one sync a tick: the host needs the tokens
+        nxt_all = torch.argmax(logits[:, -1], dim=-1).tolist()
         # engine-relative monotonic clock
         now = time.perf_counter() - self._t0
         for i in act:

@@ -26,6 +26,7 @@ import sys
 import time
 from pathlib import Path
 
+# lint: waive TX003 -- a program: set before torch's first cuBLAS call
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
