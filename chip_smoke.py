@@ -14,7 +14,8 @@ those paths against its plain PyTorch version; then trains mamba2-130m and
 gemma2-2b at published widths (``repro_torch.launch.train``), a path with no
 kernel, and drives the layouts and launch tools (the GPipe schedule at
 granite-3-8b's published width, the ``meta`` dry-run against the card, the
-autotune example on K1).  Needs one CUDA device;
+autotune example on K1), the linter, and the dry-run's collectives (steps run
+as DTensors over a fake process group).  Needs one CUDA device;
 without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
@@ -300,7 +301,8 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            count of the same step on the card (exact), the accounted
            argument bytes against what materialising parameters, optimizer
            state, batch and cache allocates (1%); then the three hillclimb
-           cells on pod16x16 with their roofline terms; (c) a 8192^3 bf16
+           cells on pod16x16 with their roofline terms (the collective one
+           from phase 15's count); (c) a 8192^3 bf16
            ``torch.matmul`` and a 4 GiB device copy (CUDA events, median of
            5) beside the data sheet's rates, failing above 105% of them;
            (d) reduced granite-3-8b: 5 steps on the card, saved, restored
@@ -320,7 +322,22 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            temporary ``BENCH_*.json`` and gated: against a contract equal
            to the counts it carries, no finding; against the same contract
            one lower on any one counter, exactly one CC001 finding, naming
-           that counter.
+           that counter;
+15. collectives the dry-run's partitioned count (``launch/dryrun.py``:
+           each step run as DTensors over a fake process group whose mesh
+           is the cell's, ``sharding.shard`` restoring the reference's
+           activation constraints): (a) gemma2-2b prefill_32k, dbrx-132b
+           decode_32k and mamba2-130m train_4k at full width and depth on
+           pod16x16 (a fake world of 256 on this machine's host), each
+           cell's collective result and wire bytes and counts by kind, the
+           count's seconds and the roofline's three terms (NVLink's 450 GB/s
+           each way for the collective one); (b) the CPU test's reduced
+           granite-3-8b prefill on a (2, 4) fake world, its 34 collectives
+           equal to the list derived by hand in tests/hand_layouts.py
+           (exact: this torch's DTensor chooses what the CPU's does); (c)
+           the same step on CUDA tensors as DTensors over a (1, 1) cuda
+           mesh (a fake world of one): no collective, logits and cache equal
+           to the plain step bit for bit.  Launches no kernel.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -367,6 +384,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch.nn.functional as F  # noqa: E402
+from torch.utils._pytree import tree_flatten  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
@@ -389,7 +407,8 @@ from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.launch import dryrun, hillclimb, roofline  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, rules_for  # noqa: E402
+from repro_torch.launch.mesh import (LINK_BW, make_host_mesh,  # noqa: E402
+                                    rules_for)
 from repro_torch.launch.steps import (batch_to, init_opt_state,  # noqa: E402
                                       make_train_step)
 from repro_torch.launch.train import (deterministic, train,  # noqa: E402
@@ -4141,7 +4160,9 @@ def phase_layouts_dryrun(smi: str):
             f"partitioned): {rec['flops']:.4e} matmul FLOPs and "
             f"{rec['bytes_accessed']:.4e} bytes a device, compute "
             f"{t['t_compute']:.4e} s, memory {t['t_memory']:.4e} s, "
-            f"collective n/a, dominant {t['dominant']}, MODEL/counted "
+            f"collective {t['t_collective']:.4e} s at "
+            f"{LINK_BW / 1e9:.0f} GB/s, dominant "
+            f"{t['dominant']}, MODEL/counted "
             f"{t['model_flops_frac']:.3f}, arguments "
             f"{rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.2f} GB"
             f" a device (fits {rec['fits']}); counted in "
@@ -4385,6 +4406,106 @@ def phase_lint(smi: str) -> dict:
     return {"epoch_scan": 1}
 
 
+# ------------------------------------------------------------------ phase 15
+
+COLL_CELLS = (("gemma2-2b", "prefill_32k"), ("dbrx-132b", "decode_32k"),
+              ("mamba2-130m", "train_4k"))
+COLL_REDUCED = ("granite-3-8b", ShapeConfig("prefill_s64", 64, 4, "prefill"))
+
+
+def reduced_cell(arch: str, shape, mesh_shape) -> "dryrun.Cell":
+    cfg = get_config(arch)
+    r = reduced(cfg)
+    ov = {f.name: getattr(r, f.name) for f in dataclasses.fields(cfg)
+          if getattr(r, f.name) != getattr(cfg, f.name)}
+    return dryrun.build_cell(arch, shape, False, overrides=ov,
+                             mesh_shape=mesh_shape)
+
+
+def local_tree(tree):
+    """A step's outputs with every ``DTensor`` as its local tensor."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(local_tree(v) for v in tree)
+    return tree.to_local() if hasattr(tree, "to_local") else tree
+
+
+def phase_collectives(smi: str):
+    """Phase 15: the dry-run's partitioned count on this machine.  (a) three
+    cells at full width on pod16x16 (a fake world of 256 on the host); (b)
+    the CPU test's reduced cell, its collectives equal to the list derived
+    by hand; (c) a (1, 1) mesh over a fake world of one on the card: the
+    reduced granite-3-8b prefill step on CUDA tensors equals the plain
+    step bit for bit and issues no collective.  Launches no kernel."""
+    t_phase = time.perf_counter()
+    counts_zero()
+    for arch, shape in COLL_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, save=False, device=DEV)
+        t = roofline.cell_terms(rec)
+        counts_ = rec["collective_counts"]
+        if tuple(counts_) != dryrun.COLLECTIVES or not counts_["all-gather"]:
+            raise AssertionError(f"[collectives] (a) {arch} {shape}: {rec}")
+        log(f"[collectives] (a) {arch} x {shape} x pod16x16 (fake world of "
+            f"{rec['num_devices']}, full depth, {rec['microbatches']} "
+            f"microbatch(es)): counts {counts_}; result bytes a device "
+            f"{rec['collective_bytes']}; wire bytes a device "
+            f"{rec['collective_wire_bytes']} (sum "
+            f"{sum(rec['collective_wire_bytes'].values()):.4e}); counted in "
+            f"{rec['collective_count_s']} s ({rec['count_s']} s for FLOPs "
+            f"and bytes; {time.perf_counter() - t0:.1f} s in this phase: a "
+            f"cell phase 13 counted is not counted again); roofline "
+            f"compute {t['t_compute']:.4e} s, memory {t['t_memory']:.4e} s, "
+            f"collective {t['t_collective']:.4e} s at "
+            f"{LINK_BW / 1e9:.0f} GB/s NVLink, dominant "
+            f"{t['dominant']} (H100 SXM data-sheet figures)  [{smi}]")
+
+    arch, shape = COLL_REDUCED
+    cell = reduced_cell(arch, shape, (2, 4))
+    t0 = time.perf_counter()
+    events, _ = dryrun.count_collectives(cell.step, cell.args, cell.mesh,
+                                         cell.rules, cell.arg_specs)
+    got = [tuple(e) for e in events]
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:      # the one list tests/test_torch_collectives.py holds too
+        want = importlib.import_module("hand_layouts").granite_prefill_by_hand()
+    finally:
+        sys.path.pop(0)
+    if got != want:
+        raise AssertionError(f"[collectives] (b) {arch} prefill on (2, 4) "
+                             f"under torch {torch.__version__}:\n counted "
+                             f"{got}\n by hand  {want}")
+    res, wire, cnt = dryrun.collective_bytes(events)
+    log(f"[collectives] (b) reduced {arch} prefill B=4 S=64 on a (2, 4) "
+        f"fake world: {len(got)} collectives equal to the list derived by "
+        f"hand (exact, torch {torch.__version__}): counts {cnt}, result "
+        f"bytes {res}, wire bytes {wire}; {time.perf_counter() - t0:.2f} s")
+
+    cell = reduced_cell(arch, shape, (1, 1))
+    args = dryrun.real_args(cell, DEV, seed=0)
+    with torch.no_grad():
+        want_out = cell.step(*args)
+    events, got_out = dryrun.count_collectives(
+        cell.step, args, cell.mesh, cell.rules, cell.arg_specs,
+        device_type="cuda")
+    got_leaves = tree_flatten(local_tree(got_out))[0]
+    want_leaves = tree_flatten(want_out)[0]
+    if events or len(got_leaves) != len(want_leaves) or not all(
+            g.device.type == "cuda" and torch.equal(g, w)
+            for g, w in zip(got_leaves, want_leaves)):
+        raise AssertionError(f"[collectives] (c) (1, 1) mesh on the card: "
+                             f"{events} collectives; outputs equal: "
+                             f"{[torch.equal(g, w) for g, w in zip(got_leaves, want_leaves)]}")
+    if any(counts().values()):
+        raise AssertionError(f"[collectives] launched kernels: {counts()}")
+    log(f"[collectives] (c) reduced {arch} prefill on CUDA tensors as "
+        f"DTensors over a (1, 1) cuda mesh (a fake world of one): no "
+        f"collective, {len(got_leaves)} outputs (logits, cache) equal to "
+        f"the plain step bit for bit; no kernel launched")
+    log(f"[collectives] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -4439,6 +4560,7 @@ def main():
         launches[name] += n
     for name, n in phase_lint(smi).items():
         launches[name] += n
+    phase_collectives(smi)
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]
     measured["epoch_scan_dtpm"]["sweep_dtpm_grid"] = sweep_measured["dtpm_grid"]

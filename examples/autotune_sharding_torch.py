@@ -9,11 +9,13 @@ candidate SoC configurations, and the port's simulator (the epoch scan, K1
 on the card) evaluates a training step against each, with the ETF
 scheduler.  The layout with the best simulated step time is selected.
 
-The port's records hold no collective bytes (a one-card step has no
-partitioned program), so the collective bytes always come from the
-reference's fallback, 0.002 bytes a FLOP; no link rate is measured on a
-one-card machine, so they are printed beside the per-layer cost and not
-priced into it: the costs are compute only.
+A record's collective wire bytes (``extrapolated.wire``: the step run as
+DTensors over a fake process group of the 16×16 mesh) are taken when the
+record has them, scaled to the layout as the reference scales them; without
+a record, the reference's fallback, 0.002 bytes a FLOP.  They are printed
+with their time at the H100's NVLink data-sheet rate (``LINK_BW``) beside
+the per-layer cost and not priced into it: no link is measured on a
+one-card machine, so the simulated costs are compute only.
 
     PYTHONPATH=src python examples/autotune_sharding_torch.py \
         --arch granite-3-8b [--device cpu]
@@ -25,7 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import (PE, Application, CommModel, ResourceDB, Task,
                               build_tables, deterministic_trace,
                               simulate_torch)
-from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import LINK_BW, PEAK_FLOPS_BF16
 from repro_torch.launch.roofline import load_cell, model_flops
 
 # candidate pod layouts: (name, data_par, model_par, accum)
@@ -42,11 +44,17 @@ def layer_costs_us(arch: str, shape_name: str, dp: int, tp: int):
     cfg = get_config(arch)
     rec = load_cell(arch, shape_name, "pod16x16")
     chips = dp * tp
-    if rec is not None and rec.get("extrapolated"):
-        flops_dev = rec["extrapolated"]["flops"] * 256 / chips
+    ex = (rec or {}).get("extrapolated") or {}
+    if ex:
+        flops_dev = ex["flops"] * 256 / chips
     else:
         flops_dev = model_flops(arch, shape_name) / chips * 1.4  # remat tax
-    wire_dev = flops_dev * WIRE_BYTES_PER_FLOP
+    if ex.get("wire"):                  # older records hold no collectives
+        wire_dev = sum(ex["wire"].values()) * 256 / chips
+        # TP collectives scale with tp relative to the measured 16-way layout
+        wire_dev *= tp / 16
+    else:
+        wire_dev = flops_dev * WIRE_BYTES_PER_FLOP
     n = cfg.num_layers + cfg.num_encoder_layers
     comp_us = flops_dev / PEAK_FLOPS_BF16 / n * 1e6
     return comp_us, wire_dev
@@ -107,9 +115,13 @@ def main(argv=None):
     print(f"autotuning {args.arch} × {args.shape} over {len(CANDIDATES)} "
           f"layouts (DS3 ETF simulation on the port's epoch scan):\n")
     rows = simulate_layouts(args.arch, args.shape, args.device)
+    cfg = get_config(args.arch)
+    n_layers = cfg.num_layers + cfg.num_encoder_layers
     for name, comp, wire, step_ms in rows:
-        print(f"  {name:<10} per-layer comp={comp:8.1f}us coll=n/a "
-              f"({wire:.3e} B/dev) -> simulated step {step_ms:9.2f} ms")
+        coll_us = wire / LINK_BW / n_layers * 1e6
+        print(f"  {name:<10} per-layer comp={comp:8.1f}us coll={coll_us:8.1f}us"
+              f" at NVLink ({wire:.3e} B/dev) -> simulated step "
+              f"{step_ms:9.2f} ms")
     best = min(rows, key=lambda r: r[3])
     print(f"\nselected layout: {best[0]}  ({best[3]:.2f} ms/step simulated)")
 

@@ -28,10 +28,27 @@ cell's global shapes and full depth, and records:
     most the card's memory (``--device cuda``: the card's; ``cpu``: the
     H100's 80 GB).
 
-``collective_*`` are ``None``: the reference parses XLA's partitioned HLO for
-them, and a one-card torch step has no partitioned program.  The step's
-program does not depend on the mesh beyond its microbatch count, so one
-count serves every mesh with the same microbatch count (``_COUNTS``).
+``collective_bytes`` / ``collective_wire_bytes`` / ``collective_counts``
+come from a second run of the same step, partitioned: under
+:func:`fake_world` (a fake process group of the mesh's size, rank 0, and a
+``DeviceMesh`` with the mesh's axes) every argument is a ``DTensor`` holding
+rank 0's block on ``meta`` (:func:`distribute`), the model's activation
+constraints (``sharding.shard``) redistribute as the reference's
+``with_sharding_constraint`` does, and :class:`CollectiveCounter` records
+every collective the step issues as (kind, result bytes on rank 0, group
+size).  :func:`collective_bytes` sums them under the reference's five kinds
+and ring factors.  These are the collectives of one full-depth step, the
+twin of the reference's ``extrapolated.coll`` / ``.wire`` (a step's
+collectives from its R=1/R=2 probes), not of its ``collective_*`` (static op
+counts of a program whose layer loop is scanned, so the body counts once);
+the record carries them under both names.  DTensor's partitioner picks its
+own collectives, not always XLA's kind (an all-gather where XLA takes an
+all-to-all, say), so the counts are the port's, held to the reference's
+arithmetic and to layouts derived by hand (tests/test_torch_collectives.py).
+
+The plain count does not depend on the mesh beyond its microbatch count, so
+one serves every mesh with the same microbatch count; the partitioned count
+is kept per mesh and rules (``_COUNTS``).
 
 Results land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``;
 ``launch/roofline.py`` aggregates them.
@@ -43,12 +60,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import math
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -61,7 +80,8 @@ from ..configs import (ARCHITECTURES, SHAPES, ShapeConfig, cell_is_runnable,
 from ..models import Model, build_model
 from ..models.params import tree_leaves
 from ..optim import AdamWConfig
-from ..sharding import Mesh, P, logical_to_pspec, shard_shape, use_mesh
+from ..sharding import (Mesh, P, logical_to_pspec, placements,
+                        shard_shape, use_mesh)
 from .mesh import HBM_BYTES, make_production_mesh, rules_for
 from .specs import batch_specs, cache_specs, enc_len_of
 from .steps import (init_opt_state, make_prefill_step, make_serve_step,
@@ -259,19 +279,223 @@ def real_args(cell: Cell, device, seed: int = 0) -> Tuple:
             torch.zeros((), dtype=torch.int32, device=dev))
 
 
+# ------------------------------------------------ the partitioned count
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# functional collectives (``torch.ops._c10d_functional``) by kind; the
+# position of the group size among the arguments, or None (resolve the group)
+_FUNCOL = {"all_gather_into_tensor": ("all-gather", 1),
+           "all_gather_into_tensor_coalesced": ("all-gather", 1),
+           "all_reduce": ("all-reduce", None),
+           "all_reduce_coalesced": ("all-reduce", None),
+           "reduce_scatter_tensor": ("reduce-scatter", 2),
+           "reduce_scatter_tensor_coalesced": ("reduce-scatter", 2),
+           "all_to_all_single": ("all-to-all", None)}
+
+Collective = collections.namedtuple("Collective", "kind nbytes group")
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Mesh, device_type: str = "cpu"):
+    """A fake process group of ``mesh.size`` ranks (this process is rank 0;
+    collectives move nothing) and a ``DeviceMesh`` of ``device_type`` with
+    the mesh's axis names and sizes, yielded; the group is destroyed on exit.
+    Refuses to start while a process group exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group already exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh(device_type, mesh.axis_sizes,
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def distribute(values, specs, device_mesh, mesh: Mesh):
+    """The value tree as ``DTensor``s over ``device_mesh``: each leaf holds
+    rank 0's block of its layout (``spec`` on ``mesh``) on the leaf's own
+    device, with the leaf's global shape and stride.  A dimension its axes
+    do not divide keeps ceil(d/k) rows on rank 0, as ``memory_analysis``
+    counts them (DTensor's uneven split, ``torch.chunk``'s)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, spec):
+        block = t[tuple(slice(0, n) for n in shard_shape(t.shape, spec, mesh))]
+        return DTensor.from_local(block.contiguous(), device_mesh,
+                                  placements(spec, mesh), run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def walk(v, spec):
+        if isinstance(spec, P):
+            if isinstance(v, torch.Tensor):
+                return one(v, spec)
+            if isinstance(v, dict):
+                return {k: walk(x, spec) for k, x in v.items()}
+            return type(v)(walk(x, spec) for x in v)
+        if isinstance(v, (tuple, list)):
+            return type(v)(walk(x, sp) for x, sp in zip(v, spec))
+        return {k: walk(v[k], spec[k]) for k in v}
+
+    return walk(values, specs)
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Records each collective a ``DTensor`` program issues as
+    :data:`Collective` (kind, result bytes on rank 0, group size), in order.
+
+    DTensor's resharding all-to-all (``shard_dim_alltoall``) is one
+    all-to-all on every device type: on a CPU mesh DTensor runs it as an
+    all-gather and a chunk, and on a CUDA mesh as its own op, so the counter
+    wraps the function and records the all-to-all itself, ignoring the
+    collectives issued inside it.  A collective of another kind raises."""
+
+    def __init__(self):
+        super().__init__()
+        self.events: List[Collective] = []
+        self._inside_a2a = 0
+        self._patched = []
+
+    def _wrap_a2a(self, fn):
+        def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            self._inside_a2a += 1
+            try:
+                out = fn(input, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._inside_a2a -= 1
+            self.events.append(Collective(
+                "all-to-all", out.numel() * out.element_size(),
+                mesh.size(mesh_dim)))
+            return out
+        return shard_dim_alltoall
+
+    def __enter__(self):
+        import sys
+        from torch.distributed.tensor import _collective_utils as cu
+        orig = cu.shard_dim_alltoall
+        wrapped = self._wrap_a2a(orig)
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("torch.distributed.tensor") and \
+                    getattr(mod, "shard_dim_alltoall", None) is orig:
+                self._patched.append((mod, orig))
+                mod.shard_dim_alltoall = wrapped
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for mod, orig in self._patched:
+            mod.shard_dim_alltoall = orig
+        self._patched.clear()
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(t is DTensor for t in types):
+            return NotImplemented         # let DTensor lower to local ops
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ns = getattr(func, "namespace", None)
+        if ns not in ("_c10d_functional", "_dtensor") or self._inside_a2a:
+            return out
+        name = func._overloadpacket.__name__
+        if name in ("wait_tensor", "_wrap_tensor_autograd"):
+            return out                    # bookkeeping, not collectives
+        if name == "shard_dim_alltoall":
+            raise RuntimeError("shard_dim_alltoall outside the counter's "
+                               "wrapper")
+        if name not in _FUNCOL:
+            raise NotImplementedError(f"collective {func} is not counted")
+        kind, gpos = _FUNCOL[name]
+        if gpos is not None:
+            group = int(args[gpos])
+        else:
+            from torch.distributed import distributed_c10d as c10d
+            group = c10d._resolve_process_group(args[-1]).size()
+        self.events.append(Collective(kind, _tensor_bytes(out), group))
+        return out
+
+
+def collective_bytes(events: Iterable) -> Tuple[dict, dict, dict]:
+    """(result bytes, wire bytes, counts) per kind, under the reference's
+    five keys, from (kind, result bytes, group) events, with the reference's
+    ring factors: all-reduce wire = 2 x result, reduce-scatter wire =
+    result x group, the others = result."""
+    res = {k: 0 for k in COLLECTIVES}
+    wire = {k: 0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
+    for kind, nbytes, group in events:
+        res[kind] += nbytes
+        counts[kind] += 1
+        if kind == "all-reduce":
+            wire[kind] += 2 * nbytes
+        elif kind == "reduce-scatter":
+            wire[kind] += nbytes * group
+        else:
+            wire[kind] += nbytes
+    return res, wire, counts
+
+
+# aten ops DTensor has no sharding strategy for, on a path the dry-run runs
+# (the MoE sort form's searchsorted): each is given one that replicates its
+# tensor inputs, so DTensor gathers them first (counted, as XLA's are)
+_REPLICATED_OPS = ("searchsorted.Tensor",)
+_registered: List[str] = []
+
+
+def _register_replicated_ops():
+    if _registered:
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import register_sharding
+    for name in _REPLICATED_OPS:
+        packet, overload = name.split(".")
+        op = getattr(getattr(torch.ops.aten, packet), overload)
+
+        def replicated(*args, **kwargs):
+            return [([Replicate()], [Replicate() if hasattr(a, "ndim")
+                                     else None for a in args])]
+        register_sharding(op)(replicated)
+        _registered.append(name)
+
+
+def count_collectives(step, args, mesh: Mesh, rules, specs,
+                      device_type: str = "cpu") -> Tuple[List[Collective],
+                                                         Any]:
+    """(collectives, outputs) of one call ``step(*args)`` partitioned over
+    ``mesh`` under ``rules``: the arguments distributed by ``specs`` in a
+    :func:`fake_world`, the tensors the step makes itself replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    _register_replicated_ops()
+    with fake_world(mesh, device_type) as dm, \
+            use_mesh(mesh, rules, device_mesh=dm):
+        dargs = distribute(args, specs, dm, mesh)
+        with CollectiveCounter() as cc, implicit_replication():
+            out = step(*dargs)
+    return cc.events, out
+
+
 def mesh_name_of(multi_pod: bool, mesh_shape: Optional[tuple] = None) -> str:
     if mesh_shape is not None:
         return "slice" + "x".join(str(s) for s in mesh_shape)
     return "pod2x16x16" if multi_pod else "pod16x16"
 
 
-# one count per program: (config, shape, microbatches) -> counts
+# the plain count per program: (config, shape, microbatches) -> counts; the
+# partitioned count per program, mesh and rules
 _COUNTS: Dict[tuple, dict] = {}
 
 
+def _rules_key(rules) -> tuple:
+    return tuple(sorted(rules.items()))
+
+
 def measure_cell(cell: Cell) -> dict:
-    """Count the cell's step on ``meta`` (once per program) and size its
-    per-device memory; the record's numeric fields."""
+    """Count the cell's step on ``meta`` (once per program), then its
+    collectives partitioned over the cell's mesh (once per program and
+    mesh), and size its per-device memory; the record's numeric fields."""
     key = (cell.cfg, cell.shape, cell.accum)
     if key not in _COUNTS:
         t0 = time.time()
@@ -279,6 +503,15 @@ def measure_cell(cell: Cell) -> dict:
         _COUNTS[key] = dict(count_s=round(time.time() - t0, 2), flops=flops,
                             nbytes=nbytes, outs=outs)
     c = _COUNTS[key]
+    pkey = key + (cell.mesh, _rules_key(cell.rules))
+    if pkey not in _COUNTS:
+        t0 = time.time()
+        events, _ = count_collectives(cell.step, cell.args, cell.mesh,
+                                      cell.rules, cell.arg_specs)
+        _COUNTS[pkey] = dict(count_s=round(time.time() - t0, 2),
+                             coll=collective_bytes(events))
+    pc = _COUNTS[pkey]
+    cres, cwire, ccounts = pc["coll"]
     nd = cell.mesh.size
     mem = memory_analysis(cell, c["outs"])
     return dict(
@@ -290,10 +523,14 @@ def measure_cell(cell: Cell) -> dict:
         bytes_counted="each op's input + output tensor bytes (eager analogue"
                       " of XLA's bytes accessed)",
         memory_analysis=mem,
-        collective_bytes=None, collective_wire_bytes=None,
-        collective_counts=None,
+        collective_count_s=pc["count_s"],
+        collectives_counted="the full-depth step run as DTensors over a fake "
+                            "process group: result bytes on rank 0, ring "
+                            "wire factors",
+        collective_bytes=dict(cres), collective_wire_bytes=dict(cwire),
+        collective_counts=dict(ccounts),
         extrapolated={"flops": c["flops"] / nd, "bytes": c["nbytes"] / nd,
-                      "coll": None, "wire": None},
+                      "coll": dict(cres), "wire": dict(cwire)},
     )
 
 
@@ -322,6 +559,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"count={rec['count_s']}s flops/dev={rec['flops']:.3e} "
               f"bytes/dev={rec['bytes_accessed']:.3e} (perfectly "
               f"partitioned) fits={rec['fits']}")
+        print(f"  collectives ({rec['collective_count_s']} s): counts "
+              f"{rec['collective_counts']} wire bytes "
+              f"{sum(rec['collective_wire_bytes'].values()):.3e}")
         print(f"  memory_analysis: {rec['memory_analysis']}")
     if save:
         out_dir.mkdir(parents=True, exist_ok=True)

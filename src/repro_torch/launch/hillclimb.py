@@ -3,8 +3,9 @@
 The twin of ``src/repro/launch/hillclimb.py``.  Each VARIANT of a cell
 re-builds the full production step with config overrides (and optionally
 patched sharding rules or another mesh shape), re-counts it on ``meta``
-(``launch/dryrun.py``), re-derives the roofline terms with the H100's
-figures, and records them beside the dry-run baseline.  Results land in
+(``launch/dryrun.py``: FLOPs and bytes, and the collectives of the step
+partitioned over the variant's mesh), re-derives the roofline terms with the
+H100's figures, and records them beside the dry-run baseline.  Results land in
 ``experiments/hillclimb_torch/``.
 
 A variant whose cell is not runnable (``cell_is_runnable``) is skipped with
@@ -75,7 +76,7 @@ def fmt(rec):
     if t is None:
         return f"args={hbm:.1f}GB (not counted)"
     return (f"comp={t['t_compute']:.3e}s mem={t['t_memory']:.3e}s "
-            f"coll=n/a dom={t['dominant']} "
+            f"coll={t['t_collective']:.3e}s dom={t['dominant']} "
             f"useful={t['model_flops_frac']:.2f} args={hbm:.1f}GB")
 
 

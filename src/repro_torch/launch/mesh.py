@@ -9,8 +9,11 @@ dry-run's per-device bytes, the pipeline's stage count — and place nothing.
 The roofline's hardware figures are an NVIDIA H100 SXM's data-sheet peaks
 (dense bf16 on the tensor cores; HBM3), the figures ``PERF.md`` bounds every
 kernel by.  ``chip_smoke.py`` phase 13 (c) measures the card's own matmul and
-copy rates beside them.  No link figure is given: a one-card machine has no
-link to measure, and the port's dry-run records no collective bytes.
+copy rates beside them.  The link figure, the roofline's collective term, is
+the data sheet's NVLink rate: 900 GB/s a card in total, 450 GB/s each way.
+It holds inside one 8-card NVLink domain only; the production meshes' 256 and
+512 devices would span several, joined by a slower network.  A one-card
+machine has no link, so it is not measured.
 """
 from __future__ import annotations
 
@@ -68,3 +71,5 @@ CARD = "NVIDIA H100 SXM5 80GB (data sheet)"
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 on the tensor cores
 HBM_BW = 3.35e12                  # bytes/s, HBM3
 HBM_BYTES = 80e9                  # device memory, bytes
+LINK_BW = 450e9                   # bytes/s each way, NVLink 4 (900 GB/s a
+                                  # card in total); one 8-card domain only

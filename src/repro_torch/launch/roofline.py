@@ -4,15 +4,19 @@ The twin of ``src/repro/launch/roofline.py``, with an H100's figures:
 
     compute term    = counted_FLOPs_per_device / peak_FLOP/s        [s]
     memory term     = counted_bytes_per_device / HBM_bw             [s]
-    collective term = n/a (no partitioned program on one card)
+    collective term = collective_wire_bytes_per_device / LINK_BW    [s]
 
 Sources: the port's dry-run records (``launch/dryrun.py``): FLOPs of the
 matmul-like ops ``FlopCounterMode`` counts over the step on ``meta`` at full
 depth, bytes each op reads and writes (the eager analogue of XLA's "bytes
 accessed"), both divided by the mesh's devices (perfectly partitioned).
+The wire bytes are the records' ``extrapolated.wire``: the step run as
+DTensors over a fake process group of the mesh's size, each collective's
+result bytes on rank 0 times the reference's ring factors.
 MODEL_FLOPS (= 6·N_active·D analytics) / counted matmul FLOPs flags remat and
 dispatch waste.  Hardware: ``launch/mesh.py`` — the H100 SXM data sheet's
-989 TFLOP/s dense bf16 and 3.35 TB/s HBM3.
+989 TFLOP/s dense bf16, 3.35 TB/s HBM3 and 450 GB/s of NVLink each way
+(one 8-card NVLink domain only; the table's header names the figure).
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh pod16x16]
 Writes ``experiments/roofline_torch.md`` and prints the table.
@@ -27,7 +31,7 @@ from typing import Dict, Optional
 from ..configs import ARCHITECTURES, SHAPES, get_config, get_shape
 from ..models.transformer import stack_layout
 from .dryrun import OUT_DIR
-from .mesh import CARD, HBM_BW, PEAK_FLOPS_BF16
+from .mesh import CARD, HBM_BW, LINK_BW, PEAK_FLOPS_BF16
 from .specs import SEAMLESS_PREFILL_PROMPT
 
 MD_OUT = OUT_DIR.parent / "roofline_torch.md"
@@ -131,22 +135,24 @@ def load_cell(arch: str, shape: str, mesh: str,
 
 
 def cell_terms(rec: dict) -> Optional[dict]:
-    """Compute and memory terms (s), the dominant one, MODEL ÷ counted
-    matmul FLOPs, and the per-device argument GB.  The collective term is
-    ``None``: the port's records hold no collective bytes."""
+    """Compute, memory and collective terms (s; the collective one at
+    ``LINK_BW``), the dominant one, MODEL ÷ counted matmul FLOPs, and the
+    per-device argument GB."""
     if not rec.get("runnable") or "extrapolated" not in rec:
         return None
     ex = rec["extrapolated"]
     nd = rec["num_devices"]
     t_c = ex["flops"] / PEAK_FLOPS_BF16
     t_m = ex["bytes"] / HBM_BW
-    dom = "compute" if t_c >= t_m else "memory"
+    t_n = sum(ex["wire"].values()) / LINK_BW
+    dom = max((("compute", t_c), ("memory", t_m), ("collective", t_n)),
+              key=lambda kv: kv[1])[0]
     mf = model_flops(rec["arch"], rec["shape"]) / nd
     counted = max(ex["flops"], 1e-9)
     mem = rec.get("memory_analysis", {})
     hbm_gb = mem.get("argument_size_in_bytes", 0) / 1e9
-    bound = max(t_c, t_m)
-    return dict(t_compute=t_c, t_memory=t_m, t_collective=None, dominant=dom,
+    bound = max(t_c, t_m, t_n)
+    return dict(t_compute=t_c, t_memory=t_m, t_collective=t_n, dominant=dom,
                 model_flops_frac=mf / counted, hbm_gb=hbm_gb,
                 roofline_frac=t_c / bound if bound > 0 else 0.0)
 
@@ -157,6 +163,9 @@ _ADVICE = {
     "memory": "HBM-bound: raise arithmetic intensity — fuse attention into "
               "one hand-written kernel, int8/KV-cache quantisation, larger "
               "per-chunk tiles",
+    "collective": "link-bound: reshard to cut all-gathers (bigger per-device "
+                  "blocks), overlap collectives with compute, or compress "
+                  "the gradient/activation wire format",
 }
 
 
@@ -175,7 +184,9 @@ def build_table(mesh: str = "pod16x16", out_dir: Optional[Path] = None
 
     md = [f"## Roofline — mesh {mesh} (per-device terms, seconds/step; "
           f"{CARD}: {PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16, "
-          f"{HBM_BW / 1e12:.2f} TB/s HBM; counts perfectly partitioned)\n",
+          f"{HBM_BW / 1e12:.2f} TB/s HBM, {LINK_BW / 1e9:.0f} GB/s link "
+          f"each way, one 8-card NVLink domain; FLOPs and bytes perfectly "
+          f"partitioned, collectives of the partitioned step)\n",
           "| arch | shape | compute s | memory s | collective s | dominant |"
           " MODEL/counted matmul | args GB | next lever |",
           "|---|---|---|---|---|---|---|---|---|"]
@@ -186,7 +197,7 @@ def build_table(mesh: str = "pod16x16", out_dir: Optional[Path] = None
             continue
         md.append(
             f"| {arch} | {shape} | {t['t_compute']:.3e} | {t['t_memory']:.3e}"
-            f" | n/a (no partitioned program on one card) |"
+            f" | {t['t_collective']:.3e} |"
             f" **{t['dominant']}** | {t['model_flops_frac']:.2f} |"
             f" {t['hbm_gb']:.1f} | {_ADVICE[t['dominant']]} |")
     return "\n".join(md) + "\n"

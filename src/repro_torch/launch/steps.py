@@ -14,6 +14,10 @@ moves them to the parameters' device.
   * ``compress_grads`` — int8 error-feedback gradient compression applied to
     the gradient tree before the optimizer (the EF residual lives in
     ``opt_state["err"]``).
+
+On ``DTensor`` parameters over a device mesh (the dry-run's partitioned
+count) each gradient is redistributed to its parameter's layout as it is
+taken: the data-parallel reduction, before the optimizer's in-place update.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ..models import Model
 from ..models.params import tree_leaves, tree_map
 from ..optim import (AdamWConfig, adamw_init, adamw_update, ef_compress_grads,
                      ef_init)
+from ..sharding import like_param, reshape, shard
 
 Pytree = Any
 
@@ -59,18 +64,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             # a leaf the loss does not reach gets zeros, as from jax.grad
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        it = iter(grads)
+        # on a device mesh: each gradient reduced to its parameter's layout
+        it = iter(like_param(g, p) for g, p in zip(grads, leaves))
         return loss.detach(), tree_map(lambda _: next(it), live)
 
     def grads_of(params, batch):
         if accum_steps == 1:
             return value_and_grad(params, batch)
-        micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                              *v.shape[1:]) for k, v in batch.items()}
+        micro = {k: reshape(v, (accum_steps, v.shape[0] // accum_steps,
+                                  *v.shape[1:]))
+                 for k, v in batch.items()}
         dev = tree_leaves(params)[0].device
         acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc_g = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                               device=p.device), params)
+        acc_g = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
         for i in range(accum_steps):
             loss, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
             acc_loss = acc_loss + loss
@@ -109,6 +115,9 @@ def make_serve_step(model: Model, greedy: bool = True):
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, cache = model.decode_step(params, cache, tokens, pos)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        # on a device mesh the last logits are gathered over the vocabulary
+        # first (DTensor's argmax over a split dimension fails at batch 1)
+        last = shard(logits[:, -1], "batch", None)
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
         return nxt, logits, cache
     return serve_step

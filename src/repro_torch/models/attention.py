@@ -17,19 +17,29 @@ Execution paths, chosen by ``cfg.attn_impl``:
     ``shard_map`` form of global layers falls back to this on one device
     (chunks of 512; windowed layers 1024), so on one card the two names are
     the same function.  Decode runs the einsum path under both, as in the
-    reference.
+    reference.  On a device mesh (the dry-run's partitioned count) a layer
+    whose queries are split over the sequence takes :func:`_attend_cp`, the
+    reference's context-parallel form of unbounded layers.
+
+Activations carry the reference's layout constraints (``sharding.shard``,
+no-ops without a device mesh), and reshapes that split heads go through
+``sharding.reshape``, which on a device mesh gathers a split the reshape
+cannot keep.
 
 Non-causal attention (the encoder) and cross-attention run the einsum path
 under every name: the reference calls its kernels for causal attention only.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import is_split, mesh_axis, reshape, shard
 from .layers import apply_rope, dtype_of, rope_tables
 from .params import ParamStore
 
@@ -50,6 +60,19 @@ def _kv_int8(cfg: ModelConfig) -> bool:
     return cfg.kv_cache_dtype == "int8"
 
 
+def shard_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Sequence-shard an activation over the ``q_seq`` axis when divisible
+    (the reference's: head counts like 36/10/8 do not divide a 16-way model
+    axis; the sequence always does)."""
+    _, size = mesh_axis("q_seq")
+    if size > 1 and x.shape[dim] % size == 0 and x.shape[dim] > 1:
+        axes = [None] * x.ndim
+        axes[0] = "batch"
+        axes[dim] = "q_seq"
+        return shard(x, *axes)
+    return x
+
+
 def init_attention(ps: ParamStore, path: str, cfg: ModelConfig,
                    stacked: Optional[int]):
     D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -63,12 +86,15 @@ def init_attention(ps: ParamStore, path: str, cfg: ModelConfig,
 
 def _proj(x: torch.Tensor, w: torch.Tensor, heads: int,
           head_dim: int) -> torch.Tensor:
-    y = x @ w.to(x.dtype)
-    return y.reshape(*y.shape[:-1], heads, head_dim)
+    y = shard(x @ w.to(x.dtype), "batch", None, "model")
+    return reshape(y, (*y.shape[:-1], heads, head_dim))
 
 
 def _unproj(y: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    return y.reshape(*y.shape[:-2], -1) @ w.to(dtype)
+    yf = shard(y.reshape(*y.shape[:-2], -1), "batch", None, "model")
+    # the output's partial sum over the split heads reduced at once (no-op
+    # without a device mesh), as the block's output constraint would
+    return shard(yf @ w.to(dtype), "batch", None, None)
 
 
 def _attend_einsum(q, k, v, mask, softcap, scale):
@@ -80,7 +106,7 @@ def _attend_einsum(q, k, v, mask, softcap, scale):
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     g = H // KV
-    qg = q.reshape(B, Sq, KV, g, Dh)
+    qg = reshape(q, (B, Sq, KV, g, Dh))
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
     logits = logits.float()
     if softcap:
@@ -103,7 +129,10 @@ def _attend_blocked(q, k, v, *, causal: bool, window: Optional[int],
     """
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Sq, KV, H // KV, Dh)
+    # on a device mesh: q, k and v whole over the sequence before the chunks
+    # slice them (one gather each, not one a chunk); no-ops otherwise
+    q, k, v = (shard(t, "batch", None, None, None) for t in (q, k, v))
+    qg = reshape(q, (B, Sq, KV, H // KV, Dh))
     chunk = min(chunk, Sq)
     outs = []
     for i0 in range(0, Sq, chunk):
@@ -112,8 +141,8 @@ def _attend_blocked(q, k, v, *, causal: bool, window: Optional[int],
         k_lo = 0
         if window is not None:
             k_lo = max(0, ((i0 - window + 1) // 128) * 128)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, i0:i1],
-                         k[:, k_lo:k_hi]) * scale
+        qs = shard(qg[:, i0:i1], "batch", "q_seq", None, None, None)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qs, k[:, k_lo:k_hi]) * scale
         s = s.to(torch.float32 if scores_f32 else q.dtype)
         if softcap:
             s = torch.tanh(s / softcap) * softcap
@@ -127,9 +156,69 @@ def _attend_blocked(q, k, v, *, causal: bool, window: Optional[int],
             m &= cols > rows - window
         s = torch.where(m, s, -1e30)
         p = torch.softmax(s, dim=-1).to(q.dtype)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v[:, k_lo:k_hi]))
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v[:, k_lo:k_hi])
+        outs.append(shard(o, "batch", "q_seq", None, None, None))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H, Dh)
+
+
+def _attend_cp_local(q, k, v, *, row0: int, causal: bool,
+                     window: Optional[int], softcap: Optional[float],
+                     scale: float, chunk: int, scores_f32: bool):
+    """One device's part of context-parallel attention: its query rows (the
+    first global row is ``row0``) in chunks against the whole K/V, the causal
+    (and window) mask applied against all of K (no early exit), as the
+    reference's ``_attend_cp`` body.  q: (B,S_loc,H,Dh); k,v: (B,Sk,KV,Dh)."""
+    B, S_loc, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S_loc, KV, H // KV, Dh)
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    outs = []
+    for c0 in range(0, S_loc, chunk):
+        c1 = min(c0 + chunk, S_loc)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, c0:c1], k) * scale
+        s = s.to(torch.float32 if scores_f32 else q.dtype)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        rows = row0 + torch.arange(c0, c1, device=q.device)[:, None]
+        if causal:
+            s = torch.where(cols <= rows, s, -1e30)
+        if window is not None:
+            s = torch.where(cols > rows - window, s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v))
+    return torch.cat(outs, dim=1).reshape(B, S_loc, H, Dh)
+
+
+def _attend_cp(q, k, v, *, causal: bool, window: Optional[int],
+               softcap: Optional[float], scale: float, chunk: int,
+               scores_f32: bool):
+    """Context-parallel attention on a device mesh, the twin of the
+    reference's ``shard_map`` form of unbounded layers (here windowed ones
+    too: their chunks' reshards would hand DTensor einsums over a split it
+    cannot flatten): q stays split over the sequence, K and V are gathered
+    whole over that axis once (their gradients reduce-scattered back), and
+    each device attends its own rows (``local_map``,
+    :func:`_attend_cp_local`)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    seq = [i for i, pl in enumerate(q.placements) if pl == Shard(1)]
+    mesh = q.device_mesh
+    q_pl = tuple(q.placements)
+    kv_pl = tuple(Replicate() if i in seq else pl for i, pl in enumerate(q_pl))
+    kv_grad = tuple(Partial() if i in seq else pl for i, pl in enumerate(q_pl))
+    S_loc = q.shape[1] // math.prod(mesh.size(i) for i in seq)
+    rank = 0
+    for i in seq:
+        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+    body = functools.partial(_attend_cp_local, row0=rank * S_loc,
+                             causal=causal, window=window, softcap=softcap,
+                             scale=scale,
+                             chunk=min(chunk, S_loc), scores_f32=scores_f32)
+    return local_map(body, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     redistribute_inputs=True)(q, k, v)
 
 
 def make_causal_mask(sq: int, sk: int, q_offset, window: Optional[int],
@@ -151,9 +240,11 @@ def self_attention(p, cfg: ModelConfig, x: torch.Tensor,
     B, S, D = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tables = rope_tables(positions, Dh, cfg.rope_theta)
-    q = apply_rope(_proj(x, p["wq"], H, Dh), positions, cfg.rope_theta, tables)
-    k = apply_rope(_proj(x, p["wk"], KV, Dh), positions, cfg.rope_theta, tables)
-    v = _proj(x, p["wv"], KV, Dh)
+    q = shard_seq(_proj(x, p["wq"], H, Dh))
+    k = shard_seq(_proj(x, p["wk"], KV, Dh))
+    v = shard_seq(_proj(x, p["wv"], KV, Dh))
+    q = shard_seq(apply_rope(q, positions, cfg.rope_theta, tables))
+    k = shard_seq(apply_rope(k, positions, cfg.rope_theta, tables))
     scale = Dh ** -0.5
 
     if cfg.attn_impl == "cuda" and causal:
@@ -162,13 +253,16 @@ def self_attention(p, cfg: ModelConfig, x: torch.Tensor,
                                    softcap=cfg.attn_softcap, scale=scale)
     elif cfg.attn_impl in ("blocked", "blocked_unroll"):
         chunk = BLOCKED_CHUNK["global" if window is None else "window"]
-        out = _attend_blocked(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap, scale=scale,
-                              chunk=chunk, scores_f32=cfg.attn_scores_f32)
+        # queries split over the sequence (a device mesh): the reference's
+        # condition for its context-parallel form
+        attend = _attend_cp if is_split(q, 1) else _attend_blocked
+        out = attend(q, k, v, causal=causal, window=window,
+                     softcap=cfg.attn_softcap, scale=scale, chunk=chunk,
+                     scores_f32=cfg.attn_scores_f32)
     else:
         mask = make_causal_mask(S, S, 0, window, x.device) if causal else None
         out = _attend_einsum(q, k, v, mask, cfg.attn_softcap, scale)
-    y = _unproj(out, p["wo"], x.dtype)
+    y = _unproj(shard_seq(out), p["wo"], x.dtype)
     if return_kv:
         return y, (k, v)
     return y
@@ -232,6 +326,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for name, (shp, dt) in spec.items()}
 
 
+def _ring(t: torch.Tensor, S: int, L: int) -> torch.Tensor:
+    """The ring buffer of length L after a prefill of S positions, as a new
+    tensor (no scatter: on a device mesh a scatter into a split cache has no
+    layout that keeps it): positions S-n..S-1 (n = min(S, L)) at slots
+    (S-n+i) % L, a rotation by S % L when n = L, the first S slots and
+    zeros when S < L."""
+    last = t[:, S - min(S, L):]
+    if S < L:
+        return torch.cat([last, last.new_zeros((t.shape[0], L - S)
+                                               + tuple(t.shape[2:]))], dim=1)
+    r = S % L
+    if r == 0:
+        return last.clone(memory_format=torch.contiguous_format)
+    return torch.cat([last[:, L - r:], last[:, :L - r]], dim=1)
+
+
 def build_cache_from_prefill(cfg: ModelConfig, k: torch.Tensor,
                              v: torch.Tensor, max_len: int,
                              window: Optional[int]) -> Dict:
@@ -254,18 +364,17 @@ def build_cache_from_prefill(cfg: ModelConfig, k: torch.Tensor,
             cv[:, :S] = v
     else:
         L = min(max_len, window)
-        n = min(S, L)
-        slots = torch.arange(S - n, S, device=k.device) % L
-        ck = k.new_zeros((B, L) + k.shape[2:])
-        cv = v.new_zeros((B, L) + v.shape[2:])
-        ck[:, slots] = k[:, S - n:]
-        cv[:, slots] = v[:, S - n:]
+        ck, cv = _ring(k, S, L), _ring(v, S, L)
     if _kv_int8(cfg):
         # the whole arranged cache, padding rows included (scale 1e-6/127)
         kq, ks = quantize_kv(ck)
         vq, vs = quantize_kv(cv)
-        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    return {"k": ck, "v": cv}
+        out = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        out = {"k": ck, "v": cv}
+    # the cache sequence-sharded, as the decode cache is laid out
+    return {kk: shard(vv, "kv_batch", "kv_seq", None, None)
+            for kk, vv in out.items()}
 
 
 class DecodePlan:
@@ -302,6 +411,21 @@ class DecodePlan:
         return self._by_cache[key]
 
 
+def _write_slots(cache_t: torch.Tensor, rows: torch.Tensor,
+                 slot: torch.Tensor, new: torch.Tensor):
+    """``cache_t[rows, slot] = new`` (one row a batch slot), in place.  A
+    cache split over its batch or sequence on a device mesh takes the rows
+    through the reference's select (a scatter into it has no layout that
+    keeps the cache's), then copied into the cache."""
+    if not is_split(cache_t, 0, 1):
+        cache_t[rows, slot] = new
+        return
+    L = cache_t.shape[1]
+    sel = torch.arange(L, device=slot.device)[None, :] == slot[:, None]
+    sel = sel.reshape(sel.shape + (1,) * (cache_t.ndim - 2))
+    cache_t.copy_(torch.where(sel, new[:, None].to(cache_t.dtype), cache_t))
+
+
 def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                           pos, window: Optional[int],
                           plan: Optional[DecodePlan] = None):
@@ -336,14 +460,16 @@ def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     if _kv_int8(cfg):
         for name, new in (("k", k), ("v", v)):
             q8, scale = quantize_kv(new[:, 0])
-            cache[name][plan.rows, slot] = q8
-            cache[f"{name}_scale"][plan.rows, slot] = scale
+            _write_slots(cache[name], plan.rows, slot, q8)
+            _write_slots(cache[f"{name}_scale"], plan.rows, slot, scale)
         ck = dequantize_kv(cache["k"], cache["k_scale"], dt)
         cv = dequantize_kv(cache["v"], cache["v_scale"], dt)
     else:
-        cache["k"][plan.rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][plan.rows, slot] = v[:, 0].to(cache["v"].dtype)
+        _write_slots(cache["k"], plan.rows, slot, k[:, 0].to(cache["k"].dtype))
+        _write_slots(cache["v"], plan.rows, slot, v[:, 0].to(cache["v"].dtype))
         ck, cv = cache["k"].to(dt), cache["v"].to(dt)
+    ck = shard(ck, "kv_batch", "kv_seq", None, None)
+    cv = shard(cv, "kv_batch", "kv_seq", None, None)
 
     if cfg.attn_impl == "cuda":
         from ..kernels import ops as kops

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import reshape, shard
 from .layers import causal_conv, conv_taps, dtype_of, shift_in
 from .params import ParamStore
 
@@ -57,9 +58,9 @@ def init_griffin(ps: ParamStore, path: str, cfg: ModelConfig,
 def _block_linear(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Block-diagonal linear: u (...,W), w (H,bw,bw) -> (...,W)."""
     H, bw, _ = w.shape
-    uh = u.reshape(*u.shape[:-1], H, bw)
+    uh = reshape(u, (*u.shape[:-1], H, bw))
     y = torch.einsum("...hi,hij->...hj", uh, w.to(u.dtype))
-    return y.reshape(u.shape) + b.to(u.dtype)
+    return reshape(y, u.shape) + b.to(u.dtype)
 
 
 def _gates(p, u: torch.Tensor):
@@ -106,12 +107,12 @@ def apply_griffin(p, cfg: ModelConfig, x: torch.Tensor,
     """Train/prefill.  x: (B,S,D) -> (B,S,D) [+ decode cache]."""
     dt_ = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(dt_), approximate="tanh")
-    u = x @ p["w_x"].to(dt_)
+    u = shard(x @ p["w_x"].to(dt_), "batch", None, "model")
     u_conv = causal_conv(u, p["conv_w"], p["conv_b"])
     h, h_last = rg_lru_scan(p, u_conv, None,
                             use_kernel=(cfg.attn_impl == "cuda"))
     y = gate * h.to(dt_)
-    out = y @ p["w_out"].to(dt_)
+    out = shard(y @ p["w_out"].to(dt_), "batch", None, None)
     if not return_cache:
         return out
     return out, {"conv": conv_taps(u, cfg.conv_width), "h": h_last.clone()}

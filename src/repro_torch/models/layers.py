@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding import is_split, pinned, shard
 from .params import ParamStore
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -96,7 +97,10 @@ def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = _act(cfg, x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = _act(cfg, h)
-    return h @ p["w_out"].to(x.dtype)
+    h = shard(h, "batch", None, "model")
+    # the output's partial sum over the split mlp dimension reduced at once
+    # (no-op without a device mesh), as the block's output constraint would
+    return shard(h @ p["w_out"].to(x.dtype), "batch", None, None)
 
 
 # ---------------------------------------------------------------- causal conv
@@ -106,7 +110,9 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     reference's ``_causal_conv`` of ``ssm.py`` and ``griffin.py`` (the same
     function twice), summed in the same order."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    # the zeros by a concatenation, not ``F.pad``: some DTensor versions
+    # cannot pad a split tensor
+    pad = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
     y = sum(pad[:, k:k + S, :] * w[k].to(x.dtype) for k in range(K))
     return y + b.to(x.dtype)
 
@@ -149,31 +155,57 @@ def init_embeddings(ps: ParamStore, cfg: ModelConfig):
 
 def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     dt = dtype_of(cfg)
-    x = F.embedding(tokens, p["embed"]["tok"]).to(dt)
+    # on a device mesh the tokens are made whole first: the gather DTensor's
+    # lookup in a split table does itself, made explicit because that
+    # lookup masks real (not ``meta``) rows by the tokens before the gather
+    tokens = shard(tokens, None, None)
+    # ... and the lookup's partial sum over a split vocabulary reduced at
+    # once (DTensor versions differ on when they would reduce it)
+    x = shard(F.embedding(tokens, pinned(p["embed"]["tok"])),
+              "batch", None, None).to(dt)
     # gemma-style scale; the multiplier is rounded to the model dtype first
     mult = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dt)
-    return x * float(mult)  # lint: waive TX001 -- a CPU tensor: no sync
+    x = x * float(mult)  # lint: waive TX001 -- a CPU tensor: no sync
+    return shard(x, "batch", None, None)
 
 
 def lm_logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ p["embed"]["tok"].to(x.dtype).T            # (V, D) weight
+        logits = x @ pinned(p["embed"]["tok"]).to(x.dtype).T    # (V, D) weight
     else:
         logits = x @ p["embed"]["head"].to(x.dtype)             # (D, V) weight
     if cfg.final_softcap:
         c = cfg.final_softcap
         logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab_size:        # mask vocab-padding columns
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        if is_split(logits, -1):
+            # the reference's select: a fill of the last columns of a
+            # vocabulary split over devices would gather all the logits
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+        else:
+            logits[..., cfg.vocab_size:] = -1e30
+    return shard(logits, "batch", None, "model")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE in f32.  logits: (B,S,V); labels: (B,S) int."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if is_split(lf, -1):
+        # over a vocabulary split over devices: a max and a sum, each an
+        # all-reduce of (B,S), as XLA partitions it (DTensor's logsumexp
+        # gathers the logits)
+        m = lf.amax(dim=-1, keepdim=True)
+        logz = (m + torch.log(torch.exp(lf - m).sum(dim=-1,
+                                                    keepdim=True)))[..., 0]
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+    # on a device mesh the gathered gold logits (a masked partial sum over
+    # the vocabulary's shards) are reduced before the select: DTensor's
+    # mask does not follow a select
+    gold = shard(torch.gather(lf, -1, labels[..., None].long()),
+                 "batch", None, None)[..., 0]
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)

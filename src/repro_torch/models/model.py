@@ -36,6 +36,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import shard
 from . import transformer as tf
 from .layers import (apply_rmsnorm, cross_entropy, dtype_of, embed_tokens,
                      init_embeddings, init_rmsnorm, lm_logits)
@@ -105,7 +106,7 @@ class Model:
             pe = batch["patch_embeds"].to(x.dtype)
             x = torch.cat([pe @ params["frontend"]["proj"].to(x.dtype), x],
                           dim=1)
-        return x
+        return shard(x, "batch", None, None)
 
     def _encode(self, params, batch) -> Optional[torch.Tensor]:
         """The encoder's output over ``batch["frames"]`` (None for a

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding import is_split, reshape, shard
 from .layers import _act, apply_mlp, init_mlp
 from .params import ParamStore
 
@@ -85,14 +86,14 @@ def _moe_onehot(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
     C = _capacity(S, cfg)
     dt = xg.dtype
 
-    _, topi, topw = _router_probs(p, cfg, xg.reshape(G * S, D))
-    topi = topi.reshape(G, S, k)
-    topw = topw.reshape(G, S, k)
+    _, topi, topw = _router_probs(p, cfg, reshape(xg, (G * S, D)))
+    topi = reshape(topi, (G, S, k))
+    topw = reshape(topw, (G, S, k))
 
     # position of each (token, choice) within its expert's capacity
     onehot = F.one_hot(topi, E)                                   # (G,S,k,E)
-    flat = onehot.reshape(G, S * k, E)        # lexicographic (token, choice)
-    pos4 = (flat.cumsum(1) - flat).reshape(G, S, k, E)
+    flat = reshape(onehot, (G, S * k, E))   # lexicographic (token, choice)
+    pos4 = reshape(flat.cumsum(1) - flat, (G, S, k, E))
 
     # dispatch/combine (G,S,E,C) accumulated per choice, as the reference
     disp = xg.new_zeros((G, S, E, C))
@@ -107,7 +108,14 @@ def _moe_onehot(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
         comb = comb + d * topw[:, :, kk, None, None]
 
     xe = torch.einsum("gsec,gsd->gecd", disp, xg)                 # (G,E,C,D)
-    ye = _experts(p, cfg, xe)
+    xe = shard(xe, "batch", "expert", None, None)
+    ye = shard(_experts(p, cfg, xe), "batch", "expert", None, None)
+    if is_split(ye, 1):
+        # experts split over devices: the same contraction as one product
+        # over (e, c) (some DTensor versions cannot flatten the einsum's
+        # permuted operands)
+        return reshape(comb.to(dt), (G, S, E * C)) @ \
+            reshape(ye, (G, E * C, D))
     return torch.einsum("gsec,gecd->gsd", comb.to(dt), ye)
 
 
@@ -126,9 +134,9 @@ def _moe_sort(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
     C = _capacity(S, cfg)
     dev = xg.device
 
-    _, topi, topw = _router_probs(p, cfg, xg.reshape(G * S, D))
-    eid = topi.reshape(G, S * k)                 # (token, choice) order
-    w = topw.reshape(G, S * k)
+    _, topi, topw = _router_probs(p, cfg, reshape(xg, (G * S, D)))
+    eid = reshape(topi, (G, S * k))              # (token, choice) order
+    w = reshape(topw, (G, S * k))
     order = torch.argsort(eid, dim=-1, stable=True)             # by expert
     eid_s = eid.gather(1, order)
     tok_s = order // k
@@ -174,14 +182,15 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, impl: str = "onehot",
     G = T // gs
     if G * gs != T:
         raise ValueError(f"tokens {T} not divisible by group size {gs}")
-    xg = x.reshape(G, gs, D)
+    xg = shard(reshape(x, (G, gs, D)), "batch", None, None)
     if impl == "onehot":
         y = _moe_onehot(p, cfg, xg)
     elif impl == "sort":
         y = _moe_sort(p, cfg, xg)
     else:
         raise ValueError(f"moe impl {impl!r}")
-    y = y.reshape(B, S, D)
+    # the combine's partial sum over split experts reduced at once
+    y = shard(reshape(y, (B, S, D)), "batch", None, None)
     if cfg.num_shared_experts:
         y = y + apply_mlp(p["shared"], cfg, x)
     return y

@@ -24,7 +24,7 @@ from typing import Dict
 import torch
 
 from ..configs.base import ModelConfig
-from ..sharding import current_mesh, logical_to_pspec
+from ..sharding import current_mesh, logical_to_pspec, shard
 from .params import tree_leaves, tree_map
 
 
@@ -53,7 +53,10 @@ def pipeline_stack(params_stack: Dict, cfg: ModelConfig, x: torch.Tensor,
                          "(use kind='train_pp')")
 
     per = reps // stages
-    mb = x.reshape(M, B // M, *x.shape[1:])
+    # the microbatches', the handed activations' and the outputs' batch
+    # dimension on the data axis, as the reference pins its tick buffers
+    baxes = [None, "batch"] + [None] * (x.ndim - 1)
+    mb = shard(x.reshape(M, B // M, *x.shape[1:]), *baxes)
 
     def stage_fn(s: int, h: torch.Tensor) -> torch.Tensor:
         for r in range(s * per, (s + 1) * per):
@@ -72,6 +75,6 @@ def pipeline_stack(params_stack: Dict, cfg: ModelConfig, x: torch.Tensor,
             if s == stages - 1:
                 outs[m] = y
             else:
-                nxt[s + 1] = y
+                nxt[s + 1] = shard(y, *baxes[1:])
         handed = nxt
-    return torch.stack(outs).reshape(B, *x.shape[1:])
+    return shard(torch.stack(outs), *baxes).reshape(B, *x.shape[1:])

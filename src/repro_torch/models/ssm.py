@@ -14,6 +14,7 @@ As in the reference, a prompt's length L must be a multiple of the chunk
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import is_split, layout, reshape, shard
 from .layers import causal_conv, conv_taps, dtype_of, shift_in
 from .params import ParamStore
 
@@ -144,6 +146,29 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, use_kernel: bool = False)
     return y, h
 
 
+def _ssd_on_mesh(x, dt, A, Bm, Cm, chunk: int):
+    """:func:`ssd_chunked` on a device mesh: each device scans its own batch
+    rows and heads (split as the rules split "batch" and "model"; heads the
+    axis does not divide stay whole, as XLA pads them) with B and C whole
+    over the heads' axis (``local_map``).  Their gradients, and A's, come
+    back as partial sums over the axes that split what they do not have."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lx = layout(x.shape, "batch", None, "model", None)
+    ldt = layout(dt.shape, "batch", None, "model")
+    lA = layout(A.shape, "model")
+    lbc = layout(Bm.shape, "batch", None, None)
+    lh = layout((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]),
+                "batch", "model", None, None)
+    gA = tuple(Partial() if pl == Shard(0) else a for pl, a in zip(lx, lA))
+    gbc = tuple(Partial() if pl == Shard(2) else b for pl, b in zip(lx, lbc))
+    body = functools.partial(ssd_chunked, chunk=chunk)
+    return local_map(body, out_placements=(lx, lh),
+                     in_placements=(lx, ldt, lA, lbc, lbc),
+                     in_grad_placements=(lx, ldt, gA, gbc, gbc),
+                     redistribute_inputs=True)(x, dt, A, Bm, Cm)
+
+
 def apply_mamba(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = SSD_CHUNK,
                 return_cache: bool = False):
     """Train/prefill forward.  x: (B,S,D) -> (B,S,D) [+ decode cache]."""
@@ -152,19 +177,23 @@ def apply_mamba(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = SSD_CHUNK,
     dt_ = x.dtype
 
     z, xBC, dtr = _in_proj(p, x)
+    xBC = shard(xBC, "batch", None, "model")
     xBC_conv = F.silu(causal_conv(xBC, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = (xBC_conv[..., :Din], xBC_conv[..., Din:Din + N],
                   xBC_conv[..., Din + N:])
     dt = F.softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                              # (H,) negative
 
-    xh = xs.reshape(B, S, H, P)
-    y, h_last = ssd_chunked(xh, dt, A, Bm, Cm, min(chunk, S),
-                            use_kernel=(cfg.attn_impl == "cuda"))
+    xh = reshape(xs, (B, S, H, P))
+    if is_split(xh, 0, 1, 2, 3):
+        y, h_last = _ssd_on_mesh(xh, dt, A, Bm, Cm, min(chunk, S))
+    else:
+        y, h_last = ssd_chunked(xh, dt, A, Bm, Cm, min(chunk, S),
+                                use_kernel=(cfg.attn_impl == "cuda"))
     y = y + xh * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(B, S, Din)
+    y = reshape(y, (B, S, Din))
     y = _gated_rmsnorm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    out = shard(y @ p["out_proj"].to(dt_), "batch", None, None)
     if not return_cache:
         return out
     cache = {"conv": conv_taps(xBC, cfg.conv_width),    # pre-activation taps
@@ -200,7 +229,7 @@ def decode_mamba(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict):
 
     dt = F.softplus(dtr[:, 0].float() + p["dt_bias"])       # (B,H)
     A = -torch.exp(p["A_log"])                              # (H,)
-    xh = xs.reshape(B, H, P).float()
+    xh = reshape(xs, (B, H, P)).float()
     decay = torch.exp(dt * A)                               # (B,H)
     upd = (dt[..., None, None] * xh[..., None]
            * Bm.float()[:, None, None, :])                  # (B,H,P,N)

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import shard
 from . import attention as attn
 from . import griffin, moe, ssm
 from .layers import apply_mlp, apply_rmsnorm, dtype_of, init_mlp, init_rmsnorm
@@ -124,7 +125,8 @@ def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
     _check_block(cfg, btype)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if btype == "mamba2":
-        return x + ssm.apply_mamba(p["mamba"], cfg, h)
+        return shard(x + ssm.apply_mamba(p["mamba"], cfg, h),
+                     "batch", None, None)
     if btype == "rglru":
         x = x + griffin.apply_griffin(p["rec"], cfg, h)
     else:
@@ -134,7 +136,7 @@ def apply_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
         if btype == "xdec":
             x = _cross(p, cfg, x, attn.encode_cross_kv(p["xattn"], cfg,
                                                        enc_out))
-    return _ffn(p, cfg, x)
+    return shard(_ffn(p, cfg, x), "batch", None, None)
 
 
 # ---------------------------------------------------------------- cache
@@ -170,7 +172,7 @@ def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
     if btype == "mamba2":
         y, mcache = ssm.apply_mamba(p["mamba"], cfg, h, return_cache=True)
-        return x + y, {"ssm": mcache}
+        return shard(x + y, "batch", None, None), {"ssm": mcache}
     if btype == "rglru":
         y, rec = griffin.apply_griffin(p["rec"], cfg, h, return_cache=True)
         cache = {"rec": rec}
@@ -185,7 +187,7 @@ def prefill_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor,
         cache["ck"], cache["cv"] = attn.encode_cross_kv(p["xattn"], cfg,
                                                         enc_out)
         x = _cross(p, cfg, x, (cache["ck"], cache["cv"]))
-    return _ffn(p, cfg, x), cache
+    return shard(_ffn(p, cfg, x), "batch", None, None), cache
 
 
 def decode_block(p, cfg: ModelConfig, btype: str, x: torch.Tensor, cache: Dict,

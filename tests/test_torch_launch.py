@@ -2,8 +2,10 @@
 ``launch/mesh``, ``specs``, ``dryrun``, ``roofline``, ``hillclimb``, the
 autotune example) against the JAX package's, on the CPU.
 
-Mirrors five of the six tests of tests/test_launch.py (the sixth parses
-XLA's partitioned HLO, which a one-card torch step does not have) and adds:
+Mirrors all six tests of tests/test_launch.py (the sixth, the collective
+parser's, as ``test_collective_bytes_equals_the_reference_parser`` in
+tests/test_torch_collectives.py, with the rest of the partitioned count) and
+adds:
 rules, parameter axes and specs, batch and cache specs, the analytic FLOPs
 and the hillclimb cells equal to the reference's exactly; the dry-run's
 per-device argument and output bytes equal to ``memory_analysis()`` of the
@@ -319,7 +321,9 @@ def test_dryrun_memory_equals_the_reference(ref_memory, arch, shape):
     assert got["argument_size_in_bytes"] == want["argument_size_in_bytes"]
     assert got["output_size_in_bytes"] == want["output_size_in_bytes"]
     assert got["temp_size_in_bytes"] is None
-    assert rec["collective_bytes"] is None and rec["num_devices"] == 8
+    assert tuple(rec["collective_bytes"]) == dryrun.COLLECTIVES
+    assert rec["extrapolated"]["wire"] == rec["collective_wire_bytes"]
+    assert rec["num_devices"] == 8
     assert rec["flops"] == rec["global_flops"] / 8 > 0
 
 
@@ -394,10 +398,13 @@ def test_dryrun_roofline_hillclimb_write_their_records(tmp_path, monkeypatch):
     roofline.main(["--mesh", "pod16x16"])
     table = (tmp_path / "roofline_torch.md").read_text()
     assert "| mamba2-130m | long_500k |" in table and "skipped" in table
-    assert "n/a (no partitioned program on one card)" in table
+    assert "450 GB/s link" in table
     assert "TPU" not in table and "Pallas" not in table and "ICI" not in table
     t = roofline.cell_terms(rec)
-    assert t["t_collective"] is None and t["dominant"] == "memory"
+    assert t["t_collective"] == sum(rec["extrapolated"]["wire"].values()) \
+        / 450e9 > 0
+    terms = {k: t[f"t_{k}"] for k in ("compute", "memory", "collective")}
+    assert t["dominant"] == max(terms, key=terms.get) == "collective"
     res = hillclimb.run_cell_variants("long", device="cpu")
     assert set(res) == {"baseline", "tp_off", "slice_4x4", "slice_1x4"}
     assert res["slice_4x4"]["num_devices"] == 16
