@@ -14,8 +14,10 @@ those paths against its plain PyTorch version; then trains mamba2-130m and
 gemma2-2b at published widths (``repro_torch.launch.train``), a path with no
 kernel, and drives the layouts and launch tools (the GPipe schedule at
 granite-3-8b's published width, the ``meta`` dry-run against the card, the
-autotune example on K1), the linter, and the dry-run's collectives (steps run
-as DTensors over a fake process group).  Needs one CUDA device;
+autotune example on K1), the linter, the dry-run's collectives (steps run
+as DTensors over a fake process group), and ``sweep(shard=)`` over virtual
+shards of the card (blocks of lanes on streams of their own).  Needs one
+CUDA device;
 without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
 ``jax`` or ``repro``.  Phases:
 
@@ -337,7 +339,27 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            (exact: this torch's DTensor chooses what the CPU's does); (c)
            the same step on CUDA tensors as DTensors over a (1, 1) cuda
            mesh (a fake world of one): no collective, logits and cache equal
-           to the plain step bit for bit.  Launches no kernel.
+           to the plain step bit for bit.  Launches no kernel;
+16. lanes  lane sharding (``sharding.virtual_lane_devices``,
+           ``scenario/shardexec.py``: each chunk of lanes split into one
+           contiguous block a shard, a CUDA stream each, all blocks issued
+           before the outputs come back in lane order): ``sweep`` as a user
+           calls it, held bit for bit to phase 7's unsharded outputs of
+           grids (b)-(d) (every schedule output, energy, peak temperature),
+           K1's launches (a block a scheduler value and chunk) and the
+           shard, pad and chunk counters exact: (a) grid (b) over 4 shards,
+           3 runs; (b) over 7 (5 pad designs); (c) with chunk=135 over 4
+           (width 136, 8 chunks, 8 pad designs); (d) grid (c) over 4
+           (designs stream) and its first 4 designs x 16 policies over 8
+           (policies stream, at grid (c)'s PE width); (e) grid (d) over 4;
+           (f) ``sweep(telemetry=True)`` static and ondemand over 4, every
+           lane's telemetry = the unsharded sweep's; (g) the same over the
+           machine's cards where it has more than one (logged as not run
+           on one card); (h) grid (b) and grid (c) at etf unsharded, as
+           one block through the streamer and over 2, 4 and 8 shards: the
+           wall, K1's time a launch (CUDA events on the block's stream),
+           the launches' sum against their span (the streams' overlap),
+           the peak device memory.
 
 ``--profile`` adds the device time of each of K4's three launches at S=4096
 bf16 (``torch.profiler``), and a second, instrumented pass of each phase-5
@@ -431,7 +453,9 @@ from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec,  # noqa: E402
 from repro_torch.scenario.faults import (fault_scan_steps,  # noqa: E402
                                          normalize_failures, stack_fault_plans)
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
-from repro_torch.sharding import Mesh, use_mesh  # noqa: E402
+from repro_torch.scenario import shardexec  # noqa: E402
+from repro_torch.sharding import (Mesh, lane_devices, use_mesh,  # noqa: E402
+                                  virtual_lane_devices)
 
 # the modules (the package's `sweep` and `run` attributes are the functions)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
@@ -2448,10 +2472,12 @@ def phase_sweep(smi: str) -> dict:
     axis kind against run(), backend="ref" and the plain scan, (b) the full
     static design grid, (c) a dynamic design x policy grid, (d) a fault x
     design grid, each one K1 launch per scheduler.  Returns K1's launches by
-    instantiation name and the measured numbers for the `kernels` line."""
+    instantiation name, the measured numbers for the `kernels` line, and
+    the outputs of grids (b)-(d) with their sweeps' arguments (phase 16
+    holds the sharded sweeps to them)."""
     t_phase = time.perf_counter()
     launches = dict.fromkeys(K1_VARIANTS.values(), 0)
-    measured = {}
+    measured, kept = {}, {}
 
     def main_path(base, axes, want: dict, what: str):
         """The sweep as a user calls it, with the launch counts set to 0 just
@@ -2664,6 +2690,7 @@ def phase_sweep(smi: str) -> dict:
            f"{GRID_JOBS} jobs, D = {D}, makespan {sr.makespan_us.min() / 1e3:.1f}-"
            f"{sr.makespan_us.max() / 1e3:.1f} ms", sr, wall, held, rec, parts, D * S,
            GRID_JOBS, scan_bound_ms(tables, D * S, GRID_JOBS))
+    kept["static_grid"] = dict(base=apps_base, axes=axes, out=sweep_fields(sr))
     del rec, tables, sr
     torch.cuda.empty_cache()
 
@@ -2691,6 +2718,8 @@ def phase_sweep(smi: str) -> dict:
            f"makespan {sr.makespan_us.min() / 1e3:.1f}-{sr.makespan_us.max() / 1e3:.1f} ms",
            sr, wall, held, rec, parts, D * G, GRID_JOBS,
            scan_bound_ms(tables, D * G, GRID_JOBS, dtpm=True))
+    kept["dtpm_grid"] = dict(base=base, axes=axes, out=sweep_fields(sr),
+                             pad_pes=int(tables.num_pes))
     del rec, tables, sr
     torch.cuda.empty_cache()
 
@@ -2717,11 +2746,19 @@ def phase_sweep(smi: str) -> dict:
            f"{S} seeds x {GRID_JOBS} jobs, D = {D}, {recommits} re-commits",
            sr, wall, held, rec, parts, D * nf * S, GRID_JOBS,
            scan_bound_ms(tables, D * nf * S, GRID_JOBS, faults=True))
+    kept["fault_grid"] = dict(base=apps_base, axes=axes, out=sweep_fields(sr))
     del rec, tables, scan, launch, sr
     torch.cuda.empty_cache()
     log(f"[sweep] phase 7 took {time.perf_counter() - t_phase:.1f} s; K1 launches "
         f"by instantiation {launches}")
-    return launches, measured
+    return launches, measured, kept
+
+
+def sweep_fields(sr) -> dict:
+    """A sweep's outputs on the host: the schedule, energy and peak
+    temperature arrays, copied."""
+    return {name: np.array(getattr(sr, name))
+            for name in SWEEP_SCHEDULE + ("energy_j", "peak_temp_c")}
 
 
 # ------------------------------------------------------------------ phase 8
@@ -4508,6 +4545,276 @@ def phase_collectives(smi: str):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ phase 16
+
+# sweep(shard=) over virtual shards of the card (sharding.virtual_lane_devices:
+# one block of lanes a shard, a stream each): grid (b) of phase 7 over 4
+# shards (270 designs a shard), 3 times, and over 7 (155 a shard, 5 pad
+# designs); with chunk=135 over 4 (136 a chunk: 34 a shard, 8 pad designs);
+# grid (c) over 4 (designs stream, 16 a shard) and its first 4 designs x 16
+# policies over 8 (policies stream, 2 a shard); grid (d) over 4 (4 designs a
+# shard); telemetry on small grids of LANES_TEL_JOBS jobs a lane
+LANES_SHARDS, LANES_UNEVEN, LANES_POLICY_SHARDS, LANES_REPEATS = 4, 7, 8, 3
+LANES_CHUNK, LANES_POLICY_DESIGNS = 135, 4
+LANES_TEL_DESIGNS, LANES_TEL_JOBS = 8, 100
+# the walls of grid (b) and grid (c) at etf: unsharded, as one block through
+# the streamer (chunk = the lane count), and over these shard counts
+LANES_WALL_SHARDS = (2, 4, 8)
+
+
+def lanes_timed(fn):
+    """``fn()`` with each K1 launch timed by CUDA events recorded on the
+    stream it runs on, its wall, and the device memory it held at its peak.
+    The launches' span (first start to last end) beside the sum of their
+    times says what the streams overlapped."""
+    events, orig = [], k1.epoch_scan
+
+    def scan(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    k1.epoch_scan = scan
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        held = torch.cuda.max_memory_allocated() - held
+    finally:
+        k1.epoch_scan = orig
+    ref = events[0][0]
+    starts = [ref.elapsed_time(a) for a, _ in events]
+    ends = [ref.elapsed_time(b) for _, b in events]
+    k1_ms = [a.elapsed_time(b) for a, b in events]
+    return out, dict(wall_s=wall, held_bytes=held, launches=len(events),
+                     k1_ms_mean=sum(k1_ms) / len(k1_ms), k1_ms_sum=sum(k1_ms),
+                     k1_span_ms=max(ends) - min(starts))
+
+
+@torch.no_grad()
+def phase_lanes(smi: str, grids: dict):
+    """Phase 16: lane sharding.  ``sweep`` as a user calls it under
+    ``virtual_lane_devices(n)`` (n shards of the card, each a contiguous
+    block of lanes on a stream of its own), held bit for bit to phase 7's
+    unsharded outputs of grids (b)-(d) (``grids``): every schedule output,
+    energy and peak temperature; K1's launches (a block a scheduler value
+    and chunk) and the shard, pad and chunk counters exact.  Then the walls,
+    K1's time a launch, its overlap across the streams and the peak memory
+    over 1, 2, 4 and 8 shards; the same over several cards where the
+    machine has them.  Returns K1's launches by instantiation and the
+    measured walls."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(K1_VARIANTS.values(), 0)
+    devs, pads, chunks = (metrics.counter("scenario.shard.devices"),
+                          metrics.counter("scenario.shard.pad_lanes"),
+                          metrics.counter("scenario.sweep.chunks"))
+    # phase 14's gate read a sweep with no virtual devices: on one card it
+    # resolved to the unsharded path, so its counts are a launch a scheduler
+    if torch.cuda.device_count() == 1 and \
+            shardexec.resolve_mesh(None, lane_devices(DEV)) is not None:
+        raise AssertionError("[lanes] one card without virtual devices shards")
+
+    def main_path(n, base, axes, want: dict, what: str, pad: int, **kw):
+        """The sweep as a user calls it over ``n`` virtual shards (``n`` =
+        None: the process's own lane devices), K1's counts set to 0 just
+        before and read just after; the shard and pad counters checked."""
+        p0, c0 = pads.value, chunks.value
+        counts_zero()
+        n0 = sweep_scans()
+        with virtual_lane_devices(n) if n else contextlib.nullcontext():
+            sr = sweep(base, axes, **kw)
+        torch.cuda.synchronize()
+        assert_counts(want, what)
+        if sweep_scans() - n0 != sum(want.values()):
+            raise AssertionError(f"{what}: {sweep_scans() - n0} scans started, "
+                                 f"{sum(want.values())} launches")
+        shards = n or len(lane_devices(DEV))
+        if (kw.get("shard") is not False and devs.value != shards) \
+                or pads.value - p0 != pad:
+            raise AssertionError(f"{what}: {devs.value} shards, "
+                                 f"{pads.value - p0} pad lanes; expected "
+                                 f"{shards}, {pad}")
+        for name, k in want.items():
+            launches[name] += k
+        return sr, chunks.value - c0
+
+    def equal(sr, want: dict, what: str, index=()):
+        for name, arr in want.items():
+            got, arr = getattr(sr, name), arr[index]
+            if got.shape != arr.shape or not np.array_equal(got, arr):
+                raise AssertionError(
+                    f"{what}: {name} differs from the unsharded sweep "
+                    f"({np.count_nonzero(got != arr)} of {arr.size} lanes)")
+
+    def pad_of(lanes, n, chunk=None):
+        width = shardexec.padded_width(lanes, chunk, n)
+        return -(-lanes // width) * width - lanes
+
+    # -- (a) grid (b) over 4 shards, 3 times; (b) over 7; (c) with chunk=
+    g = grids["static_grid"]
+    base, axes, out = g["base"], g["axes"], g["out"]
+    D, n_sched = len(axes["design"]), len(axes["scheduler"])
+    walls = []
+    for k in range(LANES_REPEATS):
+        t0 = time.perf_counter()
+        sr, _ = main_path(LANES_SHARDS, base, axes,
+                          {"epoch_scan": LANES_SHARDS * n_sched},
+                          f"[lanes] (a) grid (b) run {k}", 0)
+        walls.append(time.perf_counter() - t0)
+        equal(sr, out, f"[lanes] (a) grid (b) over {LANES_SHARDS} shards, run {k}")
+    log(f"[lanes] (a) grid (b) ({D} designs x {len(axes['seed'])} seeds, etf and met) "
+        f"over {LANES_SHARDS} virtual shards of the card ({D // LANES_SHARDS} designs "
+        f"a shard, a stream each), {LANES_REPEATS} runs: each = phase 7's unsharded "
+        f"outputs bit for bit (schedule, energy, peak temperature), K1 "
+        f"{LANES_SHARDS * n_sched} launches a run; walls "
+        + ", ".join(f"{w:.3f}" for w in walls) + f" s  [{smi}]")
+    pad = pad_of(D, LANES_UNEVEN) * n_sched
+    t0 = time.perf_counter()
+    sr, _ = main_path(LANES_UNEVEN, base, axes, {"epoch_scan": LANES_UNEVEN * n_sched},
+                      "[lanes] (b) grid (b) uneven", pad)
+    wall = time.perf_counter() - t0
+    equal(sr, out, f"[lanes] (b) grid (b) over {LANES_UNEVEN} shards")
+    log(f"[lanes] (b) grid (b) over {LANES_UNEVEN} shards "
+        f"({shardexec.padded_width(D, None, LANES_UNEVEN) // LANES_UNEVEN} designs a "
+        f"shard, {pad // n_sched} pad designs a scheduler): bit for bit, K1 "
+        f"{LANES_UNEVEN * n_sched} launches, {wall:.3f} s")
+    width = shardexec.padded_width(D, LANES_CHUNK, LANES_SHARDS)
+    n_chunks = -(-D // width)
+    pad = pad_of(D, LANES_SHARDS, LANES_CHUNK) * n_sched
+    t0 = time.perf_counter()
+    sr, got_chunks = main_path(LANES_SHARDS, base, axes,
+                               {"epoch_scan": n_chunks * LANES_SHARDS * n_sched},
+                               "[lanes] (c) grid (b) chunked", pad, chunk=LANES_CHUNK)
+    wall = time.perf_counter() - t0
+    if got_chunks != n_chunks * n_sched:
+        raise AssertionError(f"[lanes] (c): {got_chunks} chunks, not "
+                             f"{n_chunks * n_sched}")
+    equal(sr, out, f"[lanes] (c) grid (b) chunk={LANES_CHUNK} over {LANES_SHARDS}")
+    log(f"[lanes] (c) grid (b) at chunk={LANES_CHUNK} over {LANES_SHARDS} shards: "
+        f"width {width}, {n_chunks} chunks and {pad // n_sched} pad designs a "
+        f"scheduler, {n_chunks * LANES_SHARDS} K1 launches a scheduler, bit for bit, "
+        f"{wall:.3f} s")
+
+    # -- (d) grid (c) over 4 shards (designs stream); its first 4 designs x
+    # 16 policies over 8 (policies stream), at grid (c)'s PE width
+    g = grids["dtpm_grid"]
+    dbase, daxes, dout = g["base"], g["axes"], g["out"]
+    DD, G = len(daxes["design"]), len(daxes["governor_params"])
+    t0 = time.perf_counter()
+    sr, _ = main_path(LANES_SHARDS, dbase, daxes,
+                      {"epoch_scan_dtpm": LANES_SHARDS * n_sched},
+                      "[lanes] (d) grid (c)", 0)
+    wall = time.perf_counter() - t0
+    equal(sr, dout, f"[lanes] (d) grid (c) over {LANES_SHARDS}")
+    paxes = dict(daxes, design=daxes["design"][:LANES_POLICY_DESIGNS])
+    t0 = time.perf_counter()
+    sr, _ = main_path(LANES_POLICY_SHARDS, dbase, paxes,
+                      {"epoch_scan_dtpm": LANES_POLICY_SHARDS * n_sched},
+                      "[lanes] (d) policies", pad_of(G, LANES_POLICY_SHARDS) * n_sched,
+                      pad_pes=g["pad_pes"])
+    pwall = time.perf_counter() - t0
+    equal(sr, dout, f"[lanes] (d) {LANES_POLICY_DESIGNS} designs x {G} policies "
+          f"over {LANES_POLICY_SHARDS}", (slice(None), slice(0, LANES_POLICY_DESIGNS)))
+    log(f"[lanes] (d) grid (c) ({DD} designs x {G} ondemand policies, etf and met) "
+        f"over {LANES_SHARDS} shards (designs stream, {DD // LANES_SHARDS} a shard): "
+        f"bit for bit, {wall:.3f} s; its first {LANES_POLICY_DESIGNS} designs x {G} "
+        f"policies over {LANES_POLICY_SHARDS} shards (policies stream, "
+        f"{G // LANES_POLICY_SHARDS} a shard, padded to grid (c)'s {g['pad_pes']} PEs): "
+        f"= those lanes of phase 7's grid bit for bit, {pwall:.3f} s")
+
+    # -- (e) grid (d) over 4 shards (fault lanes: the design axis streams)
+    g = grids["fault_grid"]
+    fbase, faxes, fout = g["base"], g["axes"], g["out"]
+    FD = len(faxes["design"])
+    t0 = time.perf_counter()
+    sr, _ = main_path(LANES_SHARDS, fbase, faxes,
+                      {"epoch_scan_faults": LANES_SHARDS},
+                      "[lanes] (e) grid (d)", pad_of(FD, LANES_SHARDS))
+    wall = time.perf_counter() - t0
+    equal(sr, fout, f"[lanes] (e) grid (d) over {LANES_SHARDS}")
+    log(f"[lanes] (e) grid (d) ({len(faxes['faults'])} fault sets x {FD} designs x "
+        f"{len(faxes['seed'])} seeds) over {LANES_SHARDS} shards "
+        f"({FD // LANES_SHARDS} designs a shard): bit for bit, {wall:.3f} s")
+
+    # -- (f) telemetry, replayed block by block on the block's stream
+    tel_base = base.replace(trace=dataclasses.replace(base.trace,
+                                                      num_jobs=LANES_TEL_JOBS))
+    tel_cases = (
+        ("static", tel_base, {"design": list(axes["design"][:LANES_TEL_DESIGNS]),
+                              "seed": [0, 1]}, "epoch_scan"),
+        ("ondemand", tel_base.replace(governor="ondemand"),
+         {"design": list(daxes["design"][:LANES_SHARDS]),
+          "governor_params": OBS_PARAMS}, "epoch_scan_dtpm"))
+    notes = []
+    for what, tbase, taxes, name in tel_cases:
+        lanes = len(taxes["design"])
+        plain, _ = main_path(None, tbase, taxes, {name: 1}, f"[lanes] (f) {what} plain",
+                             0, telemetry=True, shard=False)
+        t0 = time.perf_counter()
+        sr, _ = main_path(LANES_SHARDS, tbase, taxes, {name: LANES_SHARDS},
+                          f"[lanes] (f) {what}", pad_of(lanes, LANES_SHARDS),
+                          telemetry=True)
+        wall = time.perf_counter() - t0
+        equal(sr, sweep_fields(plain), f"[lanes] (f) {what}")
+        for a, b in zip(sr.telemetry.flat, plain.telemetry.flat):
+            assert_telemetry_equal(a, b, f"[lanes] (f) {what}")
+        notes.append(f"{what} {sr.num_points} lanes in {wall:.3f} s")
+    log(f"[lanes] (f) sweep(telemetry=True) over {LANES_SHARDS} shards "
+        f"({LANES_TEL_JOBS} jobs a lane): outputs and every lane's telemetry = the "
+        f"unsharded sweep's bit for bit; " + ", ".join(notes))
+
+    # -- (g) several cards, where the machine has them
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        t0 = time.perf_counter()
+        sr, _ = main_path(None, base, axes, {"epoch_scan": cards * n_sched},
+                          "[lanes] (g) cards", pad_of(D, cards) * n_sched)
+        equal(sr, out, f"[lanes] (g) grid (b) over {cards} cards")
+        log(f"[lanes] (g) grid (b) over the {cards} cards (a block and a stream "
+            f"a card): bit for bit, {time.perf_counter() - t0:.3f} s")
+    else:
+        log("[lanes] (g) one card: lane sharding over several cards (a block a "
+            "card, the shared inputs copied to each) was not run")
+
+    # -- (h) the walls over 1, 2, 4 and 8 shards, grids (b) and (c) at etf
+    measured = {}
+    for tag, gbase, gaxes, gout, name in (
+            ("static_grid", base, axes, out, "epoch_scan"),
+            ("dtpm_grid", dbase, daxes, dout, "epoch_scan_dtpm")):
+        eaxes = {k: v for k, v in gaxes.items() if k != "scheduler"}
+        ebase = gbase.replace(scheduler=gaxes["scheduler"][0])
+        lanes = len(eaxes["design"])
+        rows = {}
+        modes = [("unsharded", None, 1, dict(shard=False)),
+                 ("1 block", None, 1, dict(shard=False, chunk=lanes))] + [
+            (f"{n} shards", n, n, {}) for n in LANES_WALL_SHARDS]
+        for label, n, launched, kw in modes:
+            (sr, _), rec = lanes_timed(lambda: main_path(
+                n, ebase, eaxes, {name: launched}, f"[lanes] (h) {tag} {label}",
+                pad_of(lanes, n) if n else 0, **kw))
+            equal(sr, gout, f"[lanes] (h) {tag} {label}", (0,))
+            rows[label] = rec
+        measured[tag] = rows
+        log(f"[lanes] (h) {tag} at etf ({lanes} designs, {sr.num_points} points; "
+            "= phase 7's etf lanes bit for bit each): "
+            + "; ".join(f"{label}: {r['wall_s']:.3f} s, K1 {r['launches']} x "
+                        f"{r['k1_ms_mean']:.3f} ms (sum {r['k1_ms_sum']:.3f}, span "
+                        f"{r['k1_span_ms']:.3f} ms), peak {r['held_bytes'] / 2 ** 20:.1f} MiB"
+                        for label, r in rows.items())
+            + f"  [{smi}]")
+    log(f"[lanes] phase 16 took {time.perf_counter() - t_phase:.1f} s; K1 launches by "
+        f"instantiation {launches}")
+    return launches, measured
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--verbose", action="store_true",
@@ -4544,7 +4851,7 @@ def main():
     measured.update(k1_measured)
     launches.update(k1_launches)
     log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
-    sweep_launches, sweep_measured = phase_sweep(smi)
+    sweep_launches, sweep_measured, sweep_outputs = phase_sweep(smi)
     for name, n in sweep_launches.items():
         launches[name] += n
     for name, n in phase_dse(smi).items():
@@ -4561,6 +4868,11 @@ def main():
     for name, n in phase_lint(smi).items():
         launches[name] += n
     phase_collectives(smi)
+    lanes_launches, lanes_measured = phase_lanes(smi, sweep_outputs)
+    for name, n in lanes_launches.items():
+        launches[name] += n
+    measured["epoch_scan"]["lanes_static_grid"] = lanes_measured["static_grid"]
+    measured["epoch_scan_dtpm"]["lanes_dtpm_grid"] = lanes_measured["dtpm_grid"]
     # the design-lane launches of phase 7 beside K1's phase-6 numbers
     measured["epoch_scan"]["sweep_static_grid"] = sweep_measured["static_grid"]
     measured["epoch_scan_dtpm"]["sweep_dtpm_grid"] = sweep_measured["dtpm_grid"]

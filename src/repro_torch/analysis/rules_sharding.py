@@ -1,9 +1,10 @@
 """SH001 — lane-sharding contracts, on the port's own ``sharding.P``.
 
 The twin of ``src/repro/analysis/rules_sharding.py``.  The port's
-``repro_torch.sharding`` keeps the reference's layout vocabulary without
-placing anything (``P`` is a tuple, ``Mesh`` an abstract mesh, ``lane_mesh``
-returns ``None`` on one card); its conventions are still checkable:
+``repro_torch.sharding`` keeps the reference's layout vocabulary (``P`` is
+a tuple, a layout's ``Mesh`` abstract; ``lane_mesh`` keeps the devices a
+sweep's lane blocks run on, ``None`` on one); its conventions are
+checkable:
 
 * **leading lane axis** — stacked lane leaves shard along their leading
   axis, ``P("lanes")``; a ``P`` that names the lane axis at another

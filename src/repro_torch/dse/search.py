@@ -115,12 +115,13 @@ def evaluate(points: Sequence[DesignPoint], apps: Sequence[Application],
     ``pad_pes`` fixes the padded PE width, so successive calls with
     different design mixes run scans of one table shape.
 
-    ``chunk``/``shard`` delegate to the sweep's chunked lane executor
-    (``scenario.shardexec``, DESIGN.md §13): the design lanes stream in
-    fixed-width chunks with bounded device memory — equal to the plain
-    batched call lane for lane — and ``shard`` resolves to the one device;
-    ``pareto_search``/``successive_halving`` pass them (and ``device``)
-    through ``eval_kw`` unchanged.
+    ``chunk``/``shard`` delegate to the sweep's sharded and chunked lane
+    executor (``scenario.shardexec``, DESIGN.md §13): the design lanes
+    stream in fixed-width chunks with bounded device memory, and ``shard``
+    splits each chunk over the lane devices (``sharding.lane_devices``: the
+    CUDA cards, or N virtual ones), both equal to the plain batched call
+    bit for bit; ``pareto_search``/``successive_halving`` pass them (and
+    ``device``) through ``eval_kw`` unchanged.
 
     ``governor`` widens the DVFS axis of the search: the default ``"design"``
     pins each design's static frequency caps; a *dynamic* governor

@@ -13,17 +13,22 @@ renders these.
 signature receives the flag and picks sizes via :func:`scaled`.
 ``--device`` (default ``cuda``, which raises where there is no card) is
 passed to a ``run(device=...)`` signature and names the device in the
-manifest.  ``--devices`` is the reference's XLA virtual host-device count;
-here it takes only 1: lane sharding over several cards is not ported.
+manifest.  ``--devices N`` is the reference's virtual host-device count:
+here it runs the benchmark under ``sharding.virtual_lane_devices(N)`` on
+``--device`` (a sweep shards its lanes over N blocks of that device, a
+stream each on a card), and the manifest records the lane devices as
+``lane_devices``; without it the lane devices are the process's own.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from . import metrics
+from .. import sharding
 
 BENCH_SCHEMA = "repro.obs/bench/v1"
 
@@ -53,7 +58,7 @@ def bench_cli(run_fn: Callable[..., Rows], name: str,
               description: Optional[str] = None,
               argv: Optional[Sequence[str]] = None) -> int:
     """Run one benchmark module as a CLI: print the CSV rows, honour the
-    ``--json PATH``, ``--smoke`` and ``--device`` flags."""
+    ``--json PATH``, ``--smoke``, ``--device`` and ``--devices`` flags."""
     from .. import resolve_device
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--json", metavar="PATH",
@@ -63,15 +68,13 @@ def bench_cli(run_fn: Callable[..., Rows], name: str,
     ap.add_argument("--device", default="cuda",
                     help="the device to run on (default: cuda; raises where "
                          "there is none; 'cpu' runs the plain versions)")
-    ap.add_argument("--devices", type=int, default=1, metavar="N",
-                    help="devices to shard lanes over; only 1 (lane sharding "
-                         "over several cards is not ported)")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="N virtual lane devices on --device to shard sweep "
+                         "lanes over (default: the process's devices)")
     args = ap.parse_args(argv)
-    if args.devices != 1:
-        raise ValueError(f"--devices {args.devices}: lane sharding over "
-                         "several cards is not ported (ROADMAP.md); the port "
-                         "runs on one device")
     dev = resolve_device(args.device)
+    lanes = (contextlib.nullcontext() if args.devices is None
+             else sharding.virtual_lane_devices(args.devices))
     kwargs = {}
     params = inspect.signature(run_fn).parameters
     if "smoke" in params:
@@ -79,13 +82,16 @@ def bench_cli(run_fn: Callable[..., Rows], name: str,
     if "device" in params:
         kwargs["device"] = dev
     wall = metrics.timer(f"bench.{name}.wall")
-    with wall:
-        rows = run_fn(**kwargs)
+    with lanes:
+        n_lanes = len(sharding.lane_devices(dev))
+        with wall:
+            rows = run_fn(**kwargs)
     print("name,value,derived")
     for n, v, d in rows:
         print(f"{n},{v:.4f},{d}")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(rows_payload(rows, name, wall.last_s, device=dev,
-                                   smoke=args.smoke), fh, indent=2)
+                                   smoke=args.smoke, lane_devices=n_lanes),
+                      fh, indent=2)
     return 0

@@ -34,9 +34,11 @@ cross-product through the event-heap oracle lane by lane.
 grid scans sweeps have started, keyed by program (DTPM, FAULTS) as
 ``kernels.epoch_scan.variant_launches`` is — one per scheduler value and
 policy shape, on either device; lanes add none.  ``chunk=N`` streams the
-lanes through the same programs in fixed-width chunks (``shardexec``): one
-scan a chunk.  ``telemetry=True`` replays each scan's lanes once, after it
-(``obs.telemetry``), chunk by chunk under ``chunk=``; it starts no scan.
+lanes through the same programs in fixed-width chunks, and ``shard`` splits
+each chunk over the lane devices (``shardexec``): one scan a block, blocks x
+chunks a scheduler value.  ``telemetry=True`` replays each scan's lanes once,
+after it (``obs.telemetry``), block by block under ``chunk=`` or ``shard``;
+it starts no scan.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from ..dse.batch import (host_tensor, pad_node_map, simulate_grid,
 from ..dse.space import DesignPoint
 from ..dse.thermal_torch import peak_temperature_grid
 from ..obs import telemetry as _obs_tel
+from ..sharding import lane_devices
 from . import faults as _faults
 from . import shardexec
 from .config import Scenario, TraceSpec
@@ -74,7 +77,7 @@ _TRACE_FIELDS = {f.name for f in dataclasses.fields(TraceSpec)}
 
 # grid scans started by sweep(), by program (DTPM, FAULTS); their sum stands
 # where the reference's compile_count stands (one per scheduler value and
-# policy shape, and per chunk under chunk=; lanes add none)
+# policy shape, and per block under chunk= or shard; lanes add none)
 scan_calls = dict.fromkeys(((False, False), (True, False), (False, True),
                             (True, True)), 0)
 
@@ -215,17 +218,22 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     policy lane axis through the same grid programs in fixed-width N-lane
     chunks from host-resident (pinned) stacks (``scenario.shardexec``):
     the device holds one chunk at a time, and every output equals the
-    unchunked sweep's lane for lane.  ``shard`` has one device to use:
-    ``None`` / ``False`` / ``True`` all run the unsharded path
-    (``shardexec.resolve_mesh``).
+    unchunked sweep's lane for lane.  ``shard`` splits each chunk (the
+    whole lane axis without ``chunk``) into one contiguous block a lane
+    device (``sharding.lane_devices(device)``: the process's CUDA cards,
+    or ``device`` N times under ``sharding.virtual_lane_devices(N)``, a
+    stream each): ``None`` (auto) and ``True`` shard exactly when there is
+    more than one lane device, ``False`` never (``shardexec.resolve_mesh``);
+    every output equals the unsharded sweep's bit for bit.
 
     ``telemetry`` (default: ``scenario.telemetry``) fills
     ``SweepResult.telemetry`` with one per-window
     :class:`~repro_torch.obs.telemetry.Telemetry` per lane (an object array
     shaped like the sweep), each equal to its point's ``run(...,
     telemetry=True)`` bit for bit.  The torch backend replays each scan's
-    lanes in one batched replay over its outputs (per chunk under
-    ``chunk=``); the simulations are not re-run.  Under a dynamic governor
+    lanes in one batched replay over its outputs (per block, on the block's
+    device, under ``chunk=`` or ``shard``); the simulations are not
+    re-run.  Under a dynamic governor
     with faults it raises :class:`BackendCapabilityError`, as ``run`` does.
     """
     if not axes:
@@ -268,10 +276,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
         raise ScenarioError(f"unknown backend {backend!r}; have "
                             f"('ref', 'torch')")
     dev = resolve_device(device)
-    # one device: every shard value resolves to the unsharded path
-    # (shardexec.resolve_mesh), so the lanes stream through shardexec
-    # exactly when chunk is given
-    lane_exec = chunk is not None
+    mesh = shardexec.resolve_mesh(shard, lane_devices(dev))
+    lane_exec = chunk is not None or mesh is not None
 
     # fault lanes: every value of a 'faults'/'failures' axis is one fault
     # set; with no such axis the base scenario's failures apply to all lanes
@@ -409,8 +415,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             if lane_exec:
                 out = shardexec.run_dtpm_grid(
                     tables, gov_stack, arrival, app_idx,
-                    policy=s_scn.scheduler, chunk=chunk, fplans=plans,
-                    telemetry=replay)
+                    policy=s_scn.scheduler, chunk=chunk, mesh=mesh,
+                    fplans=plans, telemetry=replay)
             elif plans is not None:
                 out = _sweep_grid_dtpm_faults(tables, gov_stack, plans,
                                               arrival, app_idx,
@@ -423,8 +429,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             out, temps = shardexec.run_static_grid(
                 tables, node_of_pe, arrival, app_idx,
                 policy=s_scn.scheduler, bins=s_scn.thermal.bins,
-                repeats=s_scn.thermal.repeats, chunk=chunk, fplans=plans,
-                telemetry=replay)
+                repeats=s_scn.thermal.repeats, chunk=chunk, mesh=mesh,
+                fplans=plans, telemetry=replay)
         elif plans is not None:
             out, temps = _sweep_grid_faults(
                 tables, node_of_pe, plans, arrival, app_idx,
@@ -434,7 +440,7 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             out, temps = _sweep_grid(tables, node_of_pe, arrival, app_idx,
                                      s_scn.scheduler, bins=s_scn.thermal.bins,
                                      repeats=s_scn.thermal.repeats)
-        tel = out.pop("telemetry", None)            # replayed chunk by chunk
+        tel = out.pop("telemetry", None)            # replayed block by block
         if replay is not None and not lane_exec:
             tel = replay(tables, out, gov_stack,
                          torch.arange(len(design_combos)))
@@ -521,7 +527,7 @@ def _telemetry_replay(s_scn: Scenario, design_axes: List[str],
         G = gov.lanes if dynamic else 1
         lanes = {k: to_design_major(v.reshape(F, D, G, S, *v.shape[len(lead):]))
                  for k, v in out.items() if k in _TEL_KEYS}
-        apps = app_idx.repeat(D * F * G, 1)
+        apps = app_idx.to(tables.exec_us.device).repeat(D * F * G, 1)
         if dynamic:
             pick = torch.arange(D * F * G * S) // S % G
             tels = _obs_tel.torch_dtpm_telemetry(tables, gov.take(pick),

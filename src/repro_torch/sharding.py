@@ -16,6 +16,11 @@ partitioned count runs a step on ``DTensor`` arguments over one, and then
 :func:`shard` constrains an activation's layout as the reference's
 ``with_sharding_constraint`` does.  ``torch.distributed`` is imported only
 inside the functions that need a device mesh.
+
+The *lane* mesh (:func:`lane_mesh`) is another thing: a 1-D mesh that keeps
+its devices, over which ``scenario.shardexec`` splits a sweep's independent
+lanes, one contiguous block a device.  Its devices are the process's CUDA
+cards, or one device N times under :func:`virtual_lane_devices`.
 """
 from __future__ import annotations
 
@@ -45,13 +50,18 @@ class P(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """An abstract device mesh: axis names and sizes, no devices."""
+    """A device mesh: axis names and sizes.  A layout's mesh is abstract (no
+    devices); a lane mesh (:func:`lane_mesh`) keeps its devices, row-major."""
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
+    devices: Tuple[torch.device, ...] = ()
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
             raise ValueError(f"mesh {self.axis_sizes} vs axes {self.axis_names}")
+        if self.devices and len(self.devices) != math.prod(self.axis_sizes):
+            raise ValueError(f"mesh {self.axis_sizes} over "
+                             f"{len(self.devices)} devices")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -328,21 +338,62 @@ def shard_shape(shape: Sequence[int], spec: P, mesh: Mesh) -> Tuple[int, ...]:
 
 LANE_AXIS = "lanes"
 
+# the process's virtual lane devices (None: the devices it has)
+_VIRTUAL_LANES: Optional[int] = None
+
+
+@contextlib.contextmanager
+def virtual_lane_devices(n: int):
+    """N virtual lane devices for the whole process, restored on exit: the
+    twin of the reference's virtual host devices
+    (``--xla_force_host_platform_device_count=N``).  Under it the lane
+    devices of a sweep on device ``d`` are ``d`` N times, each one shard of
+    the lane axis (on a CUDA device each shard runs on its own stream)."""
+    global _VIRTUAL_LANES
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"virtual lane devices: a positive count, got {n!r}")
+    old, _VIRTUAL_LANES = _VIRTUAL_LANES, n
+    try:
+        yield
+    finally:
+        _VIRTUAL_LANES = old
+
+
+def lane_devices(device=None) -> Tuple[torch.device, ...]:
+    """The lane devices of a sweep on ``device`` (default: the current CUDA
+    device where there is one, else the CPU): ``device`` N times under
+    :func:`virtual_lane_devices`, else every CUDA device of the process for a
+    CUDA ``device`` and the one CPU for a CPU one."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if _VIRTUAL_LANES is not None:
+        return (dev,) * _VIRTUAL_LANES
+    if dev.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (dev,)
+
 
 def lane_mesh(devices: Optional[Sequence[torch.device]] = None
               ) -> Optional[Mesh]:
-    """The reference's 1-D lane mesh over the local devices: ``None`` on one
-    device, so callers take the unsharded path.  Lane sharding over several
-    CUDA cards cannot be checked on a one-card machine and raises."""
-    if devices is None:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    else:
-        n = len(tuple(devices))
-    if n <= 1:
+    """A 1-D mesh over ``devices`` (default :func:`lane_devices`), axis name
+    :data:`LANE_AXIS`, that keeps its devices, one shard each.
+
+    The sweep grids are embarrassingly parallel along their leading
+    design/policy lane axis, so a flat 1-D mesh is the whole story.  Returns
+    ``None`` on a single device, as the reference does: callers fall back to
+    the unsharded path.
+    """
+    devices = tuple(torch.device(d) for d in (
+        lane_devices() if devices is None else devices))
+    if len(devices) <= 1:
         return None
-    raise NotImplementedError(
-        f"lane sharding over {n} CUDA devices: the port resolves every lane "
-        "grid to one card (scenario/shardexec.py resolve_mesh)")
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a lane mesh over one kind of device, got {devices}")
+    return Mesh((len(devices),), (LANE_AXIS,), devices=devices)
 
 
 def lane_count(mesh: Optional[Mesh]) -> int:

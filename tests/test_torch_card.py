@@ -56,3 +56,41 @@ def test_kernels_raise_under_grad_and_launch_under_no_grad_on_the_card():
             fn(*args, **kw)
         assert mod.launches == before + 1
         args[0].requires_grad_(False)
+
+
+@pytest.mark.card
+def test_sharded_sweep_on_virtual_shards_of_the_card_is_repeatable():
+    """A small sweep over 4 virtual shards of ``cuda:0`` (a block of lanes
+    on a stream each), run twice: both runs equal the unsharded sweep bit
+    for bit, static and with the DTPM policy lanes streaming, and K1
+    launches once a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the shards are blocks of lanes on "
+                    "streams of cuda:0, and K1 launches only on a card")
+    import numpy as np
+
+    from repro_torch.dse import DesignPoint
+    from repro_torch.kernels import epoch_scan as k1
+    from repro_torch.scenario import Scenario, TraceSpec, sweep
+    from repro_torch.sharding import virtual_lane_devices
+    scn = Scenario(apps=("wifi_tx", "wifi_rx"), scheduler="etf",
+                   governor="design",
+                   trace=TraceSpec(rate_jobs_per_ms=20.0, num_jobs=200,
+                                   seed=1))
+    points = [DesignPoint(cross_cluster_penalty=1.0 + 0.25 * i)
+              for i in range(10)]
+    cases = [(scn, {"design": points, "seed": [0, 1, 2]}),
+             (scn.replace(governor="ondemand"),
+              {"design": points[:2], "governor_params": [
+                  (("up_threshold", 0.5 + 0.05 * i),) for i in range(8)]})]
+    fields = ("avg_latency_us", "makespan_us", "energy_j", "peak_temp_c",
+              "busy_per_pe_us")
+    for base, axes in cases:
+        plain = sweep(base, axes, shard=False)
+        for _ in range(2):
+            before = k1.launches
+            with virtual_lane_devices(4):
+                got = sweep(base, axes)
+            assert k1.launches == before + 4
+            for f in fields:
+                assert np.array_equal(getattr(got, f), getattr(plain, f)), f

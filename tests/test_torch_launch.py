@@ -268,9 +268,10 @@ def test_sharding_state_and_helpers():
     if torch.cuda.device_count() <= 1:
         assert sharding.lane_mesh() is None
     assert sharding.lane_mesh([torch.device("cpu")]) is None
-    with pytest.raises(NotImplementedError, match="lane sharding"):
-        sharding.lane_mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
-    assert sharding.lane_count(None) == 1
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    lanes = sharding.lane_mesh(cards)
+    assert lanes.shape == {"lanes": 2} and lanes.devices == cards
+    assert sharding.lane_count(None) == 1 and sharding.lane_count(lanes) == 2
 
 
 # ------------------------------------------------------------- dry-run

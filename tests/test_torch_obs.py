@@ -64,6 +64,7 @@ from repro_torch.obs.telemetry import (TELEMETRY_SCHEMA, domain_count,
                                        torch_dtpm_telemetry,
                                        torch_static_telemetry)
 from repro_torch.scenario import FaultSpec, Scenario, TraceSpec, run, sweep
+from repro_torch.sharding import lane_devices
 
 # the module (the package's `sweep` attribute is the function)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
@@ -490,10 +491,19 @@ def test_bench_cli_json_payload(tmp_path, capsys):
         {"name": "unit/x", "value": 1.5, "derived": "note"}]
     again = rows_payload([("unit/x", 1.5, "note")], "unit", 0.0)
     assert again["rows"] == payload["rows"]
+    assert man["lane_devices"] == 1
     assert bench_cli(lambda: [("a", 1.0, "")], "plain", argv=[
         "--device", "cpu", "--devices", "1"]) == 0
-    with pytest.raises(ValueError, match="not ported"):
-        bench_cli(run_fn, "unit", argv=["--device", "cpu", "--devices", "8"])
+    # --devices N: N virtual lane devices on --device while the run lasts
+    with pytest.raises(ValueError, match="positive count"):
+        bench_cli(run_fn, "unit", argv=["--device", "cpu", "--devices", "0"])
+    seen_lanes = []
+    assert bench_cli(lambda: seen_lanes.append(lane_devices("cpu")) or [],
+                     "lanes", argv=["--device", "cpu", "--devices", "8",
+                                    "--json", str(path)]) == 0
+    assert seen_lanes == [(torch.device("cpu"),) * 8]
+    assert json.loads(path.read_text())["manifest"]["lane_devices"] == 8
+    assert lane_devices("cpu") == (torch.device("cpu"),)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench_cli(run_fn, "unit", argv=[])

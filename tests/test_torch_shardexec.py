@@ -1,20 +1,22 @@
-"""``repro_torch.scenario.shardexec`` — the chunked lane executor — on the
-CPU: the cases of tests/test_shardexec.py and
+"""``repro_torch.scenario.shardexec`` — the sharded and chunked lane
+executor — on the CPU: the cases of tests/test_shardexec.py and
 tests/test_faults_jax.py::test_fault_sweep_composes_with_chunk_and_design_axis.
 
-``sweep(..., chunk=N)`` equals the plain sweep bit for bit on every output
-(static, DTPM streaming designs, DTPM streaming policies, faults), with the
-chunk and pad counters counted as the reference counts them; against the
-JAX package the tolerances of tests/test_torch_sweep.py (makespan exact,
-sums 1e-6 relative, peak temperature 1e-5).
-
-One reference test has no twin here:
-``test_sharded_sweep_bitexact_8_virtual_devices`` has none on one card
-(lane sharding is not ported; ``resolve_mesh`` resolves every ``shard`` to
-the one device).
+``sweep(..., chunk=N)`` and ``sweep(..., shard=...)`` over virtual lane
+devices (``sharding.virtual_lane_devices``: the CPU N times, in process,
+where the reference forces N XLA host devices in a subprocess) equal the
+plain sweep bit for bit on every output (static, DTPM streaming designs,
+DTPM streaming policies, faults, telemetry), with the device, chunk and pad
+counters counted as the reference counts them; against the JAX package the
+tolerances of tests/test_torch_sweep.py (makespan exact, sums 1e-6
+relative, peak temperature 1e-5).  On the CPU the blocks run one after
+another: the streams of a card are the card test's
+(tests/test_torch_card.py).
 """
+import contextlib
 import dataclasses
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -34,6 +36,8 @@ from repro_torch.obs import metrics
 from repro_torch.scenario import (BackendCapabilityError, FaultSpec, Scenario,
                                   TraceSpec, sweep, tables_for)
 from repro_torch.scenario import shardexec
+from repro_torch import sharding
+from repro_torch.obs import bench_cli
 from repro_torch.core.applications import wifi_tx
 from repro_torch.core.jobgen import poisson_trace
 
@@ -294,3 +298,237 @@ def test_resolve_mesh_single_device():
                      sweep(SCN, axes={"seed": [0, 1]}, device="cpu",
                            shard=True))
     assert _counts() == c0
+
+
+# ------------------------------------------------ lane sharding (virtual devices)
+
+def _sharded(scn, axes, devices, pads, **kw):
+    """sweep(...) under ``devices`` virtual CPU lane devices (auto-sharded
+    unless ``kw`` says otherwise), asserting the mesh width and the pad
+    lanes it added."""
+    _, p0 = _counts()
+    with sharding.virtual_lane_devices(devices):
+        out = sweep(scn, axes=axes, device="cpu", **kw)
+    assert metrics.counter("scenario.shard.devices").value == devices
+    assert _counts()[1] - p0 == pads
+    return out
+
+
+def _tel_equal(a, b):
+    _assert_bitexact(a, b)
+    assert a.telemetry.shape == b.telemetry.shape == a.shape
+    assert all(x.equals(y) for x, y in zip(a.telemetry.flat, b.telemetry.flat))
+
+
+def test_sharded_sweep_bitexact_8_virtual_devices():
+    """The twin of the reference's 8-device test: 5 designs x 2 seeds over 8
+    virtual lane devices — auto-shard = ``shard=False`` bit for bit (devices
+    8, 3 pad lanes), ``shard=True, chunk=2``, telemetry, the ondemand
+    policy-lane axis — and the JAX package's sweep within the sweep
+    tolerances."""
+    axes = {"design": POINTS, "seed": [0, 1]}
+    plain = sweep(SCN, axes=axes, device="cpu", shard=False)
+    n0 = sum(sweep_mod.scan_calls.values())
+    _assert_bitexact(plain, _sharded(SCN, axes, 8, pads=3))
+    assert sum(sweep_mod.scan_calls.values()) - n0 == 8       # a scan a block
+    # sharding composes with chunking (chunk=2 -> width 8 a chunk)
+    c0, _ = _counts()
+    _assert_bitexact(plain, _sharded(SCN, axes, 8, pads=3, shard=True,
+                                     chunk=2))
+    assert _counts()[0] - c0 == 1                   # chunks, not blocks
+    # telemetry replays block by block, equal to the unsharded replay
+    _tel_equal(sweep(SCN, axes=axes, device="cpu", shard=False,
+                     telemetry=True),
+               _sharded(SCN, axes, 8, pads=3, shard=True, telemetry=True))
+    # the DTPM policy-lane axis shards too
+    scn = SCN.replace(governor="ondemand")
+    paxes = {"governor_params": [(("up_threshold", 0.5 + 0.08 * i),)
+                                 for i in range(5)], "seed": [0]}
+    _assert_bitexact(sweep(scn, axes=paxes, device="cpu", shard=False),
+                     _sharded(scn, paxes, 8, pads=3))
+    want = jsweep(JSCN, axes={"design": [jdse.DesignPoint(
+        cross_cluster_penalty=p.cross_cluster_penalty) for p in POINTS],
+        "seed": [0, 1]})
+    np.testing.assert_array_equal(plain.makespan_us, want.makespan_us)
+    np.testing.assert_allclose(plain.energy_j, want.energy_j, rtol=1e-6)
+    np.testing.assert_allclose(plain.peak_temp_c, want.peak_temp_c,
+                               rtol=1e-5)
+
+
+FAULT_SETS = [(), (FaultSpec(0, 200.0),), (FaultSpec(1, 100.0),
+                                          FaultSpec(2, 300.0))]
+ONDEMAND = [(("up_threshold", u),) for u in (0.55, 0.6, 0.7, 0.8, 0.9)]
+
+# (name, governor, axes, lanes streamed): static designs, DTPM streaming
+# designs (D >= G) and policies (G > D), and the fault grids, whose streamed
+# axis sits at position 1 (static; DTPM designs) or 2 (DTPM policies)
+SHARD_CASES = [
+    ("static", "design", {"design": POINTS, "rate": [10.0, 40.0]}, 5),
+    ("dtpm-designs", "ondemand", {"design": POINTS[:3],
+                                  "governor_params": ONDEMAND[:2],
+                                  "seed": [0]}, 3),
+    ("dtpm-policies", "ondemand", {"design": POINTS[:2],
+                                   "governor_params": ONDEMAND,
+                                   "seed": [0, 1]}, 5),
+    ("faults-static", "design", {"faults": FAULT_SETS, "design": POINTS[:3],
+                                 "seed": [0, 1]}, 3),
+    ("faults-dtpm-designs", "ondemand", {"faults": FAULT_SETS,
+                                         "design": POINTS[:3],
+                                         "governor_params": ONDEMAND[:1],
+                                         "seed": [0]}, 3),
+    ("faults-dtpm-policies", "ondemand", {"faults": FAULT_SETS[:2],
+                                          "governor_params": ONDEMAND[:3],
+                                          "seed": [0]}, 3),
+]
+
+
+@pytest.mark.parametrize("devices,chunk", [(2, None), (4, None), (3, 2)])
+@pytest.mark.parametrize("name,governor,axes,lanes", SHARD_CASES,
+                         ids=[c[0] for c in SHARD_CASES])
+def test_sharded_grids_bitexact(name, governor, axes, lanes, devices, chunk):
+    """Every grid kind over 2, 3 and 4 virtual lane devices, alone and with
+    ``chunk=``: equal to the unsharded sweep bit for bit, a scan a block,
+    the pad lanes counted as the reference counts them."""
+    scn = SCN.replace(governor=governor)
+    plain = sweep(scn, axes=axes, device="cpu")
+    width = shardexec.padded_width(lanes, chunk, devices)
+    n_chunks = -(-lanes // width)
+    c0, _ = _counts()
+    n0 = sum(sweep_mod.scan_calls.values())
+    got = _sharded(scn, axes, devices, pads=n_chunks * width - lanes,
+                   chunk=chunk)
+    _assert_bitexact(plain, got)
+    assert _counts()[0] - c0 == (n_chunks if chunk else 1)
+    assert sum(sweep_mod.scan_calls.values()) - n0 == n_chunks * devices
+
+
+@pytest.mark.parametrize("governor,axes,pads", [
+    ("design", {"design": POINTS[:3], "seed": [0]}, 1),
+    ("ondemand", {"governor_params": ONDEMAND[:3], "seed": [0, 1]}, 1),
+    ("ondemand", {"design": POINTS[:3], "governor_params": ONDEMAND[:2],
+                  "seed": [0]}, 1),
+    ("design", {"faults": FAULT_SETS[:2], "design": POINTS[:2],
+                "seed": [0]}, 0),
+], ids=["static", "dtpm-policies", "dtpm-designs", "faults-static"])
+def test_sharded_telemetry_bitexact(governor, axes, pads):
+    """Each block's lanes are replayed on its device right after its launch:
+    the timelines equal the unsharded sweep's bit for bit (2 virtual
+    devices: a pad lane in every grid but the fault grid)."""
+    scn = SCN.replace(governor=governor)
+    _tel_equal(sweep(scn, axes=axes, device="cpu", telemetry=True),
+               _sharded(scn, axes, 2, pads=pads, telemetry=True))
+
+
+def test_sharded_policy_block_equals_the_wider_grid():
+    """A lane's bits do not depend on the other designs of its launch: 2
+    designs x 5 policies over 8 virtual devices (policies stream), padded to
+    the PE width of a 5-design grid, equal that grid's first 2 designs bit
+    for bit."""
+    scn = SCN.replace(governor="ondemand")
+    wide = {"design": POINTS[:1] + [dataclasses.replace(
+        SCN.design, num_little=SCN.design.num_little + 2)] + POINTS[1:4],
+        "governor_params": ONDEMAND, "seed": [0]}
+    full = sweep(scn, axes=wide, device="cpu")
+    pad = int(tables_for(scn.replace(design=wide["design"][1]),
+                         device="cpu").num_pes)
+    part = dict(wide, design=wide["design"][:2])
+    got = _sharded(scn, part, 8, pads=3, pad_pes=pad)
+    for f in FIELDS:
+        assert np.array_equal(getattr(got, f), getattr(full, f)[:2]), f
+
+
+def test_evaluate_sharded_equals_plain():
+    """``evaluate(shard=True)`` over 4 virtual lane devices (and with
+    ``chunk=``, and under an ondemand governor) equals the plain call."""
+    pts = DesignSpace().sample_lhs(7, seed=4)
+    traces = [poisson_trace(20.0, 12, ["wifi_tx"], seed=s) for s in (0, 1)]
+    for kw in ({}, {"governor": "ondemand"}):
+        plain = evaluate(pts, [wifi_tx()], traces, device="cpu", **kw)
+        for chunk, pads in ((None, 1), (3, 1)):
+            _, p0 = _counts()
+            with sharding.virtual_lane_devices(4):
+                got = evaluate(pts, [wifi_tx()], traces, device="cpu",
+                               shard=True, chunk=chunk, **kw)
+            assert metrics.counter("scenario.shard.devices").value == 4
+            assert _counts()[1] - p0 == pads
+            np.testing.assert_array_equal(got.objectives(),
+                                          plain.objectives())
+            np.testing.assert_array_equal(got.latency_per_trace_us,
+                                          plain.latency_per_trace_us)
+            np.testing.assert_array_equal(got.temp_per_trace_c,
+                                          plain.temp_per_trace_c)
+
+
+@pytest.mark.parametrize("virtual", [None, 1, 2, 8])
+def test_resolve_mesh_with_and_without_virtual_devices(virtual):
+    """``False`` never shards; ``None`` and ``True`` shard exactly when
+    there is more than one lane device; the mesh keeps its devices."""
+    cpu = torch.device("cpu")
+    ctx = (sharding.virtual_lane_devices(virtual) if virtual
+           else contextlib.nullcontext())
+    with ctx:
+        devices = sharding.lane_devices("cpu")
+        assert devices == (cpu,) * (virtual or 1)
+        assert shardexec.resolve_mesh(False, devices) is None
+        for shard in (None, True):
+            mesh = shardexec.resolve_mesh(shard, devices)
+            if (virtual or 1) == 1:
+                assert mesh is None
+            else:
+                assert mesh.devices == devices
+                assert sharding.lane_count(mesh) == virtual
+                assert mesh.shape == {sharding.LANE_AXIS: virtual}
+        if (virtual or 1) > 1:          # the default devices: the CPU's here
+            assert shardexec.resolve_mesh(False) is None
+        # shard=False under virtual devices streams nothing
+        c0 = _counts()
+        sweep(SCN, axes={"seed": [0, 1]}, device="cpu", shard=False)
+        assert _counts() == c0
+    assert sharding.lane_devices("cpu") == (cpu,)
+
+
+@pytest.mark.parametrize("devices", [
+    [torch.device("cpu")], [torch.device("cuda", 0)], ["cpu"], []],
+    ids=["cpu", "cuda0", "name", "none"])
+def test_lane_mesh_of_one_device_is_none(devices):
+    assert sharding.lane_mesh(devices) is None
+    assert sharding.lane_count(sharding.lane_mesh(devices)) == 1
+
+
+def test_lane_mesh_refusals():
+    with pytest.raises(ValueError, match="one kind of device"):
+        sharding.lane_mesh([torch.device("cpu"), torch.device("cuda", 0)])
+    for bad in (0, -1, 2.0):
+        with pytest.raises(ValueError, match="positive count"):
+            with sharding.virtual_lane_devices(bad):
+                pass
+    with pytest.raises(ValueError, match="2 devices"):
+        sharding.Mesh((4,), (sharding.LANE_AXIS,),
+                      devices=(torch.device("cpu"),) * 2)
+    # nested settings restore the outer one
+    with sharding.virtual_lane_devices(4):
+        with sharding.virtual_lane_devices(2):
+            assert len(sharding.lane_devices("cpu")) == 2
+        assert len(sharding.lane_devices("cpu")) == 4
+
+
+def test_bench_cli_devices_runs_sharded(tmp_path, capsys):
+    """``bench_cli --devices 4 --device cpu``: the benchmark runs under 4
+    virtual lane devices (its sweep auto-shards over them) and the manifest
+    records 4."""
+    path = tmp_path / "BENCH_lanes.json"
+    axes = {"design": POINTS, "seed": [0]}
+    plain = sweep(SCN, axes=axes, device="cpu")
+    got = {}
+
+    def run_fn(device):
+        got["sr"] = sweep(SCN, axes=axes, device=device)
+        return [("lanes/points", float(got["sr"].num_points), "")]
+
+    assert bench_cli(run_fn, "lanes", argv=["--devices", "4", "--device",
+                                            "cpu", "--json", str(path)]) == 0
+    assert metrics.counter("scenario.shard.devices").value == 4
+    _assert_bitexact(plain, got["sr"])
+    man = json.loads(path.read_text())["manifest"]
+    assert man["lane_devices"] == 4 and man["device_platform"] == "cpu"
+    assert "lanes/points,5.0000" in capsys.readouterr().out
