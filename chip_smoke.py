@@ -460,7 +460,6 @@ from repro_torch.sharding import (Mesh, lane_devices, use_mesh,  # noqa: E402
 # the modules (the package's `sweep` and `run` attributes are the functions)
 sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
 run_mod = importlib.import_module("repro_torch.scenario.run")
-search_mod = importlib.import_module("repro_torch.dse.search")
 dse_reports = importlib.import_module("repro_torch.dse.reports")
 
 DEV = torch.device("cuda", 0)
@@ -2779,61 +2778,41 @@ SWEEP_SCHEDULE = ("avg_latency_us", "makespan_us", "throughput_jobs_per_ms",
 
 
 def timed_dse(fn):
-    """``fn()`` (an entry point as a user calls it) with its parts timed from
-    inside: the host table builds (``build_design_batch`` for ``evaluate``,
-    ``_design_lanes`` for ``sweep``), each K1 launch (CUDA events), the grid
-    program (K1 + epilogue) and the thermal grid, a synchronise around each.
-    Returns its result and the times in seconds."""
-    rec = {"tables_s": 0.0, "grid_s": 0.0, "thermal_s": 0.0}
-    patches = {(search_mod, "build_design_batch"): "tables_s",
-               (sweep_mod, "_design_lanes"): "tables_s",
-               (sweep_mod, "simulate_grid"): "grid_s",
-               (sweep_mod, "peak_temperature_grid"): "thermal_s"}
-    orig = {where: getattr(*where) for where in patches}
-    orig_scan, events = k1.epoch_scan, []
-
-    def timed(key, fn):
-        def call(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            rec[key] += time.perf_counter() - t0
-            return out
-        return call
-
-    def scan(*args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = orig_scan(*args, **kw)
-        ev[1].record()
-        events.append(ev)
-        return out
-
-    for where, key in patches.items():
-        setattr(*where, timed(key, orig[where]))
-    k1.epoch_scan = scan
-    try:
-        torch.cuda.synchronize()
+    """``fn()`` (an entry point as a user calls it) under ``torch.profiler``
+    (CPU and CUDA), its parts read from the program's own spans
+    (``repro_torch.obs.metrics``), which are live only while the profiler
+    records: the host time of the table builds, K1's wrapper, the epilogue,
+    the thermal grid and the wait on the card (the registry's timers of the
+    spans), and K1's device time (``epoch_scan_kernel`` in the profiler's
+    ``key_averages()``).  Nothing is patched and nothing synchronised inside
+    ``fn``.  Returns its result and the times in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {"tables_s": metrics.TABLES, "k1_host_s": metrics.K1,
+             "epilogue_s": metrics.EPILOGUE, "thermal_s": metrics.THERMAL,
+             "wait_s": metrics.WAIT}
+    before = {k: metrics.timer(n).total_s for k, n in names.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        rec["wall_s"] = time.perf_counter() - t0
-    finally:
-        for where, f in orig.items():
-            setattr(*where, f)
-        k1.epoch_scan = orig_scan
-    rec["k1_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
-    rec["epilogue_s"] = rec["grid_s"] - rec["k1_s"]
-    rec["rest_s"] = rec["wall_s"] - rec["tables_s"] - rec["grid_s"] - rec["thermal_s"]
+        rec = {"wall_s": time.perf_counter() - t0}
+    rec.update({k: metrics.timer(n).total_s - before[k] for k, n in names.items()})
+    rec["k1_s"] = sum(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                      for e in prof.key_averages()
+                      if "epoch_scan_kernel" in e.key) / 1e6
+    rec["rest_s"] = rec["wall_s"] - sum(rec[k] for k in names)
     return out, rec
 
 
 def parts(rec) -> str:
     return (f"{rec['wall_s']:.3f} s: host tables {rec['tables_s']:.3f}, K1 "
-            f"{rec['k1_s']:.3f}, epilogue {rec['epilogue_s']:.3f}, thermal "
-            f"{rec['thermal_s']:.3f}, the rest (traces, copies, assembly, search) "
-            f"{rec['rest_s']:.3f}")
+            f"{rec['k1_s']:.3f} (its wrapper {rec['k1_host_s']:.3f} on the host), "
+            f"epilogue {rec['epilogue_s']:.3f}, thermal {rec['thermal_s']:.3f}, "
+            f"the wait on the card {rec['wait_s']:.3f}, the rest (traces, copies, "
+            f"assembly, search) {rec['rest_s']:.3f}; host times of the "
+            f"program's spans, K1's on the card, under torch.profiler")
 
 
 def held_bytes(fn):

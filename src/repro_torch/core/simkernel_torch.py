@@ -39,6 +39,7 @@ from .. import resolve_device
 from ..kernels import ops as _ops
 from ..kernels.epoch_scan import (epoch_scan_plain, lane_designs, per_design,
                                   tree_sum)
+from ..obs import metrics as _metrics
 from .applications import Application
 from .dvfs import (Governor, MAX_OPP_LEVELS, PerformanceGovernor,
                    padded_ladder, policy_lanes)
@@ -272,6 +273,7 @@ def _build_opp_tables(db: ResourceDB, apps: Sequence[Application],
                 domain_cpu=domain_cpu)
 
 
+@_metrics.spanned(_metrics.EPILOGUE)
 def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
               scheduled, start, finish, onpe,
               onopp=None) -> Dict[str, torch.Tensor]:

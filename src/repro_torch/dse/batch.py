@@ -32,6 +32,7 @@ from ..core.jobgen import JobTrace
 from ..core.simkernel_torch import (ARRAY_FIELDS, SimTables, build_tables,
                                     simulate_batch, simulate_batch_dtpm)
 from ..core.thermal import NODE_ACCEL, cluster_nodes
+from ..obs import metrics as _metrics
 from .space import DesignPoint
 
 
@@ -98,6 +99,8 @@ def pad_node_map(dbs, pad_pes: int, device="cuda") -> torch.Tensor:
     return torch.from_numpy(nodes).to(resolve_device(device))
 
 
+@_metrics.spanned(_metrics.ENTRY)
+@_metrics.spanned(_metrics.TABLES)
 def build_design_batch(points: Sequence[DesignPoint],
                        apps: Sequence[Application],
                        pad_pes: Optional[int] = None,

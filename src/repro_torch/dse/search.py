@@ -97,6 +97,7 @@ def _concat(a: "EvalResult", b: "EvalResult") -> "EvalResult":
                                       b.latency_per_fault_us, axis=1))
 
 
+@_metrics.spanned(_metrics.ENTRY)
 def evaluate(points: Sequence[DesignPoint], apps: Sequence[Application],
              traces: Sequence[JobTrace], policy: str = "etf",
              thermal_bins: int = 32, thermal_repeats: int = 3,

@@ -31,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..core import thermal as _ref
+from ..obs import metrics as _metrics
 
 
 def _const(value, device) -> torch.Tensor:
@@ -176,6 +177,7 @@ def peak_temperature(power_trace_w: torch.Tensor, dt_s: torch.Tensor,
 GRID_CHUNK_BYTES = 1 << 30
 
 
+@_metrics.spanned(_metrics.THERMAL)
 def peak_temperature_grid(sim_out: Dict, node_of_pe: torch.Tensor,
                           power_active: torch.Tensor,
                           power_idle: torch.Tensor, bins: int = 32,

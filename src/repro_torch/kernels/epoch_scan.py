@@ -90,6 +90,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
 from . import _build
 
 BIG = 1e30            # finite on purpose, as the reference's BIG
@@ -755,6 +756,7 @@ def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
     return info
 
 
+@_metrics.spanned(_metrics.K1)
 # lint: waive KL001 -- its inputs are tables, traces and fail times: no grad
 def epoch_scan(tables, policy: str, arrival: torch.Tensor,
                app_idx: torch.Tensor, gov=None, faults=None):

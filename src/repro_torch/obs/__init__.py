@@ -4,7 +4,8 @@ Three surfaces, one package:
 
 * :mod:`repro_torch.obs.metrics` — named counters/timers plus the run
   manifest attached to every ``Result`` and every ``BENCH_*.json`` (it
-  names the device a run used);
+  names the device a run used), and the program spans, live only under
+  ``torch.profiler``;
 * :mod:`repro_torch.obs.telemetry` — per-sampling-window ``(W, C)``
   timelines of cluster frequency, utilisation, power and RC node
   temperature: recorded in the event-heap kernel's loop, replayed over K1's
@@ -23,7 +24,7 @@ not import them back at module scope (lazy re-exports below break the cycle).
 """
 from . import metrics
 from .metrics import (Counter, Timer, counter, reset_all, run_manifest,
-                      scenario_hash, snapshot, timer)
+                      scenario_hash, snapshot, span, timer)
 
 _LAZY = {
     "Telemetry": "telemetry",
@@ -44,5 +45,5 @@ def __getattr__(name):
     return getattr(importlib.import_module(f".{mod}", __name__), name)
 
 
-__all__ = ["metrics", "Counter", "Timer", "counter", "timer", "snapshot",
-           "reset_all", "run_manifest", "scenario_hash", *_LAZY]
+__all__ = ["metrics", "Counter", "Timer", "counter", "timer", "span",
+           "snapshot", "reset_all", "run_manifest", "scenario_hash", *_LAZY]

@@ -9,16 +9,26 @@ attached to every ``Result`` of ``scenario.run`` and every ``BENCH_*.json``
 is traced here.  Where it stands, the manifest carries what the port counts
 instead, K1's launches by instantiation and the sweep's grid scans.
 
+Program spans (:func:`span`, :func:`spanned`, :func:`wait`) mark the layers
+of ``sweep`` and ``evaluate`` on the profiler's clock.  A span is live only
+while a ``torch.profiler`` session records in this process: it is then a
+``record_function`` range (a ``user_annotation`` of the exported trace) and
+its host interval adds to :func:`timer` of its name.  Otherwise it is a
+shared no-op: no ``record_function``, no registry entry, no synchronise.
+
 Stdlib-only at import (``torch`` and the counted modules are imported inside
-:func:`run_manifest`): the scenario and dse modules import this one for
-their counters, so it must not import them back.
+:func:`run_manifest` and at a span's first check): the scenario and dse
+modules import this one for their counters, so it must not import them back.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
 import platform as _platform
+import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 MANIFEST_SCHEMA = "repro.obs/manifest/v1"
 
@@ -72,10 +82,14 @@ class Timer:
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.last_s = time.perf_counter() - self._t0
-        self.total_s += self.last_s
-        self.count += 1
+        self.add(time.perf_counter() - self._t0)
         return False
+
+    def add(self, seconds: float) -> None:
+        """Count one interval timed elsewhere (a live span's)."""
+        self.last_s = seconds
+        self.total_s += seconds
+        self.count += 1
 
     @property
     def last_us(self) -> float:
@@ -125,6 +139,106 @@ def reset_all() -> None:
         c.reset()
     for t in _TIMERS.values():
         t.reset()
+
+
+# -- program spans ------------------------------------------------------------
+
+#: the outermost public call (``scenario.sweep``, ``dse.evaluate``,
+#: ``dse.build_design_batch``): one span, however deep the calls nest
+ENTRY = "repro_torch.entry"
+#: the layers inside an entry; no two of them nest
+TABLES = "repro_torch.tables"          # design tables built and stacked
+K1 = "repro_torch.k1"                  # K1's wrapper: checks, host reads, launch
+EPILOGUE = "repro_torch.epilogue"      # latency, energy, busy time of the scan
+THERMAL = "repro_torch.thermal"        # the thermal grid's host loop
+WAIT = "repro_torch.wait"              # the host blocked on the card
+LAYER_SPANS = (TABLES, K1, EPILOGUE, THERMAL, WAIT)
+
+_OFF = contextlib.nullcontext()
+_profiling: Optional[Callable[[], bool]] = None
+_entries = threading.local()       # .depth: public calls in flight, a thread
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records in this process (~0.1
+    us; ``torch`` is read at the first call)."""
+    global _profiling
+    if _profiling is None:
+        import torch
+        _profiling = torch._C._autograd._profiler_enabled
+    return _profiling()
+
+
+class _Span:
+    """A live span: a ``record_function`` range, its host interval added to
+    the registry's timer of its name."""
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        from torch.profiler import record_function
+        self.name = name
+        self._range = record_function(name)
+
+    def __enter__(self) -> None:
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> bool:
+        timer(self.name).add(time.perf_counter() - self._t0)
+        return self._range.__exit__(*exc)
+
+
+class _Entry:
+    """A live :data:`ENTRY`: a span at the outermost public call, a depth
+    count in the calls it makes."""
+    __slots__ = ("_span",)
+
+    def __enter__(self) -> None:
+        depth = getattr(_entries, "depth", 0)
+        self._span = _Span(ENTRY) if depth == 0 else _OFF
+        _entries.depth = depth + 1
+        self._span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        _entries.depth -= 1
+        return bool(self._span.__exit__(*exc))
+
+
+def span(name: str):
+    """The span ``name`` as a context manager: live under a profiler (see
+    the module's docstring), else the shared no-op."""
+    if not profiling():
+        return _OFF
+    return _Entry() if name == ENTRY else _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside :func:`span`
+    ``(name)`` (off, the call goes straight through)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if not profiling():
+                return fn(*args, **kw)
+            with span(name):
+                return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def wait(device, stream=None) -> None:
+    """Live only: the host waits for ``device`` (for ``stream`` alone where
+    given) inside the span :data:`WAIT`, so that the copy to the host that
+    follows finds its data ready.  Off, nothing: the copy waits by itself."""
+    if not profiling():
+        return
+    import torch
+    with _Span(WAIT):
+        if stream is not None:
+            stream.synchronize()
+        elif torch.device(device).type == "cuda":
+            # lint: waive TX001 -- live only: the wait the next copy makes anyway
+            torch.cuda.synchronize(device)
 
 
 def scenario_hash(scenario) -> str:

@@ -202,6 +202,7 @@ def _stream(lane_tree, lanes: int, chunk: Optional[int], mesh,
                 issued.append(launch(block, d, inputs[d]))
         for d, s, out in zip(devices, streams, issued):
             with _on_shard(d, s):          # the copy waits for s's work only
+                _metrics.wait(d, s)
                 outs.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
                              for k, v in out.items()})
     return outs

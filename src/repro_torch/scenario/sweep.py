@@ -56,6 +56,7 @@ from ..dse.batch import (host_tensor, pad_node_map, simulate_grid,
                          stack_tables, stack_traces, to_design_major)
 from ..dse.space import DesignPoint
 from ..dse.thermal_torch import peak_temperature_grid
+from ..obs import metrics as _metrics
 from ..obs import telemetry as _obs_tel
 from ..sharding import lane_devices
 from . import faults as _faults
@@ -174,6 +175,7 @@ def _sweep_grid_dtpm_faults(tables, gov, fplans, arrival, app_idx, policy):
                          fplans=fplans)
 
 
+@_metrics.spanned(_metrics.TABLES)
 def _design_lanes(base: Scenario, design_axes: List[str],
                   combos: List[Tuple], pad_pes: Optional[int], device,
                   host: bool = False):
@@ -195,6 +197,7 @@ def _design_lanes(base: Scenario, design_axes: List[str],
     return tables, pad_node_map(dbs, P, device)
 
 
+@_metrics.spanned(_metrics.ENTRY)
 def sweep(scenario: Scenario, axes: Dict[str, Sequence],
           backend: str = "torch", device="cuda",
           pad_pes: Optional[int] = None, design_batch=None,
@@ -450,6 +453,7 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
             out = {k: v[0] for k, v in out.items()}
             temps = temps[0]
             tel = None if tel is None else tel[0]
+        _metrics.wait(dev)
         entry = {name: out[key].double().cpu().numpy() for name, key in (
             ("avg_latency_us", "avg_job_latency_us"),
             ("makespan_us", "makespan_us"), ("energy_j", "energy_j"),

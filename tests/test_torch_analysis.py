@@ -654,7 +654,7 @@ def test_repo_rules_examined_the_port(repo_report):
         assert any(s.startswith(("src/repro_torch/", "repro_torch."))
                    for s in ex.get(code, ())), (code, ex.get(code))
     assert WRAPPERS <= set(ex["KL001"])
-    assert "src/repro_torch/core/simkernel_torch.py:69" in ex["TD001"]
+    assert "src/repro_torch/core/simkernel_torch.py:70" in ex["TD001"]
 
 
 def test_repo_hot_set_covers_kernels(repo_report):
