@@ -37,13 +37,19 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            anchor, S = 1, 15, 16, 17, 127, 128, 129, 257, 1024, 1025 at
            W = 33, 100; f32 only, its gates are f32) 1e-5, its output
            bit-identical over two eager calls and three calls in a replayed
-           CUDA graph;
+           CUDA graph, K6 thermal_grid (f32) at a static sweep's launch
+           (1,024 lanes on 15 PEs) and a DSE call's (1,080 designs of 1-19
+           PEs padded to 19 x 4 lanes), lanes of 1,000 jobs x 8 tasks that
+           fill the bins in part, and at tests/thermal_schedules.py's bin
+           cases (bins filled in part; a period that heats and cools, each
+           shown to be so by the plain version first) 2e-5 relative, no
+           local memory, its plain version's time that of one eager call;
            device times from CUDA-graph replays timed by CUDA events (and the
            time of one eager call from Python beside them); for K2/K3 one
            library call (``scaled_dot_product_attention``, softcap off, a
            window as a boolean band mask; used nowhere in the port) timed
-           beside each as a yardstick.  K4 and K5 have none: no single
-           PyTorch call computes either function.  Then K2 and K3 at phase
+           beside each as a yardstick.  K4, K5 and K6 have none: no
+           single PyTorch call computes any of them.  Then K2 and K3 at phase
            10's shapes, timed the same way: paligemma-3b (8 heads on 1 KV
            head, head_dim 256: K2 at S = 320, B = 1 and 4; K3 on a 336-slot
            cache) and seamless-m4t-large-v2's decoder (16 on 16, head_dim 64,
@@ -160,7 +166,8 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            lanes, and the sweep's makespans of them equal to their
            schedules'.  Launch counts exact,
            by instantiation, and equal to the scans the sweeps started (4,
-           2, 2, 2 small; 2; 2; 1);
+           2, 2, 2 small; 2; 2; 1), and K6's, one a static scan (6 small; 2;
+           0; 1);
 8. dse     the DSE mode (``repro_torch.dse``) and the chunked lane executor
            (``sweep(chunk=)``), as a user calls them, on phase 7's grids at
            etf: the unchunked sweep of grid (b) (1,080 designs x 4 seeds),
@@ -422,6 +429,7 @@ from repro_torch.dse import (DesignPoint, DesignSpace, evaluate,  # noqa: E402
                              pareto_mask, pareto_search, stack_tables,
                              stack_traces)
 from repro_torch.dse import batch as dse_batch  # noqa: E402
+from repro_torch.dse import thermal_torch as tthermal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
 from repro_torch.kernels import epoch_scan as k1  # noqa: E402
@@ -1135,6 +1143,98 @@ def phase_rglru(gen):
     return entry
 
 
+# K6, the thermal grid, at the main paths' shapes: a static sweep's launch
+# (1,024 lanes on 15 PEs) and a DSE call (1,080 designs of 1-19 PEs padded to
+# 19 x 4 lanes), lanes of 1,000 jobs x 8 tasks of 1-61 us over a 50 ms
+# makespan (tests/thermal_schedules.py: bins the PEs fill in part), 32 bins x
+# 3 repeats; then that module's bin cases at DS3's size
+THERMAL_SHAPES = {"static_launch": ((1, 1024), [15]),
+                  "dse_call": ((1080, 4), [1 + d % 19 for d in range(1080)])}
+THERMAL_JOBS, THERMAL_TASKS, THERMAL_TOL = 1000, 8, 2e-5
+
+
+def thermal_bound_ms(L, JT):
+    """K6's byte bound: every cell's start, finish, PE and flag read once
+    (13 B), a lane's makespan and peak (8 B), at the data sheet's rate."""
+    return (13 * JT + 8) * L / PEAK_BYTES_S * 1e3
+
+
+def thermal_rel_err(got, want, what: str) -> float:
+    """Largest relative gap of K6's peaks from the plain version's; raises
+    past THERMAL_TOL."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    rel = float(((got - want).abs() / want.abs()).max())
+    if rel > THERMAL_TOL:
+        raise AssertionError(f"{what}: relative gap {rel:.3e} exceeds "
+                             f"{THERMAL_TOL}")
+    return rel
+
+
+def phase_thermal():
+    """K6 vs plain (f32, the schedules' type).  Returns the `kernels`
+    entry, timed at a static sweep's launch, with the DSE call's shape and
+    the bin cases' gaps beside it.  The plain version's time is one eager
+    call's (CUDA events): ~725 small launches a chunk of lanes, host-bound."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:      # the generator tests/test_torch_thermal_*.py use too
+        cases = importlib.import_module("thermal_schedules")
+    finally:
+        sys.path.pop(0)
+    grid, plain = tthermal.peak_temperature_grid, tthermal.peak_temperature_grid_plain
+    JT = THERMAL_JOBS * THERMAL_TASKS
+    entry = {}
+    for name, (lead, pes) in THERMAL_SHAPES.items():
+        gen = torch.Generator(device=DEV).manual_seed(len(pes))
+        out, *tables = cases.schedules(gen, lead, THERMAL_JOBS, THERMAL_TASKS,
+                                       pes, makespan_us=50_000.0)
+        L, P = out["makespan_us"].numel(), max(pes)
+        what = f"thermal_grid {name} L={L} P={P} bins=32 repeats=3 f32"
+        got = grid(out, *tables)
+        rel = thermal_rel_err(got, plain(out, *tables), what)
+        ms = device_ms([lambda: grid(out, *tables)])
+        eager = eager_ms(lambda: grid(out, *tables))
+        plain_ms = eager_ms(lambda: plain(out, *tables), iters=3, warm=1)
+        bound = thermal_bound_ms(L, JT)
+        info = tthermal.kernel_info(P, 32, DEV)
+        if info["local_bytes"]:
+            raise AssertionError(f"{what}: {info['local_bytes']} local bytes "
+                                 "a thread")
+        log(f"[kernels] {what}: max_rel_err {rel:.3e}, kernel {ms:.4f} ms "
+            f"(eager call {eager:.4f} ms), plain {plain_ms:.2f} ms (one eager "
+            f"call), bound {bound:.5f} ms (bytes, {100 * bound / ms:.0f}% of "
+            f"it), library n/a; {info['threads']} threads, "
+            f"{info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks "
+            f"an SM, {info['registers']} registers, 0 local bytes")
+        part = {"shape": f"L={L} P={P} J={THERMAL_JOBS} T={THERMAL_TASKS} "
+                         "bins=32 repeats=3 f32",
+                "max_rel_err": rel, "ms": ms, "eager_call_ms": eager,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                "geometry": info}
+        if not entry:
+            entry = dict(part, library_ms=None,
+                         library_note="no single PyTorch call bins a schedule")
+        else:
+            entry[name] = part
+        del out, tables, got
+    entry["bin_cases_max_rel_err"] = {}
+    for case, (_, kw) in cases.BIN_CASES.items():
+        gen = torch.Generator(device=DEV).manual_seed(17)
+        out, *tables = cases.schedules(gen, (2, len(cases.BIN_PES), 16),
+                                       pes=cases.BIN_PES, **kw)
+        want = plain(out, *tables)
+        cases.assert_bins_matter(out, tables, 32, want, case, THERMAL_TOL)
+        rel = thermal_rel_err(grid(out, *tables), want, f"thermal_grid {case}")
+        entry["bin_cases_max_rel_err"][case] = rel
+        log(f"[kernels] thermal_grid {case} (96 lanes of {kw['J']} jobs x "
+            f"{kw['T']} tasks on {cases.BIN_PES} PEs, makespan "
+            f"{kw['makespan_us'] / 1e3:.0f} ms): max_rel_err {rel:.3e}")
+    torch.cuda.empty_cache()
+    return entry
+
+
 # ------------------------------------------------------------------ phase 4
 
 def greedy_reference(model, params, prompt, n_new):
@@ -1482,6 +1582,7 @@ def counts_zero():
         mod.launches = 0
     for key in k1.variant_launches:
         k1.variant_launches[key] = 0
+    metrics.counter("thermal_launches").reset()
 
 
 def counts():
@@ -2471,11 +2572,12 @@ def phase_sweep(smi: str) -> dict:
     axis kind against run(), backend="ref" and the plain scan, (b) the full
     static design grid, (c) a dynamic design x policy grid, (d) a fault x
     design grid, each one K1 launch per scheduler.  Returns K1's launches by
-    instantiation name, the measured numbers for the `kernels` line, and
-    the outputs of grids (b)-(d) with their sweeps' arguments (phase 16
-    holds the sharded sweeps to them)."""
+    instantiation name and K6's (``thermal_grid``: one a static scan), the
+    measured numbers for the `kernels` line, and the outputs of grids
+    (b)-(d) with their sweeps' arguments (phase 16 holds the sharded sweeps
+    to them)."""
     t_phase = time.perf_counter()
-    launches = dict.fromkeys(K1_VARIANTS.values(), 0)
+    launches = dict.fromkeys(list(K1_VARIANTS.values()) + ["thermal_grid"], 0)
     measured, kept = {}, {}
 
     def main_path(base, axes, want: dict, what: str):
@@ -2489,8 +2591,15 @@ def phase_sweep(smi: str) -> dict:
         if sweep_scans() - n0 != sum(want.values()):
             raise AssertionError(f"{what}: {sweep_scans() - n0} scans started, "
                                  f"{sum(want.values())} launches")
+        # K6 once a static scan; DTPM lanes take their peak from K1
+        thermal = sum(n for name, n in want.items() if "dtpm" not in name)
+        if metrics.counter("thermal_launches").value != thermal:
+            raise AssertionError(f"{what}: K6 launched "
+                                 f"{metrics.counter('thermal_launches').value} "
+                                 f"times, expected {thermal}")
         for name, n in want.items():
             launches[name] += n
+        launches["thermal_grid"] += thermal
         return sr
 
     # -- (a) small sweeps: every lane = run(), = ref within phase 6's
@@ -2749,7 +2858,7 @@ def phase_sweep(smi: str) -> dict:
     del rec, tables, scan, launch, sr
     torch.cuda.empty_cache()
     log(f"[sweep] phase 7 took {time.perf_counter() - t_phase:.1f} s; K1 launches "
-        f"by instantiation {launches}")
+        f"by instantiation and K6's (thermal_grid) {launches}")
     return launches, measured, kept
 
 
@@ -4813,7 +4922,8 @@ def main():
     measured = {"flash_attention": phase_flash(gen),
                 "decode_attention": phase_decode(gen),
                 "ssd_scan": phase_ssd(gen, args.profile),
-                "rg_lru": phase_rglru(gen)}
+                "rg_lru": phase_rglru(gen),
+                "thermal_grid": phase_thermal()}
     for name, entries in phase_nocap_kernels(gen).items():
         measured[name]["no_softcap_shapes"] = entries
     torch.cuda.empty_cache()
@@ -4821,7 +4931,7 @@ def main():
         phase_reduced(arch)
     for arch in PROMPT_LENS:
         phase_reduced_bf16(arch)
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in KERNELS} | {"thermal_grid": 0}
     for arch in PROMPT_LENS:
         for name, n in phase_full(arch, smi, args.profile).items():
             launches[name] += n
@@ -4860,7 +4970,9 @@ def main():
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
                "decode_attention": "src/repro/kernels/decode_attention.py:62",
                "ssd_scan": "src/repro/kernels/ssd_scan.py:66",
-               "rg_lru": "src/repro/kernels/rg_lru.py:42"}
+               "rg_lru": "src/repro/kernels/rg_lru.py:42",
+               # no Pallas kernel: jnp under vmap
+               "thermal_grid": "src/repro/dse/thermal_jax.py:145"}
     # K1's four instantiations, one source
     sources.update(dict.fromkeys(K1_VARIANTS.values(),
                                  "src/repro/core/simkernel_jax.py:321"))

@@ -5,8 +5,9 @@ The twin of ``src/repro/dse/thermal_jax.py`` (``steady_state``,
 ``rc_state_matrix``, ``peak_temperature``, ``peak_temperature_grid``):
 the same lumped network —
 nodes [big, LITTLE, accel fabric] coupled through a board node to ambient —
-in float32 on the schedule's device.  Plain tensor code: the JAX package
-computes these with ``jnp`` outside any Pallas kernel.
+in float32 on the schedule's device.  The JAX package computes these with
+``jnp`` outside any Pallas kernel; here the single-schedule functions are
+plain tensor code and the grid is a hand-written kernel.
 
 Pipeline:
   1. ``binned_power_trace`` — time-bin one realised schedule (start/finish/
@@ -17,20 +18,26 @@ Pipeline:
      power, then step a few periods by the exact linear-RC update to capture
      the intra-period ripple.
 
-Each function also takes leading lane axes (one schedule per lane, each
-with its own bin width and RC step): ``peak_temperature_grid`` runs both
-steps for a whole sweep grid at once, in chunks of lanes, where the
-reference vmaps them.  ``run`` takes the same function at one lane, so a
-sweep lane and its ``run`` share one code path.
+``peak_temperature_grid`` runs both steps for every lane of a sweep grid
+(each lane with its own bin width and RC step), where the reference vmaps
+them: on CUDA tensors as K6, one launch of ``csrc/thermal_grid.cu`` (a block
+a lane; design notes at its top), on CPU tensors as
+``peak_temperature_grid_plain``, the two functions above over chunks of
+lanes.  ``run`` takes the same function at one lane, so a sweep lane and its
+``run`` share one code path.  Every launch adds one to the registry counter
+``thermal_launches`` (``obs.metrics``), which ``run_manifest`` reports.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core import thermal as _ref
+from ..kernels import _build
 from ..obs import metrics as _metrics
 
 
@@ -172,26 +179,19 @@ def peak_temperature(power_trace_w: torch.Tensor, dt_s: torch.Tensor,
     return peak
 
 
-# device bytes a chunk of lanes of peak_temperature_grid may take (its
+# bytes a chunk of lanes of peak_temperature_grid_plain may take (its
 # (lanes, J, T, bins) overlaps and (lanes, J, T, P) one-hots, a few of each)
 GRID_CHUNK_BYTES = 1 << 30
 
 
-@_metrics.spanned(_metrics.THERMAL)
-def peak_temperature_grid(sim_out: Dict, node_of_pe: torch.Tensor,
-                          power_active: torch.Tensor,
-                          power_idle: torch.Tensor, bins: int = 32,
-                          repeats: int = 3) -> torch.Tensor:
-    """(..., D, S) peak temperatures of a batch of schedules.
-
-    ``sim_out`` has the schedule (``start``, ``finish``, ``onpe``,
-    ``scheduled``: (..., D, S, J, T)) and ``makespan_us`` (..., D, S), the
-    design axis D second to last (a fault axis may lead, as in the
-    reference's vmap over fault lanes); ``node_of_pe`` / ``power_active`` /
-    ``power_idle`` are (D, P), each design's.  Every lane gets its own bin
-    width and RC step matrices; lanes run in chunks that keep each chunk's
-    working set near ``GRID_CHUNK_BYTES``.
-    """
+def peak_temperature_grid_plain(sim_out: Dict, node_of_pe: torch.Tensor,
+                                power_active: torch.Tensor,
+                                power_idle: torch.Tensor, bins: int = 32,
+                                repeats: int = 3) -> torch.Tensor:
+    """:func:`peak_temperature_grid` in plain tensor code, the path of CPU
+    tensors: :func:`binned_power_trace` and :func:`peak_temperature` over
+    chunks of lanes that keep each chunk's working set near
+    ``GRID_CHUNK_BYTES``."""
     makespan = sim_out["makespan_us"]
     lead = tuple(makespan.shape)
     D, S = lead[-2:]
@@ -215,3 +215,122 @@ def peak_temperature_grid(sim_out: Dict, node_of_pe: torch.Tensor,
             power_idle[d], makespan.reshape(L)[sl], bins=bins)
         peaks.append(peak_temperature(trace, dt_s, repeats=repeats))
     return torch.cat(peaks).reshape(lead)
+
+
+# K6 (csrc/thermal_grid.cu), loaded at its first launch; its C entry checks
+# the grid, P, bins, repeats and shared memory
+_fn = None
+_consts = None
+
+
+def rc_constants() -> np.ndarray:
+    """The RC network's float32 constants in the kernel's ``Consts`` order:
+    the eigenvalues λ_j, the projectors P_j (row-major), R_TO_BOARD, C_NODE,
+    T_AMBIENT_C, R_BOARD_AMB, C_BOARD — each rounded once from float64, as
+    :func:`exact_step_matrices` and :func:`peak_temperature` round them."""
+    global _consts  # host-side memo of constant data, filled once
+    if _consts is None:
+        lam, proj = _ref._rc_spectral()
+        _consts = np.concatenate([
+            lam, np.asarray(proj).ravel(), _ref.R_TO_BOARD, _ref.C_NODE,
+            [_ref.T_AMBIENT_C, _ref.R_BOARD_AMB, _ref.C_BOARD],
+        ]).astype(np.float32)
+    return _consts
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.load("thermal_grid")
+        fn = lib.repro_thermal_grid
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        info = lib.repro_thermal_grid_info
+        info.restype = ctypes.c_int
+        info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        err = lib.repro_thermal_grid_error
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        _fn = {"launch": fn, "info": info, "error": err}
+    return _fn
+
+
+def kernel_info(P: int, bins: int, device=None) -> dict:
+    """Threads a block, dynamic shared bytes, resident blocks an SM,
+    registers a thread and local bytes a thread of K6 at (P, bins)."""
+    fns = _kernel()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = fns["info"](P, bins, out)
+    _raise_on(rc, f"P {P}, bins {bins}")
+    return dict(zip(("threads", "shared_bytes", "blocks_per_sm", "registers",
+                     "local_bytes"), out))
+
+
+def _raise_on(rc: int, what: str) -> None:
+    """The C entry's return code as an exception: ValueError for the
+    arguments it refuses (negative codes), RuntimeError for CUDA's."""
+    if rc != 0:
+        msg = f"peak_temperature_grid: {_kernel()['error'](rc).decode()} ({what})"
+        raise ValueError(msg) if rc < 0 else RuntimeError(msg)
+
+
+@_metrics.spanned(_metrics.THERMAL)
+def peak_temperature_grid(sim_out: Dict, node_of_pe: torch.Tensor,
+                          power_active: torch.Tensor,
+                          power_idle: torch.Tensor, bins: int = 32,
+                          repeats: int = 3) -> torch.Tensor:
+    """(..., D, S) peak temperatures of a batch of schedules.
+
+    ``sim_out`` has the schedule (``start``, ``finish``, ``onpe``,
+    ``scheduled``: (..., D, S, J, T)) and ``makespan_us`` (..., D, S), the
+    design axis D second to last (a fault axis may lead, as in the
+    reference's vmap over fault lanes); ``node_of_pe`` / ``power_active`` /
+    ``power_idle`` are (D, P), each design's.  Every lane gets its own bin
+    width and RC step matrices.  CPU tensors take
+    :func:`peak_temperature_grid_plain`; CUDA tensors one launch of K6 on
+    the current stream, every lane a block (1..32 PEs).
+    """
+    makespan = sim_out["makespan_us"]
+    dev = makespan.device
+    if dev.type == "cpu":
+        return peak_temperature_grid_plain(sim_out, node_of_pe, power_active,
+                                           power_idle, bins, repeats)
+    if dev.type != "cuda":
+        raise ValueError(f"peak_temperature_grid: no kernel for device {dev}")
+    lead = tuple(makespan.shape)
+    D, S = lead[-2:]
+    J, T = sim_out["start"].shape[-2:]
+    P = power_active.shape[-1]
+    L = makespan.numel()
+    if tuple(power_active.shape) != (D, P) or \
+            tuple(power_idle.shape) != (D, P) or \
+            tuple(node_of_pe.shape) != (D, P):
+        raise ValueError(f"peak_temperature_grid: power tables "
+                         f"{tuple(power_active.shape)} for a {lead} grid")
+    flat = [sim_out[k].reshape(L, J * T).to(dtype).contiguous()
+            for k, dtype in (("start", torch.float32),
+                             ("finish", torch.float32),
+                             ("onpe", torch.int32),
+                             ("scheduled", torch.bool))]
+    tables = [node_of_pe.to(torch.int32).contiguous(),
+              power_active.to(torch.float32).contiguous(),
+              power_idle.to(torch.float32).contiguous()]
+    makespan = makespan.reshape(L).to(torch.float32).contiguous()
+    if any(t.device != dev for t in flat + tables):
+        raise ValueError(f"peak_temperature_grid: the schedule and the power "
+                         f"tables must all be on {dev}")
+    _build.refuse_grad("thermal_grid", *flat, *tables, makespan)
+    peak = torch.empty(lead, dtype=torch.float32, device=dev)
+    fns = _kernel()
+    consts = rc_constants()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fns["launch"](*[t.data_ptr() for t in flat + [makespan] + tables],
+                           consts.ctypes.data, consts.size, peak.data_ptr(),
+                           L, D, S, J * T, P, bins, repeats, stream)
+    _raise_on(rc, f"{L} lanes of a {lead} grid, P {P}, bins {bins}, "
+                  f"repeats {repeats}")
+    _metrics.counter("thermal_launches").inc()
+    return peak

@@ -150,7 +150,7 @@ ENTRY = "repro_torch.entry"
 TABLES = "repro_torch.tables"          # design tables built and stacked
 K1 = "repro_torch.k1"                  # K1's wrapper: checks, host reads, launch
 EPILOGUE = "repro_torch.epilogue"      # latency, energy, busy time of the scan
-THERMAL = "repro_torch.thermal"        # the thermal grid's host loop
+THERMAL = "repro_torch.thermal"        # the thermal grid: K6's wrapper and launch
 WAIT = "repro_torch.wait"              # the host blocked on the card
 LAYER_SPANS = (TABLES, K1, EPILOGUE, THERMAL, WAIT)
 
@@ -261,7 +261,9 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     started (``kernels.epoch_scan.variant_launches``, under the names of
     ``VARIANT_NAMES``), and ``scan_calls``, the grid scans ``sweep`` has
     started (``scenario.sweep.scan_calls``, the same names), where the
-    reference has ``jit_compile_count``; the counter/timer snapshot; and,
+    reference has ``jit_compile_count``; ``thermal_launches``, the thermal
+    grid's kernel launches (the registry counter of that name); the
+    counter/timer snapshot; and,
     when given, the scenario's label and hash and the backend.  ``extra``
     key-values (wall times, bench name, ...) are merged verbatim.
     """
@@ -301,6 +303,7 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     man["k1_launches"] = {names[k]: n
                           for k, n in epoch_scan.variant_launches.items()}
     man["scan_calls"] = {names[k]: n for k, n in scan_calls.items()}
+    man["thermal_launches"] = counter("thermal_launches").value
     man["metrics"] = snapshot()
     man.update(extra)
     return man

@@ -39,7 +39,8 @@ WRAPPERS = {"repro_torch.kernels.flash_attention:flash_attention",
             "repro_torch.kernels.decode_attention:decode_attention",
             "repro_torch.kernels.ssd_scan:ssd_scan",
             "repro_torch.kernels.rg_lru:rg_lru",
-            "repro_torch.kernels.epoch_scan:epoch_scan"}
+            "repro_torch.kernels.epoch_scan:epoch_scan",
+            "repro_torch.dse.thermal_torch:peak_temperature_grid"}
 
 
 def lint(*files, strict=False, select=None):

@@ -225,7 +225,7 @@ def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
     names = [p.name for p in _build.sources()]
     assert names == ["decode_attention.cu", "epoch_scan.cu",
                      "epoch_scan_faults.cu", "flash_attention.cu", "rg_lru.cu",
-                     "ssd_scan.cu"]
+                     "ssd_scan.cu", "thermal_grid.cu"]
     for src in _build.sources():
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
