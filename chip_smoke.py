@@ -1772,6 +1772,101 @@ def phase_k1_geometry(smi: str):
         log(f"[scenario] K1 {name} at J={SCAN_JOBS}: {k1_geometry(info)}  [{smi}]")
 
 
+# the DTPM cell over seconds of workload: 16 ondemand policies x 64 traces of
+# 40,000 jobs at 20 jobs/ms (2 s a lane) on the Table-2 SoC, policy-major
+SECONDS_JOBS, SECONDS_TRACES, SECONDS_CHECKED = 40_000, 64, (0, 1023)
+SECONDS_POLICIES = [(("sample_window_us", w), ("up_threshold", u))
+                    for u in (0.6, 0.7, 0.8, 0.9) for w in (25.0, 50.0, 100.0, 200.0)]
+
+
+@torch.no_grad()
+def phase_k1_seconds(smi: str) -> dict:
+    """K1 at the ``dtpm-seconds-sweep`` cell's shape: 1,024 lanes of 40,000
+    jobs (DTPM ondemand, etf), one launch, timed by CUDA events (median of
+    2 after a warm launch); its geometry (the same shared bytes and lanes an
+    SM as at 1,000 jobs, where another instantiation runs), the most jobs a lane held live and the lanes that spilled (a
+    launch under the profiler, read in the manifest), peak memory; lanes
+    ``SECONDS_CHECKED`` (the 25 us and the 200 us window) through the plain
+    scan on the card, bit for bit K1's on every output (``plain_ms``), and
+    launched alone, bit for bit the grid's.  Returns the ``kernels``
+    entry."""
+    t0 = time.perf_counter()
+    base = Scenario(design=DesignPoint(num_vit=1), apps=APPS5, governor="ondemand")
+    tb = tables_for(base)
+    A, T, P = tb.exec_us.shape
+    C, K = tb.opp_freq.shape
+    pols = [base.replace(governor_params=g).make_policy() for g in SECONDS_POLICIES]
+    L = len(pols) * SECONDS_TRACES
+    lanes = policy_lanes([pol for pol in pols for _ in range(SECONDS_TRACES)], L)
+    traces = [poisson_trace(20.0, SECONDS_JOBS, APPS5, seed=k)
+              for k in range(SECONDS_TRACES)]
+    arr, app = stack_traces(traces)
+    arr, app = arr.repeat(len(pols), 1), app.repeat(len(pols), 1)
+    info = k1.kernel_info(SECONDS_JOBS, A, T, P, DEV, C, K)
+    short = k1.kernel_info(SCAN_JOBS, A, T, P, DEV, C, K)
+    if (info["shared_bytes"], info["lanes_per_sm"]) != (short["shared_bytes"],
+                                                        short["lanes_per_sm"]):
+        raise AssertionError(f"K1's geometry at {SECONDS_JOBS} jobs {info} differs "
+                             f"from that at {SCAN_JOBS} {short}")
+    torch.cuda.reset_peak_memory_stats()
+    out = k1.epoch_scan(tb, "etf", arr, app, gov=lanes)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        k1.epoch_scan(tb, "etf", arr, app, gov=lanes)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    peak_mem = torch.cuda.max_memory_allocated()
+    metrics.run_manifest()                    # nothing left pending
+    metrics.counter(metrics.K1_LIVE_PEAK).reset()
+    spilled = metrics.counter(metrics.K1_OVERFLOW).value
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        k1.epoch_scan(tb, "etf", arr, app, gov=lanes)
+    man = metrics.run_manifest(device=DEV)
+    held = man[metrics.K1_LIVE_PEAK]
+    spilled = man[metrics.K1_OVERFLOW] - spilled
+    tasks = int(tb.valid[app.long()].sum())
+    ms = statistics.median(times)
+    log(f"[seconds] K1 timed: {ms:.1f} ms a launch ({times}); lanes "
+        f"{SECONDS_CHECKED} through the plain scan next  [{smi}]")
+    pick = torch.tensor(SECONDS_CHECKED)      # the policies' lanes are on the host
+    t1 = time.perf_counter()
+    plain = k1.epoch_scan_plain(tb, "etf", arr[pick.to(DEV)], app[pick.to(DEV)],
+                                lanes.take(pick))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    for n, (g, w) in enumerate(zip(plain, out)):
+        if not torch.equal(g, w[pick.to(w.device)]):
+            raise AssertionError(f"K1 seconds grid: lanes {SECONDS_CHECKED} "
+                                 f"differ from the plain scan in output {n}")
+    for l in SECONDS_CHECKED:
+        alone = k1.epoch_scan(tb, "etf", arr[l:l + 1], app[l:l + 1],
+                              gov=lanes.take(torch.tensor([l])))
+        for n, (g, w) in enumerate(zip(alone, out)):
+            if not torch.equal(g[0], w[l]):
+                raise AssertionError(f"K1 seconds grid: lane {l} alone differs "
+                                     f"in output {n}")
+    entry = {"shape": f"L={L} lanes ({len(pols)} ondemand policies x "
+                      f"{SECONDS_TRACES} traces) x J={SECONDS_JOBS} jobs at 20 "
+                      "jobs/ms, DTPM etf, Table-2 SoC (T=8, P=15)",
+             "ms": ms, "ms_each": times, "ns_per_task": 1e6 * ms / tasks,
+             "tasks": tasks, "bound_ms": scan_bound_ms(tb, L, SECONDS_JOBS, dtpm=True),
+             "live_jobs_peak": held, "overflow_lanes": spilled,
+             "peak_memory_bytes": peak_mem, "plain_ms": plain_ms,
+             "geometry": info}
+    log(f"[seconds] K1 at the seconds cell's shape: {entry['shape']}: {ms:.1f} ms "
+        f"a launch ({times}), {entry['ns_per_task']:.2f} ns a task over {tasks:,} "
+        f"tasks, bound {entry['bound_ms']:.3f} ms; at most {held} jobs live in a "
+        f"lane, {spilled} lanes spilled; peak memory {peak_mem:,} bytes; lanes "
+        f"{SECONDS_CHECKED} = the plain scan bit for bit (plain {plain_ms:.0f} "
+        f"ms), and alone = the grid's; {k1_geometry(info)} "
+        f"({time.perf_counter() - t0:.1f} s)  [{smi}]")
+    return entry
+
+
 @torch.no_grad()
 def phase_scenario(smi: str):
     """K1 through the DS3 scenario path: small cases against the plain scan
@@ -4940,6 +5035,7 @@ def main():
     measured.update(k1_measured)
     launches.update(k1_launches)
     log(f"[scenario] phase 6 took {time.perf_counter() - t_scn:.1f} s")
+    measured["epoch_scan_dtpm"]["seconds_grid"] = phase_k1_seconds(smi)
     sweep_launches, sweep_measured, sweep_outputs = phase_sweep(smi)
     for name, n in sweep_launches.items():
         launches[name] += n

@@ -5,9 +5,13 @@
 // Replaces `_epoch_scan` of src/repro/core/simkernel_jax.py (:321), a lax.scan
 // that XLA compiles (it has no Pallas original), in its four forms, as the
 // reference compiles one program for each: static governors under etf, met
-// and table (epoch_scan_kernel<false, false>), closed-loop DTPM, the
-// ondemand governor and its thermal throttle (<true, false>), and each of
-// them with fail-stop faults under etf and met (<false, true>, <true, true>).
+// and table (epoch_scan_kernel<false, false, ...>), closed-loop DTPM, the
+// ondemand governor and its thermal throttle (<true, false, ...>), and each
+// of them with fail-stop faults under etf and met (<false, true, false>,
+// <true, true, false>).  The last argument, WINDOWED: the fault-free
+// programs keep the live window (<..., true>), but for the static one at J
+// <= RING, which takes every job at the start (<false, false, false>); see
+// "The live window".
 // Contract: for the tables of one design and L lanes of (arrival, app_idx[,
 // policy][, fail times]), the same scheduled, start, finish and onpe (and
 // under DTPM onopp, opp_idx, peak_temp_c; with faults the steps and commits
@@ -26,12 +30,13 @@
 //     barrier: __syncwarp and shuffles only.
 //   * Shared memory: the design's small tables (exec_us (A,T,P), ebytes
 //     (A,T,T), comm_mult (P,P), table_pe and each task's predecessors as a
-//     T-bit mask (A,T), each app's valid tasks as a mask), loaded by the warp;
-//     then the lane's slice: per job its `done` mask (T <= 32: one 32-bit
-//     word) and its key, per group of 32 jobs the least key, pe_free[P].  The
-//     (J, T) schedule (start, finish, onpe) lives in global memory, which is
-//     the output; a job's arrival and app are read from global memory for the
-//     one job a step touches.
+//     T-bit mask (A,T), each app's valid tasks as a mask and its untouched
+//     job's first eligible tasks), loaded by the warp;
+//     then the lane's slice: pe_free[P] and the job state of W slots, per
+//     slot a job's `done` mask (T <= 32: one 32-bit word) and its key, per
+//     group of 32 slots the least key.  The (J, T) schedule (start, finish,
+//     onpe) lives in global memory, which is the output; a job's arrival and
+//     app are read from global memory for the one job a step touches.
 //   * The pick from per-job keys: key[j] is the least 64-bit (order bits of
 //     ready << 32 | j*T + t) over job j's eligible tasks (NONE if it has
 //     none): a task is eligible when it is not done and its pred mask lies
@@ -39,11 +44,40 @@
 //     preds of finish) (no preds: arrival, as the reference's -BIG fill
 //     gives).  A ready time depends only on its own job, so a commit in job j
 //     changes key[j] alone: a lane per task recomputes it, then the lanes of
-//     its group of 32 jobs gmin[j / 32].  A step's pick is the warp minimum
-//     over gmin (a lane takes groups g, g + 32, ...: any J).  The least key
-//     is the reference's rmin, then its first flat index at rmin, as a min
-//     over per-job minima is the min; nothing eligible, or rmin >= BIG/2,
-//     ends the scan (any_left).
+//     its group of 32 slots gmin.  The least key is the reference's rmin,
+//     then its first flat index at rmin, as a min over per-job minima is the
+//     min; nothing eligible, or rmin >= BIG/2, ends the scan (any_left).
+//   * The live window (the fault-free programs): the jobs lo..hi, lo the
+//     first job with an uncommitted task.  Every job before lo is done (key
+//     NONE); jobs take their first commit in order (a root's key is its
+//     arrival, arrivals are sorted, the low 32 bits order j first on equal
+//     arrivals), so a job u untouched in the window has a key no greater
+//     than any job after hi: the least key of lo..hi is the least of all J
+//     as long as the window holds an untouched job.  So only the window holds
+//     state, in a ring of W slots (job j in slot j % W, W = min(the power of
+//     two >= J, RING)), and the window takes jobs 32 at a time (a chunk is
+//     one group of slots: a lane a job, one coalesced read of the arrivals
+//     and apps, the untouched keys from each app's first eligible tasks, the
+//     group's minimum by one warp reduction, lo moved past the jobs done by
+//     ballot), once every job in it has a commit.  A step's pick reads the
+//     ring's groups, at most 32 (one a lane), whatever J: a group outside the
+//     window is NONE.  The live jobs are the backlog: a few at a light load,
+//     thousands on an overloaded lane.  A lane whose window outgrows the
+//     ring starts again with its job state in global memory (the `spill`
+//     buffer, J slots a lane, job j in slot j; the pick then reads the
+//     window's groups), where the window may grow to J; its outputs are those
+//     of one run.  A static lane whose ring has a slot for every job (J <=
+//     RING) takes all J at the start instead, each in its own slot, and its
+//     step loop never admits (EVERY, its own instantiation: the ring's
+//     per-step bookkeeping would do no work there).  The DTPM program keeps
+//     the window at any J: on an H100 its EVERY instantiation ran grid (c)
+//     4% slower than the window's (which matched the scan before the
+//     window), the static one the other way round (PERF.md §6).  Taking a chunk checks that its arrivals ascend and
+//     traps where one falls (the window's pick is exact only then).  `live`
+//     (a lane) is the most jobs it held: J where it took them all, else the
+//     most its window held when a chunk came in (over W where it spilled).
+//     The fail-stop programs keep every job live (lo = 0, hi = J - 1, W = J
+//     in shared memory): a rollback may reopen any job.
 //   * Each step, in the reference's order, by the warp:
 //     3.   the pick from gmin;
 //     4.   a lane per PE: data_ready = max(rmin, over preds of finish +
@@ -52,7 +86,8 @@
 //          table_pe, by a warp reduction over (value, PE) that keeps the
 //          lower PE on ties;
 //     6.   lane 0 commits s0 and f0 to the task and the PE's queue; then the
-//          job's key and its group's minimum.
+//          job's key and its group's minimum; after the first commit of
+//          the window's last untouched job, the next chunk.
 //   * Stopping early: the scan ends at the first step with nothing left.  In
 //     the fault-free programs every later step of the reference's J*T is a
 //     no-op, so this is exact.  With faults too: a fault fires only while a
@@ -91,8 +126,8 @@
 //     end, the 4 RC temperatures, their peak, the makespan so far, and per PE
 //     the head and tail of its commit list.  Per lane the policy: window, up
 //     threshold, thermal cap, the exact RC matrices A and B (from the host,
-//     the plain version's f32 values) and the two fixed-point exponents of
-//     the window sums.
+//     the plain version's f32 values; lanes 0-3 hold a row of each in
+//     registers) and the two fixed-point exponents of the window sums.
 //   * Before the commit of each step the warp runs the windows that closed by
 //     the pick's ready time (while next_w <= rmin); after the last step, the
 //     drain (while next_w - window < makespan).
@@ -141,6 +176,7 @@ constexpr int MAX_TASKS = 32;
 constexpr float BIG = 1e30f;
 constexpr int ETF = 0, MET = 1, TABLE = 2;
 constexpr unsigned long long NONE = ~0ull;
+constexpr int RING = 1024;      // the most job slots of a fault-free lane's ring
 
 constexpr int MAX_DTPM = 32;    // P, C and K under DTPM: a lane each
 constexpr int NODES = 3;        // thermal nodes with power (the 4th is the board)
@@ -154,12 +190,14 @@ struct Params {
   const float* comm_startup; // (D,)
   const float* comm_inv_bw;  // (D,)
   const int* table_pe;       // (D, A, T)
-  const float* arrival;      // (D*S, J)
+  const float* arrival;      // (D*S, J), ascending in each lane (fault-free: else a trap)
   const int* app_idx;        // (D*S, J)
   unsigned char* scheduled;  // (D*S, J, T) bool
   float* start;              // (D*S, J, T)
   float* finish;             // (D*S, J, T), read back by later steps
   int* onpe;                 // (D*S, J, T), read back by later steps
+  int* live;                 // (D*S,): the most jobs a lane held
+  unsigned long long* spill; // (D*S, spill_words(J)) scratch, or null where J <= the ring
   int D, S, J, A, T, P, policy;
 };
 
@@ -196,20 +234,33 @@ struct FaultParams {
   int cap;                   // steps a lane may take (the reference's scan length)
 };
 
+// Job slots of a lane in shared memory: the fault-free programs' ring, the
+// power of two >= J (at least 32, at most RING); every job with faults
+__host__ __device__ inline int job_slots(int J, bool faults) {
+  if (faults) return J;
+  int w = 32;
+  while (w < J && w < RING) w <<= 1;
+  return w;
+}
+// 64-bit words of a lane's spilled job state: J keys, their group minima,
+// then J done masks (two a word)
+__host__ __device__ inline long long spill_words(int J) {
+  return (long long)J + (J + 31) / 32 + (J + 1) / 2;
+}
 // 32-bit words of a design's tables (K = 0: the static kernel),
 // and of one lane's slice (64-bit words first), each rounded up to an even
 // count so that every slice starts 8-byte aligned
 __host__ __device__ inline long long table_words(int A, int T, int P, int C, int K) {
   long long w = (long long)A * T * P * (K > 0 ? K : 1) + (long long)A * T * T +
-                (long long)P * P + 2LL * A * T + A;
+                (long long)P * P + 2LL * A * T + 2LL * A;
   if (K > 0) w += (long long)P * K + (long long)C * K + 3LL * C + 4LL * P;
   return (w + 1) & ~1LL;
 }
 __host__ __device__ inline long long lane_words(int J, int P, int C, int K, bool faults) {
-  const long long G = (J + 31) / 32;
-  long long w = 2 * G + 2LL * J + P + J;   // gmin, key, pe_free, done
-  if (K > 0) w += 2LL * P + 2LL * P + C + 32 + 7;   // bins; head, tail, OPPs, RC, carry
-  if (faults) w += 4LL * P + J;                     // fail times, PE masks, queues, floors
+  const long long W = job_slots(J, faults), G = (W + 31) / 32;
+  long long w = 2 * G + 2 * W + P + W;   // gmin, key, pe_free, done
+  if (K > 0) w += 2LL * P + 2LL * P + C + 7;   // bins; head, tail, OPPs, carry
+  if (faults) w += 4LL * P + J;                // fail times, PE masks, queues, floors
   return (w + 1) & ~1LL;
 }
 // shared words of one block: the tables, then the lane's slice
@@ -262,18 +313,24 @@ __device__ __forceinline__ double pow2d(int s) {
   return __longlong_as_double((long long)(1023 + s) << 52);
 }
 
-// The scan of one lane (one warp).  K1_LAUNCH_BOUNDS(DTPM) comes from the
-// unit that includes this header: epoch_scan.cu builds the fault-free
-// instantiations, epoch_scan_faults.cu the fail-stop ones
-template <bool DTPM, bool FAULTS>
-__global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp,
-                                                         FaultParams fp) {
+// Where a lane keeps its job state (scan_lane's JOBS): EVERY job in its own
+// slot of shared memory, all taken at the start (the fail-stop programs, and
+// the fault-free ones where the ring has a slot for each of the J jobs);
+// the live WINDOW in the ring; the window SPILLED to global memory (p.spill),
+// job j in slot j
+constexpr int EVERY = 0, WINDOW = 1, SPILLED = 2;
+
+// The scan of one lane (one warp), after its design's tables are in shared
+// memory.  Returns false, having written nothing final, when a WINDOW lane's
+// window outgrows its ring (the caller then runs it again SPILLED)
+template <bool DTPM, bool FAULTS, int JOBS>
+__device__ __forceinline__ bool scan_lane(const Params& p, const DtpmParams& dp,
+                                          const FaultParams& fp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int A = p.A, T = p.T, P = p.P, J = p.J;
   const int C = DTPM ? dp.C : 0, K = DTPM ? dp.K : 1;
   const int lane_id = threadIdx.x;
   const long long lane = blockIdx.x;
-  const int G = (J + 31) / 32;                          // groups of 32 jobs
 
   // the tables
   float* exec_s = reinterpret_cast<float*>(smem);
@@ -282,8 +339,9 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   int* pred_s = reinterpret_cast<int*>(mult_s + P * P);
   int* tpe_s = pred_s + A * T;
   int* valid_s = tpe_s + A * T;
+  int* root_s = valid_s + A;                               // A: see admit
   // DTPM only, after the static tables
-  float* pwr_s = reinterpret_cast<float*>(valid_s + A);   // (P, K)
+  float* pwr_s = reinterpret_cast<float*>(root_s + A);     // (P, K)
   float* freq_s = pwr_s + P * K;                           // (C, K)
   int* nopp_s = reinterpret_cast<int*>(freq_s + C * K);    // C
   int* dnode_s = nopp_s + C;                               // C
@@ -292,57 +350,38 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   float* iscpu_s = reinterpret_cast<float*>(pdom_s + P);   // P
   int* node_s = reinterpret_cast<int*>(iscpu_s + P);       // P
   float* pidle_s = reinterpret_cast<float*>(node_s + P);   // P
-
-  // copy the tables of the lane's design, by the warp
   const int d = (int)(lane / p.S);
-  if constexpr (DTPM) {
-    for (int i = lane_id; i < A * T * P * K; i += 32)
-      exec_s[i] = dp.exec_opp[(long long)d * A * T * P * K + i];
-    for (int i = lane_id; i < P * K; i += 32) pwr_s[i] = dp.pwr_opp[(long long)d * P * K + i];
-    for (int i = lane_id; i < C * K; i += 32) freq_s[i] = dp.opp_freq[(long long)d * C * K + i];
-    for (int i = lane_id; i < C; i += 32) {
-      nopp_s[i] = dp.num_opp[(long long)d * C + i];
-      dnode_s[i] = dp.domain_node[(long long)d * C + i];
-      dcpu_s[i] = dp.domain_cpu[(long long)d * C + i];
-    }
-    for (int i = lane_id; i < P; i += 32) {
-      pdom_s[i] = dp.pe_domain[(long long)d * P + i];
-      iscpu_s[i] = dp.pe_is_cpu[(long long)d * P + i];
-      node_s[i] = dp.node_of_pe[(long long)d * P + i];
-      pidle_s[i] = dp.power_idle[(long long)d * P + i];
-    }
-  } else {
-    for (int i = lane_id; i < A * T * P; i += 32)
-      exec_s[i] = p.exec_us[(long long)d * A * T * P + i];
-  }
-  for (int i = lane_id; i < A * T * T; i += 32)
-    ebytes_s[i] = p.ebytes[(long long)d * A * T * T + i];
-  for (int i = lane_id; i < P * P; i += 32) mult_s[i] = p.comm_mult[(long long)d * P * P + i];
-  for (int i = lane_id; i < A * T; i += 32) {
-    pred_s[i] = p.pred_bits[(long long)d * A * T + i];
-    tpe_s[i] = p.table_pe[(long long)d * A * T + i];
-  }
-  for (int i = lane_id; i < A; i += 32) valid_s[i] = p.valid_bits[(long long)d * A + i];
-  __syncwarp();
 
-  // the lane's slice: 64-bit words first
-  unsigned long long* gmin = reinterpret_cast<unsigned long long*>(
+  // the lane's slice: 64-bit words first.  The job state: W slots of
+  // (key, done), a least key per group of 32 slots; slot(j) = j % W in the
+  // ring (WINDOW), j otherwise
+  const int WS = job_slots(J, FAULTS);            // the shared slots
+  const int W = JOBS == SPILLED ? J : WS;
+  const unsigned slot_mask = JOBS == WINDOW ? (unsigned)(W - 1) : 0xffffffffu;
+  unsigned long long* gmin_s = reinterpret_cast<unsigned long long*>(
       smem + 4 * table_words(A, T, P, C, DTPM ? K : 0));
-  unsigned long long* key = gmin + G;         // J
-  unsigned long long* bins = key + J;         // DTPM: P busy sums
+  unsigned long long* key_s = gmin_s + (WS + 31) / 32;
+  unsigned long long* bins = key_s + WS;       // DTPM: P busy sums
   float* pe_free = reinterpret_cast<float*>(bins + (DTPM ? P : 0));
-  unsigned* done = reinterpret_cast<unsigned*>(pe_free + P);   // J
-  // DTPM: each PE's commit list, the lane's OPP per domain, its RC matrices,
-  // and the carry: next window end, peak, makespan, temps[4]
-  int* head = reinterpret_cast<int*>(done + J);
+  unsigned* done_s = reinterpret_cast<unsigned*>(pe_free + P);
+  unsigned long long* key = key_s;
+  unsigned long long* gmin = gmin_s;
+  unsigned* done = done_s;
+  if constexpr (JOBS == SPILLED) {
+    key = p.spill + lane * spill_words(J);
+    gmin = key + J;
+    done = reinterpret_cast<unsigned*>(gmin + (J + 31) / 32);
+  }
+  // DTPM: each PE's commit list, the lane's OPP per domain, and the carry:
+  // next window end, peak, makespan, temps[4]
+  int* head = reinterpret_cast<int*>(done_s + WS);
   int* tail = head + P;
   int* oppidx_s = tail + P;
-  float* rc_s = reinterpret_cast<float*>(oppidx_s + C);   // 32: A (4x4), then B
-  float* st_f = rc_s + 32;
+  float* st_f = reinterpret_cast<float*>(oppidx_s + C);
   // FAULTS only, after either layout: the lane's fail times, the dead PEs,
   // the PEs firing now, the recomputed queues (float bits), per job a T-bit
   // "has a floor" mask
-  float* ftime_s = DTPM ? st_f + 7 : reinterpret_cast<float*>(done + J);
+  float* ftime_s = DTPM ? st_f + 7 : reinterpret_cast<float*>(done_s + WS);
   int* fired_s = reinterpret_cast<int*>(ftime_s + P);
   int* fire_s = fired_s + P;
   int* newfree = fire_s + P;
@@ -358,12 +397,21 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   int* onopp_g = DTPM ? dp.onopp + row0 * T : nullptr;
   int* next_g = DTPM ? dp.next_cell + row0 * T : nullptr;
   float* floor_g = FAULTS ? fp.floor + row0 * T : nullptr;
+  auto slot = [&](const int j) { return (int)((unsigned)j & slot_mask); };
 
   for (int i = lane_id; i < P; i += 32) pe_free[i] = 0.f;
+  // DTPM: lanes 0-3 hold a row each of the lane's RC matrices A and B
+  float rc_a[4] = {0.f, 0.f, 0.f, 0.f}, rc_b[4] = {0.f, 0.f, 0.f, 0.f};
   if constexpr (DTPM) {
     for (int i = lane_id; i < C; i += 32) oppidx_s[i] = 0;   // ondemand starts at fmin
     for (int i = lane_id; i < P; i += 32) head[i] = tail[i] = -1;
-    rc_s[lane_id] = dp.rc[lane * 32 + lane_id];
+    if (lane_id < 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        rc_a[k] = dp.rc[lane * 32 + lane_id * 4 + k];
+        rc_b[k] = dp.rc[lane * 32 + 16 + lane_id * 4 + k];
+      }
+    }
     if (lane_id == 0) {
       const float amb = dp.rc_consts[4];
       st_f[0] = dp.window[lane];              // next_w
@@ -377,10 +425,15 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
       ftime_s[i] = fp.faults[lane * P + i];
       fired_s[i] = 0;
     }
-    for (int j = lane_id; j < J; j += 32) hasfloor[j] = 0u;
+    for (int j = lane_id; j < J; j += 32) {
+      hasfloor[j] = 0u;
+      done[j] = ~(unsigned)valid_s[app_g[j]] & all;   // a task that does not exist is done
+    }
+  } else {
+    // no job admitted yet: every slot and group NONE
+    for (int s = lane_id; s < W; s += 32) key[s] = NONE;
+    for (int g = lane_id; g < (W + 31) / 32; g += 32) gmin[g] = NONE;
   }
-  for (int j = lane_id; j < J; j += 32)
-    done[j] = ~(unsigned)valid_s[app_g[j]] & all;   // a task that does not exist is done
   for (int c = lane_id; c < J * T; c += 32) {
     start_g[c] = 0.f;
     fin_g[c] = 0.f;
@@ -394,7 +447,7 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   // eligible tasks (the rollback's and the first keys)
   auto serial_key = [&](const int j) {
     unsigned long long best = NONE;
-    const unsigned dn = done[j];
+    const unsigned dn = done[slot(j)];
     if (dn == all) return best;
     const int* pr = pred_s + app_g[j] * T;
     const float arr = arr_g[j];
@@ -422,7 +475,7 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   };
   // job j's key, by the warp: a lane per task, its preds' finishes by shuffle
   auto warp_key = [&](const int j) {
-    const unsigned dn = done[j];
+    const unsigned dn = done[slot(j)];
     const int t = lane_id;
     const bool in = t < T;
     const long long c = (long long)j * T + t;
@@ -442,17 +495,89 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   };
   // every group's least key, a lane per group
   auto refresh_groups = [&]() {
-    for (int g = lane_id; g < G; g += 32) {
+    for (int g = lane_id; g < (W + 31) / 32; g += 32) {
       unsigned long long m = NONE;
-      for (int j = g * 32; j < min(J, g * 32 + 32); ++j) m = key[j] < m ? key[j] : m;
+      for (int s = g * 32; s < min(W, g * 32 + 32); ++s) m = key[s] < m ? key[s] : m;
       gmin[g] = m;
     }
   };
 
-  for (int j = lane_id; j < J; j += 32) key[j] = serial_key(j);
-  __syncwarp();
-  refresh_groups();
-  __syncwarp();
+  // the jobs taken lo..hi (EVERY: every job), u the first job with a task
+  // and no commit (it and every job after it untouched), and the most jobs
+  // the lane held
+  int lo = 0, hi = FAULTS ? J - 1 : -1, u = J, most = FAULTS ? J : 0;
+  unsigned pending = 0u;     // the tasked, untouched jobs of hi's chunk, from u
+  // Takes the next chunk of 32 jobs (a chunk is one group of slots), a lane
+  // a job, each with its untouched key (done: the tasks that do not exist;
+  // ready: the arrival, or max(arrival, 0) where a pred does not exist, at
+  // the app's first such task), and returns its tasked jobs.  The window's
+  // pick is exact only if arrivals ascend: a decrease traps
+  auto take = [&]() {
+    const int top = min(hi + 32, J - 1);
+    const int j = hi + 1 + lane_id;
+    unsigned long long k = NONE;
+    unsigned v = 0u;
+    float x = 0.f;
+    if (j <= top) {
+      const int a = app_g[j];
+      x = arr_g[j];
+      v = (unsigned)valid_s[a] & all;
+      const int r = root_s[a], ta = (r & 0xff) - 1, tf = (r >> 8) - 1;
+      if (tf >= 0) k = ((unsigned long long)order_bits(x) << 32) | (unsigned)(j * T + tf);
+      if (ta >= 0 && ta != tf) {
+        const unsigned long long kt =
+            ((unsigned long long)order_bits(fmaxf(x, 0.f)) << 32) | (unsigned)(j * T + ta);
+        k = kt < k ? kt : k;
+      }
+      done[slot(j)] = ~v & all;
+      key[slot(j)] = k;
+    }
+    float prev = __shfl_up_sync(FULL_MASK, x, 1);
+    if (lane_id == 0) prev = hi >= 0 ? arr_g[hi] : x;
+    if (j <= top && x < prev) __trap();
+    const unsigned long long m = warp_min(k);
+    if (lane_id == 0) gmin[slot(hi + 1) / 32] = m;   // the chunk's group, whole
+    hi = top;
+    return __ballot_sync(FULL_MASK, v != 0u);
+  };
+  // WINDOW, SPILLED: moves lo past the jobs done (by ballot, 32 at a time),
+  // then takes chunks until one has a task.  False, taking nothing, where
+  // the window would outgrow the ring.  Jobs take their first commit in
+  // order (a root's key is its arrival), so u is always the lowest job of
+  // `pending`
+  auto admit = [&]() {
+    while (lo <= hi) {
+      const int jl = lo + lane_id;
+      const unsigned fin_ = __ballot_sync(FULL_MASK, jl <= hi && done[slot(jl)] == all);
+      if (fin_ != FULL_MASK) {
+        lo += __ffs(~fin_) - 1;
+        break;
+      }
+      lo += 32;
+    }
+    while (hi + 1 < J) {
+      if (JOBS == WINDOW && min(hi + 32, J - 1) - lo + 1 > W) return false;
+      pending = take();
+      if (pending) break;                     // a job with no task is done already
+    }
+    u = pending ? (hi & ~31) + __ffs(pending) - 1 : J;
+    __syncwarp();
+    most = max(most, hi - lo + 1);
+    return true;
+  };
+
+  if constexpr (FAULTS) {
+    for (int j = lane_id; j < J; j += 32) key[j] = serial_key(j);
+    __syncwarp();
+    refresh_groups();
+    __syncwarp();
+  } else if constexpr (JOBS == EVERY) {
+    while (hi + 1 < J) take();                // every job, once: the loop never admits
+    __syncwarp();
+    most = J;
+  } else {
+    admit();                                  // job 0: the ring holds at least 32
+  }
 
   // DTPM: one sampling window [next_w - window, next_w), by the warp (the
   // reference's _window_step, simkernel_jax.py:271-316)
@@ -533,14 +658,12 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
     // lanes 0-3: a row each of A @ temps + B @ u, left to right
     float r = 0.f;
     if (lane_id < 4) {
-      const float* Ar = rc_s + lane_id * 4;
-      const float* Br = rc_s + 16 + lane_id * 4;
-      float a = __fmul_rn(Ar[0], st_f[3]);
-      float b = __fmul_rn(Br[0], u[0]);
+      float a = __fmul_rn(rc_a[0], st_f[3]);
+      float b = __fmul_rn(rc_b[0], u[0]);
 #pragma unroll
       for (int k = 1; k < 4; ++k) {
-        a = __fadd_rn(a, __fmul_rn(Ar[k], st_f[3 + k]));
-        b = __fadd_rn(b, __fmul_rn(Br[k], u[k]));
+        a = __fadd_rn(a, __fmul_rn(rc_a[k], st_f[3 + k]));
+        b = __fadd_rn(b, __fmul_rn(rc_b[k], u[k]));
       }
       r = __fadd_rn(a, b);
     }
@@ -626,7 +749,7 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
       fin_g[c] = best_f;
       onpe_g[c] = best_pe;
       pe_free[best_pe] = best_f;
-      done[j] |= 1u << t;
+      done[slot(j)] |= 1u << t;
       if constexpr (DTPM) {                   // latch the OPP; append to the PE's list
         onopp_g[c] = oppidx_s[pdom_s[best_pe]];
         st_f[2] = fmaxf(st_f[2], best_f);
@@ -637,13 +760,14 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
       }
     }
     __syncwarp();
-    // the job's new key, then its group's least key (lane j % 32 holds key[j])
+    // the job's new key, then its group's least key (the lane at its slot's
+    // place in the group holds the new key)
     const unsigned long long kj = warp_key(j);
-    const int g = j / 32, jj = g * 32 + lane_id;
-    unsigned long long m = jj == j ? kj : jj < J ? key[jj] : NONE;
+    const int sj = slot(j), g = sj / 32, sl = g * 32 + lane_id;
+    unsigned long long m = sl == sj ? kj : sl < W ? key[sl] : NONE;
     m = warp_min(m);
     if (lane_id == 0) {
-      key[j] = kj;
+      key[sj] = kj;
       gmin[g] = m;
     }
     __syncwarp();
@@ -660,7 +784,7 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
   // surviving makespan.  If a task was lost, the queues drain at those
   // maxima, DTPM's makespan is the surviving one and each PE's list is
   // relinked over its surviving cells, and every group's least key is
-  // recomputed
+  // recomputed.  The fail-stop programs keep every job in its own slot
   auto roll_back = [&]() {
     bool lost = false;
     float mk = 0.f;
@@ -742,36 +866,65 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
     __syncwarp();
   };
 
+  // the steps; a WINDOW or SPILLED lane leaves the inner loop only to admit
+  // the next chunk, so that the loop's body stays one short stretch of code
+  // (the admission inlined in it cost every step ~5% on an H100); an EVERY
+  // lane never admits
   int nsteps = 0, ncommits = 0;
-  while (true) {
-    // 3. the least (ready, flat index) of the lane
-    unsigned long long best = NONE;
-    for (int g = lane_id; g < G; g += 32) best = gmin[g] < best ? gmin[g] : best;
-    best = warp_min(best);
-    const float rmin = from_order_bits((unsigned)(best >> 32));
-    if (best == NONE || !(rmin < BIG * 0.5f)) break;   // nothing left: the rest are no-ops
-    const int flat = (int)(best & 0xffffffffu);
-    bool go = true;
-    if constexpr (FAULTS) {
-      if (nsteps >= fp.cap) break;
-      ++nsteps;
-      // 3a. the fail times this epoch crosses fire before anything else,
-      // together; a pick whose pred was rolled back is stale: skip the step
-      bool f = false;
-      for (int pe = lane_id; pe < P; pe += 32) f |= !fired_s[pe] && ftime_s[pe] <= rmin;
-      if (__any_sync(FULL_MASK, f)) {
-        for (int pe = lane_id; pe < P; pe += 32) {
-          fire_s[pe] = !fired_s[pe] && ftime_s[pe] <= rmin;
-          newfree[pe] = 0;
+  for (bool left = true; left;) {
+    while (true) {
+      // 3. the least (ready, flat index) of the lane: over every group of
+      // the ring (at most 32; a group outside the window is NONE), over the
+      // window's groups where spilled
+      unsigned long long best = NONE;
+      for (int g = (JOBS == SPILLED ? lo / 32 : 0) + lane_id;
+           g <= (JOBS == SPILLED ? hi / 32 : (W - 1) / 32); g += 32)
+        best = gmin[g] < best ? gmin[g] : best;
+      best = warp_min(best);
+      const float rmin = from_order_bits((unsigned)(best >> 32));
+      if (best == NONE || !(rmin < BIG * 0.5f)) {   // nothing left: the rest are no-ops
+        left = false;
+        break;
+      }
+      const int flat = (int)(best & 0xffffffffu);
+      const int j = flat / T;
+      bool go = true;
+      if constexpr (FAULTS) {
+        if (nsteps >= fp.cap) {
+          left = false;
+          break;
         }
-        __syncwarp();
-        roll_back();
-        go = !((unsigned)pred_s[app_g[flat / T] * T + flat % T] & ~done[flat / T]);
+        ++nsteps;
+        // 3a. the fail times this epoch crosses fire before anything else,
+        // together; a pick whose pred was rolled back is stale: skip the step
+        bool f = false;
+        for (int pe = lane_id; pe < P; pe += 32) f |= !fired_s[pe] && ftime_s[pe] <= rmin;
+        if (__any_sync(FULL_MASK, f)) {
+          for (int pe = lane_id; pe < P; pe += 32) {
+            fire_s[pe] = !fired_s[pe] && ftime_s[pe] <= rmin;
+            newfree[pe] = 0;
+          }
+          __syncwarp();
+          roll_back();
+          go = !((unsigned)pred_s[app_g[j] * T + flat % T] & ~done[j]);
+        }
+      }
+      if (go) {
+        place(j, flat - j * T, rmin);
+        ++ncommits;
+        // job u's first commit: u moves to the next tasked job; the next
+        // chunk comes in once the window holds no untouched job
+        if constexpr (JOBS != EVERY) {
+          if (j == u) {
+            pending &= pending - 1;
+            if (!pending) break;
+            u = (hi & ~31) + __ffs(pending) - 1;
+          }
+        }
       }
     }
-    if (go) {
-      place(flat / T, flat % T, rmin);
-      ++ncommits;
+    if constexpr (JOBS != EVERY) {
+      if (left && !admit()) return false;
     }
   }
   if constexpr (FAULTS) {
@@ -786,15 +939,110 @@ __global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp
     if (lane_id < C) dp.opp_idx[lane * C + lane_id] = oppidx_s[lane_id];
     if (lane_id == 0) dp.peak[lane] = st_f[1];
   }
-  for (int c = lane_id; c < J * T; c += 32)
-    p.scheduled[row0 * T + c] = (unsigned char)((done[c / T] >> (c % T)) & 1u);
+  if (lane_id == 0) p.live[lane] = most;
+  // before lo every job is done; after hi no job was touched
+  for (int c = lane_id; c < J * T; c += 32) {
+    const int j = c / T;
+    const unsigned dn = j < lo ? all : j <= hi ? done[slot(j)]
+                                               : ~(unsigned)valid_s[app_g[j]] & all;
+    p.scheduled[row0 * T + c] = (unsigned char)((dn >> (c - j * T)) & 1u);
+  }
+  return true;
+}
+
+// The scan of one lane (one warp).  K1_LAUNCH_BOUNDS(DTPM) comes from the
+// unit that includes this header: epoch_scan.cu builds the fault-free
+// instantiations, epoch_scan_faults.cu the fail-stop ones.  WINDOWED
+// (fault-free only): the live window, else every job at the start
+template <bool DTPM, bool FAULTS, bool WINDOWED>
+__global__ void K1_LAUNCH_BOUNDS(DTPM) epoch_scan_kernel(Params p, DtpmParams dp,
+                                                         FaultParams fp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int A = p.A, T = p.T, P = p.P;
+  const int C = DTPM ? dp.C : 0, K = DTPM ? dp.K : 1;
+  const int lane_id = threadIdx.x;
+  const int d = (int)((long long)blockIdx.x / p.S);
+
+  // copy the tables of the lane's design, by the warp (scan_lane's layout)
+  float* exec_s = reinterpret_cast<float*>(smem);
+  float* ebytes_s = exec_s + A * T * P * K;
+  float* mult_s = ebytes_s + A * T * T;
+  int* pred_s = reinterpret_cast<int*>(mult_s + P * P);
+  int* tpe_s = pred_s + A * T;
+  int* valid_s = tpe_s + A * T;
+  int* root_s = valid_s + A;
+  if constexpr (DTPM) {
+    float* pwr_s = reinterpret_cast<float*>(root_s + A);
+    float* freq_s = pwr_s + P * K;
+    int* nopp_s = reinterpret_cast<int*>(freq_s + C * K);
+    int* dnode_s = nopp_s + C;
+    float* dcpu_s = reinterpret_cast<float*>(dnode_s + C);
+    int* pdom_s = reinterpret_cast<int*>(dcpu_s + C);
+    float* iscpu_s = reinterpret_cast<float*>(pdom_s + P);
+    int* node_s = reinterpret_cast<int*>(iscpu_s + P);
+    float* pidle_s = reinterpret_cast<float*>(node_s + P);
+    for (int i = lane_id; i < A * T * P * K; i += 32)
+      exec_s[i] = dp.exec_opp[(long long)d * A * T * P * K + i];
+    for (int i = lane_id; i < P * K; i += 32) pwr_s[i] = dp.pwr_opp[(long long)d * P * K + i];
+    for (int i = lane_id; i < C * K; i += 32) freq_s[i] = dp.opp_freq[(long long)d * C * K + i];
+    for (int i = lane_id; i < C; i += 32) {
+      nopp_s[i] = dp.num_opp[(long long)d * C + i];
+      dnode_s[i] = dp.domain_node[(long long)d * C + i];
+      dcpu_s[i] = dp.domain_cpu[(long long)d * C + i];
+    }
+    for (int i = lane_id; i < P; i += 32) {
+      pdom_s[i] = dp.pe_domain[(long long)d * P + i];
+      iscpu_s[i] = dp.pe_is_cpu[(long long)d * P + i];
+      node_s[i] = dp.node_of_pe[(long long)d * P + i];
+      pidle_s[i] = dp.power_idle[(long long)d * P + i];
+    }
+  } else {
+    for (int i = lane_id; i < A * T * P; i += 32)
+      exec_s[i] = p.exec_us[(long long)d * A * T * P + i];
+  }
+  for (int i = lane_id; i < A * T * T; i += 32)
+    ebytes_s[i] = p.ebytes[(long long)d * A * T * T + i];
+  for (int i = lane_id; i < P * P; i += 32) mult_s[i] = p.comm_mult[(long long)d * P * P + i];
+  for (int i = lane_id; i < A * T; i += 32) {
+    pred_s[i] = p.pred_bits[(long long)d * A * T + i];
+    tpe_s[i] = p.table_pe[(long long)d * A * T + i];
+  }
+  for (int i = lane_id; i < A; i += 32) valid_s[i] = p.valid_bits[(long long)d * A + i];
+  __syncwarp();
+  // per app, for a job no task of which is committed: its first eligible
+  // task (a valid task with no valid pred) and its first eligible task with
+  // no pred at all, each + 1 (0: none), in bits 0-7 and 8-15
+  const unsigned all = T == 32 ? 0xffffffffu : ((1u << T) - 1u);
+  for (int a = lane_id; a < A; a += 32) {
+    const unsigned v = (unsigned)valid_s[a] & all;
+    int ta = 0, tf = 0;
+    for (unsigned m = v; m; m &= m - 1) {
+      const int t = __ffs(m) - 1;
+      const unsigned pm = (unsigned)pred_s[a * T + t];
+      if (pm & v) continue;
+      if (!ta) ta = t + 1;
+      if (!pm && !tf) tf = t + 1;
+    }
+    root_s[a] = ta | (tf << 8);
+  }
+  __syncwarp();
+
+  if constexpr (FAULTS || !WINDOWED) {
+    scan_lane<DTPM, FAULTS, EVERY>(p, dp, fp);
+  } else if (!scan_lane<DTPM, false, WINDOW>(p, dp, fp)) {
+    // the window outgrew the ring: the lane again, its job state in global
+    // memory (the wrapper passes the buffer wherever J exceeds the ring)
+    __syncwarp();
+    scan_lane<DTPM, false, SPILLED>(p, dp, fp);
+  }
 }
 
 Params make_params(const void* exec_us, const void* pred_bits, const void* ebytes,
                    const void* valid_bits, const void* comm_mult, const void* comm_startup,
                    const void* comm_inv_bw, const void* table_pe, const void* arrival,
                    const void* app_idx, void* scheduled, void* start, void* finish, void* onpe,
-                   int D, int S, int J, int A, int T, int P, int policy) {
+                   void* live, void* spill, int D, int S, int J, int A, int T, int P,
+                   int policy) {
   Params p;
   p.exec_us = static_cast<const float*>(exec_us);
   p.pred_bits = static_cast<const int*>(pred_bits);
@@ -810,6 +1058,8 @@ Params make_params(const void* exec_us, const void* pred_bits, const void* ebyte
   p.start = static_cast<float*>(start);
   p.finish = static_cast<float*>(finish);
   p.onpe = static_cast<int*>(onpe);
+  p.live = static_cast<int*>(live);
+  p.spill = static_cast<unsigned long long*>(spill);
   p.D = D; p.S = S; p.J = J; p.A = A; p.T = T; p.P = P; p.policy = policy;
   return p;
 }
@@ -870,30 +1120,50 @@ FaultParams make_fault_params(const void* faults, void* floor, void* counts, int
 }
 
 
-template <bool DTPM, bool FAULTS>
-int launch(const Params& p, const DtpmParams& dp, const FaultParams& fp, void* stream) {
+template <bool DTPM, bool FAULTS, bool WINDOWED>
+int launch_as(const Params& p, const DtpmParams& dp, const FaultParams& fp, void* stream) {
   const long long bytes = 4 * shared_words(p.J, p.A, p.T, p.P, DTPM ? dp.C : 0,
                                            DTPM ? dp.K : 0, FAULTS);
   if (bytes > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        epoch_scan_kernel<DTPM, FAULTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t rc = cudaFuncSetAttribute(epoch_scan_kernel<DTPM, FAULTS, WINDOWED>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)bytes);
     if (rc != cudaSuccess) return (int)rc;
   }
   const long long blocks = (long long)p.D * p.S;   // a block (a warp) a lane
-  epoch_scan_kernel<DTPM, FAULTS><<<(unsigned)blocks, 32, (size_t)bytes,
-                                    static_cast<cudaStream_t>(stream)>>>(p, dp, fp);
+  epoch_scan_kernel<DTPM, FAULTS, WINDOWED><<<(unsigned)blocks, 32, (size_t)bytes,
+                                              static_cast<cudaStream_t>(stream)>>>(p, dp, fp);
   return (int)cudaGetLastError();
+}
+
+// one launch: the fail-stop programs and a static one at J <= RING take
+// every job at the start, the others keep the window
+template <bool DTPM, bool FAULTS>
+int launch(const Params& p, const DtpmParams& dp, const FaultParams& fp, void* stream) {
+  if constexpr (FAULTS)
+    return launch_as<DTPM, true, false>(p, dp, fp, stream);
+  else if constexpr (DTPM)
+    return launch_as<true, false, true>(p, dp, fp, stream);
+  else
+    return p.J > RING ? launch_as<false, false, true>(p, dp, fp, stream)
+                      : launch_as<false, false, false>(p, dp, fp, stream);
 }
 
 // Threads a block, lanes a block, resident lanes an SM, dynamic shared bytes,
 // registers a thread and local (stack and spill) bytes a thread of one launch
-// of epoch_scan_kernel<DTPM, FAULTS> at (J, A, T, P[, C, K]): out[0..5].
+// at (J, A, T, P[, C, K]) (of the instantiation `launch` picks): out[0..5].
 template <bool FAULTS>
 int kernel_info(int J, int A, int T, int P, int C, int K, int dtpm, int* out) {
   const long long bytes = 4 * (dtpm ? shared_words(J, A, T, P, C, K, FAULTS)
                                     : shared_words(J, A, T, P, 0, 0, FAULTS));
-  const void* kernel = dtpm ? (const void*)epoch_scan_kernel<true, FAULTS>
-                            : (const void*)epoch_scan_kernel<false, FAULTS>;
+  const void* kernel;
+  if constexpr (FAULTS)
+    kernel = dtpm ? (const void*)epoch_scan_kernel<true, true, false>
+                  : (const void*)epoch_scan_kernel<false, true, false>;
+  else
+    kernel = dtpm ? (const void*)epoch_scan_kernel<true, false, true>
+                  : J > RING ? (const void*)epoch_scan_kernel<false, false, true>
+                             : (const void*)epoch_scan_kernel<false, false, false>;
   int per_sm = 0;
   cudaError_t rc = cudaSuccess;
   if (bytes > 48 * 1024)

@@ -10,13 +10,25 @@ step picks the ready task with the least (ready time, job, task), finds its
 data-ready time on every PE from its predecessors' finishes and PEs, lets the
 policy pick a PE and commits the task to that PE's queue.  The kernel is
 ``csrc/epoch_scan.cuh`` (design notes at its top): a block of one warp
-per lane, the small tables of its design and the jobs' done masks and keys in
-shared memory, the (J, T) schedule in global memory.  A step picks the least
-per-job key, places the task and recomputes only its job's key; under DTPM a
-window sums each PE's commit list from its moving head.  DTPM and faults are
-compile-time variants of it, four instantiations in all, the fault-free ones
-built from ``csrc/epoch_scan.cu``, the fail-stop ones from
-``csrc/epoch_scan_faults.cu``.
+per lane, the small tables of its design and the live jobs' done masks and
+keys in shared memory, the (J, T) schedule in global memory.  A step picks
+the least per-job key over the live window (the first job with a task left
+to the first job with none placed: every other job's key is none or no
+less), places the task and recomputes only its job's key; under DTPM a
+window sums each PE's commit list from its moving head.  The fault-free
+programs keep the window in a ring of :func:`job_slots` (at most
+:data:`RING`), so J does not bound them; a lane whose backlog outgrows the
+ring runs again with its job state in a global buffer (``spill``); where
+the ring has a slot for every job (J <= :data:`RING`) a static lane takes
+them all at the start, in an instantiation of its own.  The window's pick
+is exact only where arrivals ascend in each lane: the fault-free programs
+trap where one falls (the plain version is exact in any order).  The
+fail-stop programs keep every job live (a rollback may reopen any), in
+shared memory: :data:`MAX_SHARED` bounds their J (13,334-13,981 at the
+Table-2 SoC).  DTPM and faults are compile-time variants of it, the four
+programs (the static one in two instantiations, picked by J at launch),
+the fault-free ones built from ``csrc/epoch_scan.cu``, the fail-stop ones
+from ``csrc/epoch_scan_faults.cu``.
 
 The tables are one design's (``exec_us`` (A, T, P)) or a stack of D designs
 padded to one shape (every field with a leading design axis, ``exec_us``
@@ -29,8 +41,12 @@ lane of a stack equals the same lane run on its design alone.
 
 ``epoch_scan`` launches the kernel for CUDA tensors or raises; only CPU
 tensors go to ``epoch_scan_plain``.  ``launches`` counts calls, one launch
-each, and ``variant_launches`` the same calls by instantiation, keyed (DTPM,
-FAULTS).  Both return ``scheduled``, ``start``, ``finish`` and ``onpe``, each
+each, and ``variant_launches`` the same calls by program, keyed (DTPM,
+FAULTS).  While a profiler records, each launch hands the most jobs each
+lane held (the kernel's per-lane output) to the registry's counters
+``k1_live_jobs_peak`` and ``k1_overflow_lanes`` (``obs.metrics.k1_live``,
+read in the manifest); a CPU call hands nothing over.  Both return ``scheduled``, ``start``,
+``finish`` and ``onpe``, each
 (L, J, T), under DTPM also ``onopp`` (L, J, T), ``opp_idx`` (L, C) and
 ``peak_temp_c`` (L,), and with faults last ``counts`` (L, 2) int32 (the steps
 a lane took and the tasks it committed, re-commits included), equal bit for
@@ -97,15 +113,16 @@ BIG = 1e30            # finite on purpose, as the reference's BIG
 POLICIES = ("etf", "met", "table")
 MAX_TASKS = 32        # T: a job's done set is one 32-bit mask
 MAX_SHARED = 232448   # dynamic shared bytes a block may use on Hopper
+RING = 1024           # the most job slots of a fault-free lane's ring
 MAX_PES_DTPM = 32     # DTPM: P, C and K, a lane of the warp each
 QUANTUM_BITS = 47     # a window's fixed-point term is below 2**47
 
 launches = 0
-# the four instantiations, (DTPM, FAULTS) -> the name reports give them
+# the four programs, (DTPM, FAULTS) -> the name reports give them
 VARIANT_NAMES = {(False, False): "epoch_scan", (True, False): "epoch_scan_dtpm",
                  (False, True): "epoch_scan_faults",
                  (True, True): "epoch_scan_dtpm_faults"}
-# launches by instantiation: (DTPM, FAULTS) -> count, each also in `launches`
+# launches by program: (DTPM, FAULTS) -> count, each also in `launches`
 variant_launches = dict.fromkeys(VARIANT_NAMES, 0)
 _fn = None
 _prepared = weakref.WeakKeyDictionary()   # tables -> (pred bits, valid bits)
@@ -684,11 +701,11 @@ def _kernel():
         lib = _build.load("epoch_scan")
         fn = lib.repro_epoch_scan
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn_dtpm = lib.repro_epoch_scan_dtpm
         fn_dtpm.restype = ctypes.c_int
-        fn_dtpm.argtypes = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 9 \
+        fn_dtpm.argtypes = [ctypes.c_void_p] * 36 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         # the fail-stop entries (their own library, csrc/epoch_scan_faults.cu):
         # the same arguments, then the plans, the floor scratch, the counts
@@ -696,11 +713,11 @@ def _kernel():
         lib = _build.load("epoch_scan_faults")
         fn_faults = lib.repro_epoch_scan_faults
         fn_faults.restype = ctypes.c_int
-        fn_faults.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 \
+        fn_faults.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn_dtpm_faults = lib.repro_epoch_scan_dtpm_faults
         fn_dtpm_faults.restype = ctypes.c_int
-        fn_dtpm_faults.argtypes = [ctypes.c_void_p] * 37 + [ctypes.c_int] * 10 \
+        fn_dtpm_faults.argtypes = [ctypes.c_void_p] * 39 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         err = lib.repro_epoch_scan_faults_error
         err.restype = ctypes.c_char_p
@@ -711,22 +728,41 @@ def _kernel():
     return _fn
 
 
+def job_slots(J: int, faults: bool = False) -> int:
+    """Job slots of a lane in shared memory: the fault-free programs' ring,
+    the power of two >= J (at least 32, at most :data:`RING`); J with
+    faults."""
+    if faults:
+        return J
+    return min(max(32, 1 << max(J - 1, 0).bit_length()), RING)
+
+
+def spill_words(J: int) -> int:
+    """64-bit words of a lane's job state in global memory: J keys, their
+    group minima, J done masks (two a word)."""
+    return J + -(-J // 32) + -(-J // 2)
+
+
 def shared_bytes(J: int, A: int, T: int, P: int, C: int = 0,
                  K: int = 0, faults: bool = False) -> int:
     """Dynamic shared memory of one block, a lane (csrc/epoch_scan.cuh's
     layout): its design's tables, then the lane's slice; ``K`` > 0 (with
     ``C``) sizes the DTPM variant, ``faults`` the fail-stop one.  Each part
-    is rounded up to 8 bytes."""
+    is rounded up to 8 bytes.  Without faults J sets only the ring's
+    slots."""
     def even(words):
         return words + words % 2
-    tables = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + A
+    W = job_slots(J, faults)
+    # the tables: latencies, bytes, comm, preds, table PEs, valid tasks and
+    # first roots an app
+    tables = A * T * P * max(K, 1) + A * T * T + P * P + 2 * A * T + 2 * A
     # per lane: group minima and job keys (int64), queues, done masks
-    lane = 2 * (-(-J // 32)) + 2 * J + P + J
+    lane = 2 * (-(-W // 32)) + 2 * W + P + W
     if K:
         # the OPP and domain tables; per lane the busy bins (int64), each
-        # PE's list head and tail, the OPP indices, RC matrices and carry
+        # PE's list head and tail, the OPP indices and the carry
         tables += P * K + C * K + 3 * C + 4 * P
-        lane += 2 * P + 2 * P + C + 32 + 7
+        lane += 2 * P + 2 * P + C + 7
     if faults:
         # fail times, dead and firing PEs, recomputed queues, per-job floor
         # masks
@@ -739,7 +775,8 @@ def kernel_info(J: int, A: int, T: int, P: int, device=None, C: int = 0,
     """Threads a block, lanes a block, resident lanes an SM, dynamic shared
     bytes, registers a thread and local (stack, spill) bytes a thread of one
     launch at these sizes (``K`` > 0: the DTPM variant; ``faults``: the
-    fail-stop one)."""
+    fail-stop one; the static one past :data:`RING` jobs keeps the live
+    window in an instantiation of its own)."""
     lib = _build.load("epoch_scan_faults" if faults else "epoch_scan")
     info_fn = lib.repro_epoch_scan_faults_info if faults else lib.repro_epoch_scan_info
     out = (ctypes.c_int * 6)()
@@ -815,9 +852,15 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     start = torch.empty((L, J, T), dtype=torch.float32, device=dev)
     finish = torch.empty_like(start)
     onpe = torch.empty((L, J, T), dtype=torch.int32, device=dev)
+    live = torch.empty((L,), dtype=torch.int32, device=dev)
+    # a fault-free lane whose window outgrows its ring runs again with its job
+    # state here (the buffer exists only where J exceeds the ring)
+    slots = job_slots(J, faults is not None)
+    spill = torch.empty((L, spill_words(J)), dtype=torch.int64, device=dev) \
+        if J > slots else None
     static_args = [f32[0], prep["pred_bits"], f32[1], prep["valid_bits"],
                    f32[2], f32[3], f32[4], table_pe, arrival, app_idx,
-                   scheduled, start, finish, onpe]
+                   scheduled, start, finish, onpe, live, spill]
     fns = _kernel()
     fn = fns[gov is not None, faults is not None]
     fault_args, fault_outs, cap = [], (), []
@@ -834,7 +877,8 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if gov is None:
-            rc = fn(*[t.data_ptr() for t in static_args + fault_args], *cap,
+            rc = fn(*[0 if t is None else t.data_ptr()
+                      for t in static_args + fault_args], *cap,
                     D, S, J, A, T, P, POLICIES.index(policy), stream)
             outs = ()
         else:
@@ -848,7 +892,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
                     torch.empty((L,), dtype=torch.float32, device=dev))
             # scratch: each committed cell's successor on its PE's list
             next_cell = torch.empty((L, J, T), dtype=torch.int32, device=dev)
-            rc = fn(*[t.data_ptr() for t in
+            rc = fn(*[0 if t is None else t.data_ptr() for t in
                       static_args + dtpm_tables + lanes + [rc_consts]
                       + list(outs) + [next_cell] + fault_args],
                     *cap, D, S, J, A, T, P, POLICIES.index(policy), C, K,
@@ -857,4 +901,7 @@ def epoch_scan(tables, policy: str, arrival: torch.Tensor,
         raise RuntimeError(f"epoch_scan launch failed: {fns['error'](rc).decode()}")
     launches += 1
     variant_launches[gov is not None, faults is not None] += 1
+    if _metrics.profiling():
+        _metrics.k1_live(live, slots)
     return (scheduled, start, finish, onpe) + outs + fault_outs
+

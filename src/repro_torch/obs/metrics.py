@@ -49,6 +49,11 @@ class Counter:
         self._value += n
         return self._value
 
+    def at_least(self, n: int) -> int:
+        """Raise the value to ``n`` where it is below (a running peak)."""
+        self._value = max(self._value, n)
+        return self._value
+
     def reset(self) -> None:
         self._value = 0
 
@@ -241,6 +246,43 @@ def wait(device, stream=None) -> None:
             torch.cuda.synchronize(device)
 
 
+# -- K1's live window ----------------------------------------------------------
+
+#: the most jobs any lane of a K1 launch held live
+K1_LIVE_PEAK = "k1_live_jobs_peak"
+#: the lanes whose live jobs left the ring in shared memory
+K1_OVERFLOW = "k1_overflow_lanes"
+_k1_live: list = []
+
+
+def k1_live(live, slots: int) -> None:
+    """Called by K1's wrapper after a launch made while a profiler records:
+    ``live`` (L,) on the card, the most jobs each lane of the launch held,
+    kept until :func:`run_manifest` reads it into :data:`K1_LIVE_PEAK` and
+    :data:`K1_OVERFLOW` (the lanes above the ring's ``slots``)."""
+    _k1_live.append((live, slots))
+
+
+def _read_k1_live() -> None:
+    """The counts handed over so far, once every card they lie on has
+    finished its work (a launch on another stream or card may still be
+    writing them)."""
+    if not _k1_live:
+        return
+    import torch
+    for dev in {live.device for live, _ in _k1_live}:
+        if dev.type == "cuda":
+            # lint: waive TX001 -- the manifest, after the run: K1's counts are final
+            torch.cuda.synchronize(dev)
+    while _k1_live:
+        live, slots = _k1_live.pop(0)
+        if live.numel():
+            # lint: waive TX001 -- the manifest, after the synchronise above
+            counter(K1_LIVE_PEAK).at_least(int(live.max()))
+            # lint: waive TX001 -- the manifest, after the synchronise above
+            counter(K1_OVERFLOW).inc(int((live > slots).sum()))
+
+
 def scenario_hash(scenario) -> str:
     """Stable short hash of a frozen Scenario (its dataclass repr is
     deterministic), usable to correlate runs across processes/artifacts."""
@@ -261,8 +303,13 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     started (``kernels.epoch_scan.variant_launches``, under the names of
     ``VARIANT_NAMES``), and ``scan_calls``, the grid scans ``sweep`` has
     started (``scenario.sweep.scan_calls``, the same names), where the
-    reference has ``jit_compile_count``; ``thermal_launches``, the thermal
-    grid's kernel launches (the registry counter of that name); the
+    reference has ``jit_compile_count``; ``k1_live_jobs_peak`` and
+    ``k1_overflow_lanes``, the most jobs a lane of K1 held and the lanes
+    whose live jobs left the ring, over the card launches made while a
+    profiler recorded (:func:`k1_live`, read here after a synchronise of
+    each card; 0 otherwise); ``thermal_launches``,
+    the thermal grid's kernel launches (the registry counter of that name);
+    the
     counter/timer snapshot; and,
     when given, the scenario's label and hash and the backend.  ``extra``
     key-values (wall times, bench name, ...) are merged verbatim.
@@ -302,6 +349,9 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     names = epoch_scan.VARIANT_NAMES
     man["k1_launches"] = {names[k]: n
                           for k, n in epoch_scan.variant_launches.items()}
+    _read_k1_live()
+    man[K1_LIVE_PEAK] = counter(K1_LIVE_PEAK).value
+    man[K1_OVERFLOW] = counter(K1_OVERFLOW).value
     man["scan_calls"] = {names[k]: n for k, n in scan_calls.items()}
     man["thermal_launches"] = counter("thermal_launches").value
     man["metrics"] = snapshot()

@@ -38,8 +38,8 @@ from .trace import chrome_trace, validate_chrome_trace, write_chrome_trace
 def _print_manifest(man: dict) -> None:
     keys = ("timestamp", "scenario", "scenario_hash", "backend", "bench",
             "device_platform", "device_kind", "device_count", "torch_version",
-            "cuda_version", "k1_launches", "scan_calls", "thermal_launches",
-            "wall_s")
+            "cuda_version", "k1_launches", "k1_live_jobs_peak",
+            "k1_overflow_lanes", "scan_calls", "thermal_launches", "wall_s")
     print("manifest:")
     for k in keys:
         if k in man:

@@ -445,9 +445,11 @@ def test_window_sums_are_exact_and_the_shared_layout_adds_up():
     P, C, K, J = 15, 3, 5, 1000
     assert k1.shared_bytes(1000, 5, 8, 15, C, K) == static + 4 * (
         # the tables: the OPP latencies, powers, ladders, domain and node
-        # maps, rounded up to 8 bytes
-        5 * 8 * 15 * (K - 1) + P * K + C * K + 3 * C + 4 * P + 1
-        # a lane: busy bins (int64), list heads and tails, OPPs, RC, carry
-        + 4 * P + C + 32 + 7)
+        # maps (the static tables' odd count rounds up: one word less)
+        5 * 8 * 15 * (K - 1) + P * K + C * K + 3 * C + 4 * P - 1
+        # a lane: busy bins (int64), list heads and tails, OPPs, carry
+        + 4 * P + C + 7)
+    # with faults every job has a slot (not the ring's 1,024), plus fail
+    # times, PE masks and floors
     assert k1.shared_bytes(J, 5, 8, 15, C, K, True) == k1.shared_bytes(
-        J, 5, 8, 15, C, K) + 4 * (4 * P + J)     # fail times, PE masks, floors
+        J, 5, 8, 15, C, K) - 4 * 3 * (1024 - J) + 4 * (4 * P + J)

@@ -2,21 +2,36 @@
 
 K1 (``csrc/epoch_scan.cuh``) keeps, per lane, one key per job (the least
 ``(order bits of ready) << 32 | j*T + t`` over the job's eligible tasks) and
-the least key of each group of 32 jobs, and recomputes only the key of the job
-a commit or a rollback touched.  Under DTPM it sums a window from per-PE
-commit lists whose heads move past the cells that finished before the
-window.  CUDA cannot run here, so ``model_scan`` below runs that bookkeeping
-lane by lane in numpy f32 scalars, op by op as the kernel rounds, with the
-plain version's ``_Windows`` for the rest of the window step, and must equal
-``epoch_scan_plain`` bit for bit on every output.  At every window its
-integer bins must equal the plain version's fixed-point sums, and each PE's
-list from its head must hold exactly that PE's committed cells that finish
-after the window's start, in start order.  Broken copies of the model must
-fail: with no head advance (every cell it keeps lies before the window, so
-only the list check sees it), with the head advanced past the cells that
-finish by the window's end instead of its start (they still overlap it: the
-bins differ), and with no key recompute after a rollback (a stale key, and,
-with the checks of the model's own state off, a different output).
+the least key of each group of 32 slots, and recomputes only the key of the
+job a commit or a rollback touched.  The fault-free programs hold only the
+live window, the first job with a task left to the first job with none
+placed, in a ring of W slots (job j in slot j % W), admit the next job
+with its untouched key when the last one takes its first commit, and run
+a lane again with every job in its own slot (the spill) when its window
+outgrows the ring; the fail-stop ones keep every job live.  (Where the ring
+has a slot for every job, J <= 1,024, K1's static program takes them all
+at the start; the model runs the ring at every J, so that its small cases
+reach the window's bookkeeping.)  Under DTPM it sums a window from per-PE commit lists whose
+heads move past the cells that finished before the window.  CUDA cannot run
+here, so ``model_scan`` below runs that bookkeeping lane by lane in numpy
+f32 scalars, op by op as the kernel rounds, with the plain version's
+``_Windows`` for the rest of the window step, and must equal
+``epoch_scan_plain`` bit for bit on every output; the most jobs its window
+held must equal ``live_jobs`` (tests/k1_window.py), worked out from the
+plain outputs alone.  At every window its integer bins must equal
+the plain version's fixed-point sums, and each PE's list from its head must
+hold exactly that PE's committed cells that finish after the window's
+start, in start order; after every step each live job's key and each
+group's least key must be current and every other slot empty.  Broken
+copies of the model must fail: with no head advance (every cell it keeps
+lies before the window, so only the list check sees it), with the head
+advanced past the cells that finish by the window's end instead of its
+start (they still overlap it: the bins differ), with no key recompute after
+a rollback (a stale key, and, with the checks of the model's own state off,
+a different output), with no job admitted after the first, with a ring
+that takes more jobs than its slots instead of spilling, and with the
+window's first job never moved on (every output right, its held count
+wrong).
 """
 import numpy as np
 import pytest
@@ -30,6 +45,8 @@ from repro_torch.core.resources import make_soc_table2
 from repro_torch.dse import DesignPoint
 from repro_torch.kernels import epoch_scan as k1
 from repro_torch.scenario import Scenario, tables_for
+
+from k1_window import live_jobs
 
 torch.set_num_threads(1)
 
@@ -62,17 +79,24 @@ def bits(m: int):
         t += 1
 
 
+class Overflow(Exception):
+    """The live window outgrew the ring: the lane runs again spilled."""
+
+
 class Lane:
-    """One lane of K1: its tables, the per-job keys and group minima, and
-    under DTPM each PE's commit list."""
+    """One lane of K1: its tables, the job state in slots (a ring of W, or
+    every job in its own), the live window and under DTPM each PE's commit
+    list."""
 
     def __init__(self, tables, policy, arrival, app_idx, design, gov=None,
-                 faults=None, advance_heads="w0", rekey=True,
+                 faults=None, ring=None, spilled=False, advance_heads="w0",
+                 rekey=True, admit=True, spill=True, advance_lo=True,
                  check_invariants=True):
         def tab(name, dtype=None):
             x = k1.per_design(tables, name)[design].numpy()
             return x if dtype is None else x.astype(dtype)
         self.policy, self.advance_heads, self.rekey = policy, advance_heads, rekey
+        self.admit_more, self.spill, self.advance_lo = admit, spill, advance_lo
         self.check_invariants = check_invariants
         self.arr = arrival.numpy().astype(np.float32)
         self.app = app_idx.numpy().astype(np.int64)
@@ -95,9 +119,14 @@ class Lane:
         self.onpe = np.zeros((J, T), np.int64)
         self.onopp = np.zeros((J, T), np.int64)
         self.pe_free = np.zeros(P, np.float32)
-        self.done = [~self.valid[a] & self.all for a in self.app]
-        self.G = -(-J // 32)
         self.dtpm, self.faulted = gov is not None, faults is not None
+        # the slots: job j in slot j % W of the ring; in slot j with faults
+        # (every job live) or spilled
+        self.direct, self.spilled = self.faulted or spilled, spilled
+        self.W = J if self.direct else (ring or k1.job_slots(J))
+        self.key = [NONE] * self.W
+        self.done = [self.all] * self.W
+        self.gmin = [NONE] * (-(-self.W // 32))
         if self.dtpm:
             self.exec = tab("exec_opp", np.float32)          # (A, T, P, K)
             self.win = k1._Windows(tables, gov, torch.tensor([design]),
@@ -114,12 +143,67 @@ class Lane:
             self.fired = np.zeros(P, bool)
             self.hasfloor = [0] * J
             self.floor = np.zeros((J, T), np.float32)
-        self.key = [self.job_key(j) for j in range(J)]
-        self.gmin = [self.group_min(g) for g in range(self.G)]
+            self.lo, self.hi, self.most = 0, J - 1, J
+            for j in range(J):
+                self.done[j] = ~self.valid[self.app[j]] & self.all
+            self.key = [self.job_key(j) for j in range(J)]
+            self.gmin = [self.group_min(g) for g in range(len(self.gmin))]
+        else:
+            self.lo, self.hi, self.most = 0, -1, 0
+            self.admit()
+
+    def slot(self, j: int) -> int:
+        return j if self.direct else j % self.W
+
+    def dn(self, j: int) -> int:
+        """Job j's done mask: all before the window, untouched after it."""
+        if j < self.lo:
+            return self.all
+        if j > self.hi:
+            return ~self.valid[self.app[j]] & self.all
+        return self.done[self.slot(j)]
+
+    # -- the live window
+    def admit(self):
+        """lo past the jobs done, then the next chunks of 32 jobs in (a chunk
+        is one group of slots) until one has a task, each job with its
+        untouched key (the kernel's closed form: the arrival, or max(arrival,
+        0) where a pred does not exist, at the app's first such task); u the
+        chunk's first tasked job."""
+        while self.advance_lo and self.lo <= self.hi and self.dn(self.lo) == self.all:
+            self.lo += 1
+        self.pending = []
+        while self.hi + 1 < self.J:
+            top = min(self.hi + 32, self.J - 1)
+            if not self.direct and top - self.lo + 1 > self.W and self.spill:
+                raise Overflow
+            for j in range(self.hi + 1, top + 1):
+                a, x = self.app[j], self.arr[j]
+                v, k = self.valid[a], NONE
+                # the app's first eligible task (a valid task with no valid
+                # pred: ready max(x, 0)) and first one with no pred at all
+                # (ready x), as the kernel tabulates them an app
+                elig = [t for t in bits(v) if not self.pred[a][t] & v]
+                ta = elig[0] if elig else -1
+                tf = next((t for t in elig if not self.pred[a][t]), -1)
+                if tf >= 0:
+                    k = (order_bits(x) << 32) | (j * self.T + tf)
+                if ta >= 0 and ta != tf:
+                    k = min(k, (order_bits(max(x, f32(0.0))) << 32) | (j * self.T + ta))
+                self.done[self.slot(j)], self.key[self.slot(j)] = ~v & self.all, k
+                if v:
+                    self.pending.append(j)
+            g = self.slot(self.hi + 1) // 32
+            self.hi = top
+            self.gmin[g] = self.group_min(g)
+            if self.pending:
+                break
+        self.u = self.pending[0] if self.pending else self.J
+        self.most = max(self.most, self.hi - self.lo + 1)
 
     # -- the pick
     def job_key(self, j: int) -> int:
-        dn, best = self.done[j], NONE
+        dn, best = self.dn(j), NONE
         pr = self.pred[self.app[j]]
         for t in bits(~dn & self.all):
             if pr[t] & ~dn:
@@ -137,13 +221,24 @@ class Lane:
         return min(self.key[g * 32:(g + 1) * 32])
 
     def check_keys(self):
-        assert self.key == [self.job_key(j) for j in range(self.J)], "stale key"
-        assert self.gmin == [self.group_min(g) for g in range(self.G)]
+        live = {self.slot(j): j for j in range(self.lo, self.hi + 1)}
+        assert len(live) == max(self.hi - self.lo + 1, 0), \
+            "stale key: two live jobs share a slot"
+        assert self.key == [self.job_key(live[s]) if s in live else NONE
+                            for s in range(self.W)], "stale key"
+        assert self.gmin == [self.group_min(g) for g in range(len(self.gmin))]
+
+    def pick(self) -> int:
+        """The least group minimum: of every group of the ring (a group
+        outside the window is empty), of the window's groups when spilled."""
+        groups = range(self.lo // 32, self.hi // 32 + 1) if self.spilled \
+            else range(len(self.gmin))
+        return min((self.gmin[g] for g in groups), default=NONE)
 
     # -- DTPM: the window from the per-PE lists
     def cells(self):
         """The lane's cells as the plain ``_Windows.step`` takes them."""
-        sched = np.array([[(self.done[j] >> t) & 1 for t in range(self.T)]
+        sched = np.array([[(self.dn(j) >> t) & 1 for t in range(self.T)]
                           for j in range(self.J)], bool)
         valid = np.array([[(self.valid[a] >> t) & 1 for t in range(self.T)]
                           for a in self.app], bool)
@@ -153,7 +248,7 @@ class Lane:
 
     def committed(self, c: int) -> bool:
         j, t = divmod(c, self.T)
-        return bool((self.done[j] >> t) & 1 and (self.valid[self.app[j]] >> t) & 1)
+        return bool((self.dn(j) >> t) & 1 and (self.valid[self.app[j]] >> t) & 1)
 
     def walk(self, pe: int):
         c, out = self.head[pe], []
@@ -243,7 +338,7 @@ class Lane:
         _, pe, s0, f0 = best
         self.start[j, t], self.fin[j, t], self.onpe[j, t] = s0, f0, pe
         self.pe_free[pe] = f0
-        self.done[j] |= 1 << t
+        self.done[self.slot(j)] |= 1 << t
         if self.dtpm:
             c = j * self.T + t
             self.onopp[j, t] = opp_pe[pe]
@@ -254,8 +349,16 @@ class Lane:
             else:
                 self.head[pe] = c
             self.tail[pe] = c
-        self.key[j] = self.job_key(j)
-        self.gmin[j // 32] = self.group_min(j // 32)
+        self.key[self.slot(j)] = self.job_key(j)
+        self.gmin[self.slot(j) // 32] = self.group_min(self.slot(j) // 32)
+        if not self.faulted and j == self.u:
+            # job u's first commit: the next tasked job, or the next chunk
+            self.pending.pop(0)
+            self.u = self.pending[0] if self.pending else self.J
+            if not self.pending and self.admit_more:
+                self.admit()
+        if self.check_invariants:
+            self.check_keys()
 
     def roll_back(self, fire):
         """The kernel's rollback, a job at a time."""
@@ -309,14 +412,14 @@ class Lane:
                         self.nxt[keep[-1]] = -1
                     self.head[pe] = keep[0] if keep else -1
                     self.tail[pe] = keep[-1] if keep else -1
-            self.gmin = [self.group_min(g) for g in range(self.G)]
+            self.gmin = [self.group_min(g) for g in range(len(self.gmin))]
             if self.check_invariants:
                 self.check_keys()
 
     def run(self, cap=None):
         steps = commits = 0
         while True:
-            best = min(self.gmin)
+            best = self.pick()
             rmin = from_order_bits(best >> 32)
             if best == NONE or not rmin < HALF_BIG:
                 break
@@ -336,8 +439,8 @@ class Lane:
         if self.dtpm:
             while f32(self.win.next_w[0] - self.win.window[0]) < self.makespan:
                 self.window_step()
-        sched = np.array([[(d >> t) & 1 for t in range(self.T)]
-                          for d in self.done], bool)
+        sched = np.array([[(self.dn(j) >> t) & 1 for t in range(self.T)]
+                          for j in range(self.J)], bool)
         out = [torch.from_numpy(sched), torch.from_numpy(self.start),
                torch.from_numpy(self.fin),
                torch.from_numpy(self.onpe.astype(np.int32))]
@@ -346,13 +449,14 @@ class Lane:
                     self.win.opp_idx[0].to(torch.int32), self.win.peak[0]]
         if self.faulted:
             out.append(torch.tensor([steps, commits], dtype=torch.int32))
-        return out
+        return out, self.most
 
 
 def model_scan(tables, policy, arrival, app_idx, gov=None, faults=None,
                **mutation):
-    """The kernel's bookkeeping, lane by lane; outputs stacked as
-    ``epoch_scan_plain`` returns them."""
+    """The kernel's bookkeeping, lane by lane: the outputs stacked as
+    ``epoch_scan_plain`` returns them, and the most jobs each lane held live
+    (L,)."""
     L, J = arrival.shape
     design = k1.lane_designs(tables, L).tolist()
     cap = None
@@ -360,11 +464,18 @@ def model_scan(tables, policy, arrival, app_idx, gov=None, faults=None,
         from repro_torch.scenario.faults import fault_scan_steps
         cap = fault_scan_steps(J, tables.t_max,
                                int(torch.isfinite(faults).sum(1).max()))
-    lanes = [Lane(tables, policy, arrival[l], app_idx[l], design[l],
-                  None if gov is None else gov.take(torch.tensor([l])),
-                  None if faults is None else faults[l], **mutation).run(cap)
-             for l in range(L)]
-    return [torch.stack(x) for x in zip(*lanes)]
+    lanes = []
+    for l in range(L):
+        args = (tables, policy, arrival[l], app_idx[l], design[l],
+                None if gov is None else gov.take(torch.tensor([l])),
+                None if faults is None else faults[l])
+        try:
+            lanes.append(Lane(*args, **mutation).run(cap))
+        except Overflow:
+            # the window outgrew the ring: the lane again, spilled
+            lanes.append(Lane(*args, spilled=True, **mutation).run(cap))
+    outs, most = zip(*lanes)
+    return [torch.stack(x) for x in zip(*outs)], torch.tensor(most, dtype=torch.int32)
 
 
 def lanes_of(apps, rates, jobs):
@@ -388,10 +499,16 @@ def case(name):
             poisson_trace(60.0, 1100, ["tiny"], seed=0).arrival_us)[None]
         return tables, policy, arrival, torch.zeros_like(arrival, dtype=torch.long), \
             None, None
+    design = DesignPoint(num_vit=1)
+    if program.startswith("overload"):
+        # two PEs at 80 jobs/ms: the backlog grows through the trace
+        design = DesignPoint(num_big=1, num_little=1, num_scr=0, num_fft=0)
+        arrival, app_idx = lanes_of(APPS, (80.0,), 70)
     gov, params = {"ondemand": ("ondemand", ()), "throttle": ("throttle", THROTTLE),
-                   "dtpmfaults": ("ondemand", ())}.get(program, ("performance", ()))
-    scn = Scenario(design=DesignPoint(num_vit=1), apps=apps, scheduler=policy,
-                   governor=gov, governor_params=params)
+                   "dtpmfaults": ("ondemand", ()), "overloaddtpm": ("ondemand", ())
+                   }.get(program, ("performance", ()))
+    scn = Scenario(design=design, apps=apps if design.num_vit else APPS,
+                   scheduler=policy, governor=gov, governor_params=params)
     tables = tables_for(scn, device="cpu")
     pol = policy_lanes(scn.make_policy(), len(arrival)) if gov != "performance" else None
     plans = None
@@ -405,17 +522,31 @@ def case(name):
 
 CASES = ["static-etf", "static-met", "static-table", "ondemand-met",
          "throttle-met", "faults-etf", "faults-met", "dtpmfaults-met",
-         "tiny-etf"]
+         "tiny-etf", "overload-etf", "overloaddtpm-met"]
+# a ring of 32 slots on the overloaded lanes, so that their windows spill
+RINGS = {"overload-etf": 32, "overloaddtpm-met": 32}
+
+
+def check_held(name, tables, arrival, app_idx, want, most, plans):
+    """The most jobs the model held live is what ``live_jobs`` reads off the
+    plain outputs; the overloaded lanes outgrew their ring."""
+    held = live_jobs(tables, arrival, app_idx, want[0], want[2],
+                        plans is not None)
+    assert torch.equal(most, held), f"held {most.tolist()}, want {held.tolist()}"
+    if name in RINGS:
+        assert int(most.min()) > RINGS[name]
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_incremental_model_equals_plain_scan(name):
     tables, policy, arrival, app_idx, gov, plans = case(name)
     want = k1.epoch_scan_plain(tables, policy, arrival, app_idx, gov, plans)
-    got = model_scan(tables, policy, arrival, app_idx, gov, plans)
+    got, most = model_scan(tables, policy, arrival, app_idx, gov, plans,
+                           ring=RINGS.get(name))
     assert len(got) == len(want)
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and torch.equal(g, w), (name, k)
+    check_held(name, tables, arrival, app_idx, want, most, plans)
     if plans is not None:         # the faults did roll back committed tasks
         assert int(want[-1][:, 1].sum()) > int(tables.valid[app_idx].sum())
 
@@ -425,12 +556,18 @@ def test_incremental_model_equals_plain_scan(name):
     ("dtpmfaults-met", {"advance_heads": "w1", "check_invariants": False},
      "bins differ|output"),
     ("faults-met", {"rekey": False}, "stale key"),
-    ("faults-met", {"rekey": False, "check_invariants": False}, "output")])
+    ("faults-met", {"rekey": False, "check_invariants": False}, "output"),
+    ("static-met", {"admit": False}, "output"),
+    ("overload-etf", {"ring": 32, "spill": False}, "stale key"),
+    ("overload-etf", {"ring": 32, "spill": False, "check_invariants": False},
+     "output"),
+    ("overload-etf", {"ring": 32, "advance_lo": False}, "held")])
 def test_broken_bookkeeping_fails(name, mutation, fails_on):
     tables, policy, arrival, app_idx, gov, plans = case(name)
     want = k1.epoch_scan_plain(tables, policy, arrival, app_idx, gov, plans)
     with pytest.raises(AssertionError, match=fails_on):
-        got = model_scan(tables, policy, arrival, app_idx, gov, plans,
-                         **mutation)
+        got, most = model_scan(tables, policy, arrival, app_idx, gov, plans,
+                               **mutation)
         for k, (g, w) in enumerate(zip(got, want)):
             assert g.shape == w.shape and torch.equal(g, w), f"output {k} differs"
+        check_held(name, tables, arrival, app_idx, want, most, plans)

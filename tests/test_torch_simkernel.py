@@ -208,12 +208,14 @@ def test_predecessor_bit_masks():
     assert int(bits[0, 5]) & 0xffffffff == (1 | 8 | (1 << 31))
     assert int(bits[1, 0]) & 0xffffffff == 1 << 31
     assert int(bits[0, 0]) == 0
-    # a block is a lane: its design's tables, then its slice (group minima
-    # and job keys (int64), queues, done masks), each rounded up to 8 bytes
-    tables, lane = 600 + 320 + 225 + 80 + 5, 2 * 32 + 2 * 1000 + 15 + 1000 + 1
+    # a block is a lane: its design's tables (two words an app: its valid
+    # tasks and first roots), then its slice (group minima and job keys
+    # (int64), queues, done masks) over the ring's 1,024 slots, each rounded
+    # up to 8 bytes
+    tables, lane = 600 + 320 + 225 + 80 + 10 + 1, 2 * 32 + 2 * 1024 + 15 + 1024 + 1
     assert k1.shared_bytes(1000, 5, 8, 15) == 4 * (tables + lane)
-    # 37 jobs: two groups of 32; 33 table words and 119 lane words round up
-    assert k1.shared_bytes(37, 1, 2, 4) == 4 * (34 + 120)
+    # 37 jobs: a ring of 64 slots, two groups of 32; 34 table words
+    assert k1.shared_bytes(37, 1, 2, 4) == 4 * (34 + 2 * 2 + 2 * 64 + 4 + 64)
 
 
 def test_kernel_preparation_checks_the_tables_once():

@@ -214,13 +214,17 @@ def main():
               f"per step of the longest lane{windows}, "
               f"{info.get('lanes_per_sm', info.get('blocks_per_sm'))} lanes/SM, "
               f"{info['shared_bytes']} B shared, J <= "
-              f"{largest_jobs(k1, A, T, P, C, K, args.faults)}, bound {bound:.5f} "
-              f"ms (bytes){check}  [{smi}]", flush=True)
+              f"{largest_jobs(k1, A, T, P, C, K, args.faults) or 'any'}, bound "
+              f"{bound:.5f} ms (bytes){check}  [{smi}]", flush=True)
 
 
 def largest_jobs(k1, A, T, P, C=0, K=0, faults=False) -> int:
     """The most jobs a lane this tree's K1 admits (its shared memory a
-    block)."""
+    block); 0 where its shared memory does not grow with J (a tree whose
+    fault-free lanes keep their live jobs in a ring)."""
+    if k1.shared_bytes(1 << 20, A, T, P, C, K, faults) == \
+            k1.shared_bytes(1 << 10, A, T, P, C, K, faults):
+        return 0
     lo, hi = 0, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2

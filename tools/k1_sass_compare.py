@@ -10,7 +10,9 @@ stack and spill bytes, and the SASS's counts of all instructions, FMUL+FADD,
 FFMA and DFMA.  An instantiation found in both trees under the same template
 arguments (a tree without faults names ``epoch_scan_kernel<DTPM>``, one with
 them ``epoch_scan_kernel<DTPM, FAULTS>``, built from ``epoch_scan.cu`` and
-``epoch_scan_faults.cu``: ``<false>`` pairs with ``<false, false>``) is
+``epoch_scan_faults.cu``, one with the live window
+``epoch_scan_kernel<DTPM, FAULTS, WINDOWED>``: a missing argument is false,
+so ``<false>`` pairs with ``<false, false>`` and ``<false, false, false>``) is
 compared instruction by instruction, addresses and encodings dropped, the
 constant-bank offsets of the kernel's parameters kept; the
 script prints whether the two are the same and, if not, the first lines that
@@ -43,16 +45,17 @@ def compile_tree(src: Path, out: Path, flags):
 
 
 def variant(name: str):
-    """(DTPM, FAULTS) of a mangled epoch_scan_kernel name, or None (a tree
-    without faults names ``epoch_scan_kernel<DTPM>``)."""
-    m = re.search(r"epoch_scan_kernelILb([01])E(?:Lb([01])E)?", name)
+    """(DTPM, FAULTS, WINDOWED) of a mangled epoch_scan_kernel name, or None
+    (a missing argument is false)."""
+    m = re.search(r"epoch_scan_kernelILb([01])E(?:Lb([01])E)?(?:Lb([01])E)?", name)
     if not m:
         return None
-    return bool(int(m.group(1))), bool(int(m.group(2) or 0))
+    return tuple(bool(int(g or 0)) for g in m.groups())
 
 
 def ptxas_usage(report: str) -> dict:
-    """(DTPM, FAULTS) -> registers, stack and spill bytes from -Xptxas -v."""
+    """(DTPM, FAULTS, WINDOWED) -> registers, stack and spill bytes from
+    -Xptxas -v."""
     out, current = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -67,7 +70,8 @@ def ptxas_usage(report: str) -> dict:
 
 
 def sass_kernels(sass: str) -> dict:
-    """(DTPM, FAULTS) -> the kernel's instructions, addresses dropped."""
+    """(DTPM, FAULTS, WINDOWED) -> the kernel's instructions, addresses
+    dropped."""
     out = {}
     for part in sass.split("Function : ")[1:]:
         name, *lines = part.splitlines()
@@ -81,6 +85,10 @@ def sass_kernels(sass: str) -> dict:
                 ins.append(re.sub(r"\s+", " ", m.group(1)).strip())
         out[key] = ins
     return out
+
+
+def name(key) -> str:
+    return f"<DTPM={key[0]}, FAULTS={key[1]}, WINDOWED={key[2]}>"
 
 
 def opcode(ins: str) -> str:
@@ -106,18 +114,18 @@ def main():
             ops = [opcode(i) for i in kernels[key]]
             n = {op: sum(o.startswith(op) for o in ops)
                  for op in ("FMUL", "FADD", "FFMA", "DFMA")}
-            print(f"{tree}: <DTPM={key[0]}, FAULTS={key[1]}>: {len(ops)} "
+            print(f"{tree}: {name(key)}: {len(ops)} "
                   f"instructions, {n['FMUL'] + n['FADD']} FMUL/FADD, "
                   f"{n['FFMA']} FFMA, {n['DFMA']} DFMA; ptxas {usage.get(key, {})}")
     for key in sorted(set(found[0]) & set(found[1])):
         a, b = found[0][key], found[1][key]
         if a == b:
-            print(f"<DTPM={key[0]}, FAULTS={key[1]}>: the same {len(a)} "
+            print(f"{name(key)}: the same {len(a)} "
                   "instructions in both trees")
             continue
         first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                      min(len(a), len(b)))
-        print(f"<DTPM={key[0]}, FAULTS={key[1]}>: DIFFERENT ({len(a)} vs "
+        print(f"{name(key)}: DIFFERENT ({len(a)} vs "
               f"{len(b)} instructions; first difference at {first}: "
               f"{a[first:first + 3]} vs {b[first:first + 3]})")
 
