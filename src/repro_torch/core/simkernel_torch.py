@@ -44,12 +44,12 @@ from .applications import Application
 from .dvfs import (Governor, MAX_OPP_LEVELS, PerformanceGovernor,
                    padded_ladder, policy_lanes)
 from .power import active_power, idle_power
-from .resources import NOMINAL_FREQ, ResourceDB
+from .resources import INF, NOMINAL_FREQ, ResourceDB
 from . import thermal as _thermal
 
-__all__ = ["SimTables", "build_tables", "tables_from_numpy",
-           "epoch_scan_plain", "simulate_torch", "simulate_batch",
-           "simulate_torch_dtpm", "simulate_batch_dtpm"]
+__all__ = ["SimTables", "build_tables", "build_table_stack",
+           "tables_from_numpy", "epoch_scan_plain", "simulate_torch",
+           "simulate_batch", "simulate_torch_dtpm", "simulate_batch_dtpm"]
 
 # Frequency domains: one per SoC cluster (0=big, 1=LITTLE, 2=accelerator
 # fabric).  Padded PE slots map to the last (accel) domain, which never moves
@@ -110,8 +110,8 @@ def tables_from_numpy(fields, t_max: int, num_pes: int,
         if value is None:
             continue
         kw[name] = torch.as_tensor(
-            np.array(value), dtype=_DTYPES.get(name, torch.float32),
-            device=dev)
+            np.array(value, order="C"),
+            dtype=_DTYPES.get(name, torch.float32), device=dev)
     return SimTables(t_max=int(t_max), num_pes=int(num_pes), device=dev, **kw)
 
 
@@ -133,16 +133,35 @@ def build_tables(db: ResourceDB, apps: Sequence[Application],
     the OPP-indexed tables the DTPM scan gathers from (per-level latency
     ``exec_opp``, per-level active power, per-domain OPP ladders truncated at
     ``freq_caps``, which defaults to the governor's own).  The static scan
-    refuses such tables; the DTPM scan reads them.
+    refuses such tables; the DTPM scan reads them.  One design's case of
+    :func:`build_table_stack`.
     """
-    dev = resolve_device(device)
-    governor = governor or PerformanceGovernor()
-    dynamic = governor.policy().dynamic
-    if freq_caps is None:
-        freq_caps = getattr(governor, "freq_caps", None)
+    fields, T, P = build_table_stack(
+        [db], apps, [governor or PerformanceGovernor()], table=table,
+        pad_tasks=pad_tasks, pad_pes=pad_pes, freq_caps=[freq_caps])
+    return tables_from_numpy({k: v[0] for k, v in fields.items()}, T, P,
+                             device)
+
+
+def build_table_stack(dbs: Sequence[ResourceDB], apps: Sequence[Application],
+                      governors: Sequence[Governor],
+                      table: Optional[Dict[Tuple[str, int], int]] = None,
+                      pad_tasks: Optional[int] = None,
+                      pad_pes: Optional[int] = None,
+                      freq_caps: Optional[Sequence[Optional[Mapping]]] = None):
+    """``(fields, T, P)``: the (D, …) numpy stacks of ``ARRAY_FIELDS`` of D
+    designs, design d under ``governors[d]`` (a dynamic one adds the OPP
+    tables, ladders truncated at ``freq_caps[d]``, default the governor's).
+    Latency and power are computed once a PE *kind* (profiles, type, cluster
+    clock, ladder) and gathered into the slots, bit for bit as the reference
+    builds each design (f32(f32(base) · f32(nominal / f)), 1e30 where a PE
+    cannot run a task); padded slots are inert (DESIGN.md §5)."""
+    D = len(dbs)
+    # all static or all dynamic: a mix does not unpack (ValueError)
+    (dynamic,) = {g.policy().dynamic for g in governors}
     A = len(apps)
     T = max(a.num_tasks for a in apps)
-    P = db.num_pes
+    P = max(db.num_pes for db in dbs)
     if pad_tasks is not None:
         if pad_tasks < T:
             raise ValueError(f"pad_tasks={pad_tasks} < max tasks {T}")
@@ -152,125 +171,104 @@ def build_tables(db: ResourceDB, apps: Sequence[Application],
             raise ValueError(f"pad_pes={pad_pes} < num_pes {P}")
         P = pad_pes
 
-    freq = {}
-    for pe in db.pes:
-        if pe.is_cpu and pe.cluster not in freq:
-            freq[pe.cluster] = governor.initial_freq(pe.pe_type)
+    # each design's PE list, read once: a kind and a cluster a slot; a
+    # cluster runs at the governor's clock for its first CPU's type
+    profiles, kinds, reps, kind_of, cluster_of = [], {}, [], [], []
+    for db, gov, cap in zip(dbs, governors, freq_caps or [None] * D):
+        cap = getattr(gov, "freq_caps", None) if cap is None else cap
+        if db.profiles not in profiles:
+            profiles.append(db.profiles)
+        prof = profiles.index(db.profiles)
+        freq = {}
+        for pe in db.pes:
+            f = top = None
+            if pe.is_cpu:
+                if pe.cluster not in freq:
+                    freq[pe.cluster] = gov.initial_freq(pe.pe_type)
+                f = freq[pe.cluster]
+                top = cap.get(pe.pe_type) if dynamic and cap else None
+            k = kinds.setdefault((prof, pe.pe_type, f, top), len(reps))
+            if k == len(reps):
+                reps.append(pe)
+            kind_of.append(k)
+            cluster_of.append(pe.cluster)
+    NK = len(reps)                                   # kind NK: padding
+    _metrics.counter(_metrics.DESIGNS_BUILT).inc(D)
+    _metrics.counter(_metrics.PE_KINDS).inc(NK)
 
-    exec_us = np.full((A, T, P), 1e30, dtype=np.float32)
+    K, big = MAX_OPP_LEVELS, np.float32(1e30)
+    exec_k = np.full((NK + 1, A, T), big, np.float32)
+    opp_k = np.full((NK + 1, A, T, K), big, np.float32)
+    p_act, p_idle, is_cpu = np.zeros((3, NK + 1), np.float32)
+    p_opp, ladder = np.zeros((NK + 1, K), np.float32), np.zeros((NK + 1, K))
+    n_opp = np.ones(NK + 1, np.int32)
+    node = np.full(NK + 1, _thermal.NODE_ACCEL, np.int32)
+    node[:NK] = _thermal.cluster_nodes(ResourceDB(reps, {}))
+    for k, ((prof, pe_type, f, top), pe) in enumerate(zip(kinds, reps)):
+        base = np.full((A, T), np.inf, np.float32)
+        for a, app in enumerate(apps):
+            base[a, :app.num_tasks] = [profiles[prof].get(n, {}).get(
+                pe_type, INF) for n in app.task_names]
+        ok = np.isfinite(base)
+        scale = NOMINAL_FREQ[pe_type] / f if pe.is_cpu else 1.0
+        exec_k[k] = np.where(ok, base * np.float32(scale), big)
+        p_act[k], p_idle[k] = active_power(pe, f or 0.0), idle_power(pe)
+        is_cpu[k] = pe.is_cpu
+        if dynamic and pe.is_cpu:
+            _, row, n_opp[k] = padded_ladder(
+                pe_type, None if top is None else {pe_type: top})
+            scales = np.float32([NOMINAL_FREQ[pe_type] / r for r in row])
+            opp_k[k] = np.where(ok[..., None], base[..., None] * scales, big)
+            p_opp[k], ladder[k] = [active_power(pe, r) for r in row], row
+        elif dynamic:
+            opp_k[k], p_opp[k] = exec_k[k][..., None], p_act[k]
+
+    # the kinds gathered into the slots; what no design changes broadcast
+    real = np.arange(P) < np.asarray([db.num_pes for db in dbs])[:, None]
+    kind, cluster = np.full((D, P), NK), np.full((D, P), -1)
+    kind[real], cluster[real] = kind_of, cluster_of
+    C = np.maximum(cluster.max(1) + 1, MIN_DOMAINS)        # (D,) domains
+    valid = np.arange(T) < np.asarray([a.num_tasks for a in apps])[:, None]
+    def stack(x):                     # one array for every design
+        return np.broadcast_to(x, (D,) + x.shape)
     pred = np.zeros((A, T, T), dtype=bool)
     ebytes = np.zeros((A, T, T), dtype=np.float32)
-    valid = np.zeros((A, T), dtype=bool)
     table_pe = np.full((A, T), -1, dtype=np.int32)
-
     for ai, app in enumerate(apps):
-        lat = db.latency_matrix(app.task_names)      # (t, P), inf unsupported
-        for t in range(app.num_tasks):
-            valid[ai, t] = True
-            for j, pe in enumerate(db.pes):
-                base = lat[t, j]
-                if np.isfinite(base):
-                    scale = (NOMINAL_FREQ[pe.pe_type] / freq[pe.cluster]
-                             if pe.is_cpu else 1.0)
-                    # quantised as the reference does: f32(f32(base)·f32(scale))
-                    exec_us[ai, t, j] = np.float32(np.float32(base) * np.float32(scale))
-            if table is not None:
-                table_pe[ai, t] = table.get((app.name, t), -1)
-        pred[ai, :app.num_tasks, :app.num_tasks] = app.pred_matrix()
-        ebytes[ai, :app.num_tasks, :app.num_tasks] = app.edge_bytes_matrix()
-
-    comm_mult = np.zeros((P, P), dtype=np.float32)
-    for s in range(db.num_pes):
-        for d in range(db.num_pes):
-            if s == d:
-                continue
-            comm_mult[s, d] = (db.comm.cross_cluster_penalty
-                               if db.pes[s].cluster != db.pes[d].cluster else 1.0)
-
-    p_act = np.zeros(P, dtype=np.float32)
-    p_idle = np.zeros(P, dtype=np.float32)
-    for j, pe in enumerate(db.pes):
-        f = freq.get(pe.cluster, 0.0) if pe.is_cpu else 0.0
-        p_act[j] = active_power(pe, f)
-        p_idle[j] = idle_power(pe)
-
-    # frequency-domain / thermal-node maps (padded slots are inert: zero
-    # power, non-CPU, binned to the accel node/domain by convention)
-    C = max(MIN_DOMAINS, max(pe.cluster for pe in db.pes) + 1)
-    node_of_pe = np.full(P, _thermal.NODE_ACCEL, dtype=np.int32)
-    node_of_pe[:db.num_pes] = _thermal.cluster_nodes(db)
-    pe_domain = np.full(P, C - 1, dtype=np.int32)
-    pe_is_cpu = np.zeros(P, dtype=np.float32)
-    for j, pe in enumerate(db.pes):
-        pe_domain[j] = pe.cluster
-        pe_is_cpu[j] = 1.0 if pe.is_cpu else 0.0
-
+        n = app.num_tasks
+        pred[ai, :n, :n] = app.pred_matrix()
+        ebytes[ai, :n, :n] = app.edge_bytes_matrix()
+        if table is not None:
+            table_pe[ai, :n] = [table.get((app.name, t), -1) for t in range(n)]
+    comm = np.float64([(db.comm.startup_us, db.comm.bw_bytes_per_us,
+                        db.comm.cross_cluster_penalty) for db in dbs])
+    pair = real[:, :, None] & real[:, None, :] & ~np.eye(P, dtype=bool)
+    same = cluster[:, :, None] == cluster[:, None, :]
     fields = dict(
-        exec_us=exec_us, pred=pred, ebytes=ebytes, valid=valid,
-        comm_mult=comm_mult,
-        comm_startup=np.float32(db.comm.startup_us),
-        # 1/bw taken in double precision, then rounded once, as the reference
-        comm_inv_bw=np.float32(1.0 / db.comm.bw_bytes_per_us),
-        power_active=p_act, power_idle=p_idle, table_pe=table_pe,
-        node_of_pe=node_of_pe, pe_domain=pe_domain, pe_is_cpu=pe_is_cpu)
+        exec_us=exec_k[kind].transpose(0, 2, 3, 1),
+        pred=stack(pred), ebytes=stack(ebytes), valid=stack(valid),
+        comm_mult=np.where(pair, np.where(same, 1.0, comm[:, 2, None, None]),
+                           0.0).astype(np.float32),
+        comm_startup=comm[:, 0].astype(np.float32),
+        comm_inv_bw=(1.0 / comm[:, 1]).astype(np.float32),
+        power_active=p_act[kind], power_idle=p_idle[kind],
+        table_pe=stack(table_pe), node_of_pe=node[kind],
+        pe_domain=np.where(real, cluster, C[:, None] - 1),
+        pe_is_cpu=is_cpu[kind])
     if dynamic:
-        fields.update(_build_opp_tables(db, apps, A, T, P, C, freq_caps))
-    return tables_from_numpy(fields, T, P, dev)
-
-
-def _build_opp_tables(db: ResourceDB, apps: Sequence[Application],
-                      A: int, T: int, P: int, C: int,
-                      freq_caps: Optional[Mapping[str, float]]) -> Dict:
-    """The (…, K) OPP-indexed tables (numpy) the DTPM scan gathers from.
-
-    Level ladders are ascending and top-padded by repeating the highest real
-    level; ``num_opp`` bounds the real counts (truncated under ``freq_caps``,
-    but never below one level).  ``exec_opp`` quantises exactly like the
-    reference path — f32(base) · f32(nominal/f).
-    """
-    K = MAX_OPP_LEVELS
-    exec_opp = np.full((A, T, P, K), 1e30, dtype=np.float32)
-    p_act_opp = np.zeros((P, K), dtype=np.float32)
-    opp_freq = np.zeros((C, K), dtype=np.float32)
-    num_opp = np.ones(C, dtype=np.int32)
-    domain_node = np.full(C, _thermal.NODE_ACCEL, dtype=np.int32)
-    domain_cpu = np.zeros(C, dtype=np.float32)
-    nodes = _thermal.cluster_nodes(db)
-    ladders = {pe.pe_type: padded_ladder(pe.pe_type, freq_caps)
-               for pe in db.pes if pe.is_cpu}
-
-    for j, pe in enumerate(db.pes):
-        if pe.is_cpu:
-            _, row, n = ladders[pe.pe_type]
-            c = pe.cluster
-            num_opp[c] = n
-            domain_node[c] = nodes[j]
-            domain_cpu[c] += 1.0
-            for k in range(K):
-                opp_freq[c, k] = row[k]
-                p_act_opp[j, k] = active_power(pe, row[k])
-        else:
-            p_act_opp[j, :] = active_power(pe, 0.0)
-
-    for ai, app in enumerate(apps):
-        lat = db.latency_matrix(app.task_names)
-        for t in range(app.num_tasks):
-            for j, pe in enumerate(db.pes):
-                base = lat[t, j]
-                if not np.isfinite(base):
-                    continue
-                if pe.is_cpu:
-                    _, row, _ = ladders[pe.pe_type]
-                    for k in range(K):
-                        scale = np.float32(NOMINAL_FREQ[pe.pe_type] / row[k])
-                        exec_opp[ai, t, j, k] = np.float32(
-                            np.float32(base) * scale)
-                else:
-                    exec_opp[ai, t, j, :] = np.float32(base)
-
-    return dict(exec_opp=exec_opp, power_active_opp=p_act_opp,
-                opp_freq=opp_freq, num_opp=num_opp, domain_node=domain_node,
-                domain_cpu=domain_cpu)
+        if len(set(C)) != 1:
+            raise ValueError("designs differ in frequency-domain count")
+        # a domain's ladder and node are its last CPU's; no CPU: inert
+        in_c = (is_cpu[kind] > 0)[..., None] \
+            & (cluster[..., None] == np.arange(C[0]))           # (D, P, C)
+        last = np.where(in_c, np.arange(P)[:, None], -1).max(1)  # (D, C)
+        lk = np.where(last >= 0,
+                      np.take_along_axis(kind, np.maximum(last, 0), 1), NK)
+        fields.update(exec_opp=opp_k[kind].transpose(0, 2, 3, 1, 4),
+                      power_active_opp=p_opp[kind], opp_freq=ladder[lk],
+                      num_opp=n_opp[lk], domain_node=node[lk],
+                      domain_cpu=in_c.sum(1).astype(np.float32))
+    return fields, T, P
 
 
 @_metrics.spanned(_metrics.EPILOGUE)

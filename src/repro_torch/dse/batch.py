@@ -1,9 +1,10 @@
 """Stack per-design simulation tables into one (D, …) table set, on PyTorch.
 
 The twin of ``src/repro/dse/batch.py``.  Designs differ in PE count, so every
-per-design :class:`SimTables` is built padded to the fleet-wide maximum
-(``build_tables(pad_pes=…)``) and the padded tables are stacked field by
-field into one ``SimTables`` whose array fields carry a leading design axis.
+design's tables are padded to the fleet-wide maximum and stacked into one
+``SimTables`` whose array fields carry a leading design axis: built as
+stacks in one pass over the designs (``build_table_stack``), or stacked
+field by field from per-design tables (:func:`stack_tables`).
 Padding is inert by construction (1e30 latency, zero power, the accel node;
 DESIGN.md §5), so the scan needs no masking logic: where the reference
 vmaps over the design axis × the trace axis, K1 runs designs × [fault plans
@@ -29,8 +30,9 @@ from .. import resolve_device
 from ..core.applications import Application
 from ..core.dvfs import Governor, PolicyLanes
 from ..core.jobgen import JobTrace
-from ..core.simkernel_torch import (ARRAY_FIELDS, SimTables, build_tables,
-                                    simulate_batch, simulate_batch_dtpm)
+from ..core.simkernel_torch import (ARRAY_FIELDS, SimTables,
+                                    build_table_stack, simulate_batch,
+                                    simulate_batch_dtpm, tables_from_numpy)
 from ..core.thermal import NODE_ACCEL, cluster_nodes
 from ..obs import metrics as _metrics
 from .space import DesignPoint
@@ -112,12 +114,17 @@ def build_design_batch(points: Sequence[DesignPoint],
     — the static-DVFS slice of the space.  Passing a *dynamic* ``governor``
     (the ondemand family) instead builds the OPP-indexed tables the DTPM
     scan gathers from, with each design's OPP ladder truncated at its
-    per-cluster frequency caps.  The tables are built on the host and moved
-    to ``device`` once, stacked.
+    per-cluster frequency caps.  The tables are built on the host as (D, …)
+    stacks in one array build over the designs
+    (``core.simkernel_torch.build_table_stack``) and moved to ``device``
+    once.
     """
     if not points:
         raise ValueError("empty design list")
-    dbs = [p.to_db() for p in points]
+    # one database a SoC: designs that differ in their clocks alone share it
+    socs = {p.soc_key(): p for p in points}
+    socs = {k: p.to_db() for k, p in socs.items()}
+    dbs = [socs[p.soc_key()] for p in points]
     P = max(db.num_pes for db in dbs)
     if pad_pes is not None:
         if pad_pes < P:
@@ -131,17 +138,15 @@ def build_design_batch(points: Sequence[DesignPoint],
                 "build_design_batch bakes per-design frequency caps; pass "
                 "a dynamic (ondemand-family) governor to add OPP ladders, "
                 "or None for the static design-cap tables")
-        per_design = [
-            build_tables(db, apps, governor=governor, pad_pes=P,
-                         freq_caps=p.freq_caps(), device="cpu")
-            for p, db in zip(points, dbs)]
+        governors = [governor] * len(points)
+        caps = [p.freq_caps() for p in points]
     else:
-        per_design = [build_tables(db, apps, governor=p.governor(), pad_pes=P,
-                                   device="cpu")
-                      for p, db in zip(points, dbs)]
-    return DesignBatch(points=tuple(points),
-                       tables=stack_tables(per_design, device=device),
-                       node_of_pe=pad_node_map(dbs, P, device))
+        governors, caps = [p.governor() for p in points], None
+    fields, T, P = build_table_stack(dbs, apps, governors, pad_pes=P,
+                                     freq_caps=caps)
+    tables = tables_from_numpy(fields, T, P, device)
+    return DesignBatch(points=tuple(points), tables=tables,
+                       node_of_pe=tables.node_of_pe)
 
 
 def stack_traces(traces: Sequence[JobTrace],

@@ -80,6 +80,12 @@ class DesignPoint:
         return make_soc(self.num_big, self.num_little, self.num_scr,
                         self.num_fft, self.num_vit, comm=comm)
 
+    def soc_key(self) -> Tuple:
+        """What :meth:`to_db` reads, the PE counts and the penalty: designs
+        equal in it differ in their clocks alone and have equal databases."""
+        return (self.num_big, self.num_little, self.num_scr, self.num_fft,
+                self.num_vit, self.cross_cluster_penalty)
+
     def freq_caps(self) -> Dict[str, float]:
         """Per-type frequency caps — the design's hardware envelope, shared
         by the static userspace governor and the dynamic governors' OPP

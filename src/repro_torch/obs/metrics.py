@@ -246,6 +246,15 @@ def wait(device, stream=None) -> None:
             torch.cuda.synchronize(device)
 
 
+# -- the tables layer ----------------------------------------------------------
+
+#: designs whose tables ``core.simkernel_torch.build_table_stack`` built
+DESIGNS_BUILT = "tables.designs_built"
+#: the PE kinds it computed latency and power for (a kind serves every slot
+#: of its profiles, type, clock and ladder, in every design of a build)
+PE_KINDS = "tables.pe_kinds"
+
+
 # -- K1's live window ----------------------------------------------------------
 
 #: the most jobs any lane of a K1 launch held live
@@ -309,7 +318,8 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     profiler recorded (:func:`k1_live`, read here after a synchronise of
     each card; 0 otherwise); ``thermal_launches``,
     the thermal grid's kernel launches (the registry counter of that name);
-    the
+    ``tables.designs_built`` and ``tables.pe_kinds``, the designs the tables
+    builder built and the PE kinds it computed them from; the
     counter/timer snapshot; and,
     when given, the scenario's label and hash and the backend.  ``extra``
     key-values (wall times, bench name, ...) are merged verbatim.
@@ -354,6 +364,8 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     man[K1_OVERFLOW] = counter(K1_OVERFLOW).value
     man["scan_calls"] = {names[k]: n for k, n in scan_calls.items()}
     man["thermal_launches"] = counter("thermal_launches").value
+    for name in (DESIGNS_BUILT, PE_KINDS):
+        man[name] = counter(name).value
     man["metrics"] = snapshot()
     man.update(extra)
     return man

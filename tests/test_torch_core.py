@@ -144,6 +144,11 @@ def test_build_tables_equals_the_reference(governor, kw):
     jtb = jbuild(jdb, japps, governor=jdvfs.get_governor(governor), **kw_j)
     ttb = tbuild(tdb, tapps, governor=tdvfs.get_governor(governor),
                  device="cpu", **kw_t)
+    assert_tables_bit_equal(ttb, jtb)
+
+
+def assert_tables_bit_equal(ttb, jtb):
+    """Every field of the port's tables holds the reference's bits."""
     assert (ttb.t_max, ttb.num_pes) == (jtb.t_max, jtb.num_pes)
     for name in ARRAY_FIELDS:
         want = getattr(jtb, name)
@@ -153,8 +158,97 @@ def test_build_tables_equals_the_reference(governor, kw):
             continue
         want = np.asarray(want)
         got = got.numpy()
-        assert got.dtype == want.dtype, name
-        np.testing.assert_array_equal(got, want, err_msg=name)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert got.tobytes() == want.tobytes(), name
+
+
+# one design's tables: SoCs of 14, 2 and 19 PEs (the last with a penalty of
+# 3) x static and dynamic governors, design caps and an ILP table
+SOCS = {"table2": lambda sp, m: m.make_soc_table2(),
+        "2pe": lambda sp, m: sp.DesignPoint(1, 1, 0, 0, 0).to_db(),
+        "19pe": lambda sp, m: sp.DesignPoint(
+            4, 8, 2, 4, 1, cross_cluster_penalty=3.0).to_db()}
+CAPS = {"A15": 1.4, "A7": 1.0}
+GOVERNORS = {
+    "performance": lambda dv: (dv.PerformanceGovernor(), {}),
+    "userspace-caps": lambda dv: (dv.UserspaceGovernor(dict(CAPS)), {}),
+    "ondemand-caps": lambda dv: (dv.OndemandGovernor(),
+                                 {"freq_caps": dict(CAPS)}),
+    "ilp-table": lambda dv: (dv.PerformanceGovernor(), {"table": True})}
+
+
+@pytest.mark.parametrize("pad", [{}, {"pad_tasks": 12, "pad_pes": 20}],
+                         ids=["unpadded", "padded"])
+@pytest.mark.parametrize("governor", list(GOVERNORS))
+@pytest.mark.parametrize("soc", list(SOCS))
+def test_one_design_tables_equal_the_reference_bit_for_bit(soc, governor,
+                                                           pad):
+    from repro.core import resources as jres
+    from repro_torch.core import resources as tres
+    tables = {}
+    for side, sp, res, dv, get_app, solve, build in (
+            ("jax", jspace, jres, jdvfs, jget_app, jsolve, jbuild),
+            ("torch", tspace, tres, tdvfs, tget_app, tsolve, tbuild)):
+        db, apps = SOCS[soc](sp, res), [get_app(n) for n in APPS5]
+        gov, kw = GOVERNORS[governor](dv)
+        kw = dict(kw, **pad)
+        if kw.pop("table", False):
+            kw["table"] = {k: v for app in apps
+                           for k, v in solve(db, app).items()}
+        if side == "torch":
+            kw["device"] = "cpu"
+        tables[side] = build(db, apps, governor=gov, **kw)
+    assert_tables_bit_equal(tables["torch"], tables["jax"])
+
+
+def _scaled_profiles(profiles):
+    """Another profiles table: every latency x 1.37, and no A7 FFT."""
+    return {t: {pe: v * 1.37 for pe, v in row.items()
+                if not (pe == "A7" and "fft" in t)}
+            for t, row in profiles.items()}
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "ondemand"])
+def test_table_stack_mixes_profiles_tables(dynamic):
+    """One stack over designs of two profiles tables, each design's slice
+    the reference's tables of that design alone."""
+    from repro.core import resources as jres
+    from repro_torch.core import resources as tres
+    from repro_torch.core.simkernel_torch import (build_table_stack,
+                                                  tables_from_numpy)
+    shapes = [(4, 4, 2, 4, 0, False, {"A15": 2.0, "A7": 1.4}),
+              (2, 2, 1, 1, 1, True, {"A15": 1.4, "A7": 1.0}),
+              (1, 0, 0, 2, 0, True, {"A15": 1.0, "A7": 0.8}),
+              (0, 8, 2, 0, 1, False, {"A15": 1.8, "A7": 1.2})]
+    dbs = {}
+    for side, res in (("jax", jres), ("torch", tres)):
+        alt = _scaled_profiles(res.ALL_PROFILES)
+        dbs[side] = [res.make_soc(b, l, s, f, v, profiles=alt if x else None)
+                     for b, l, s, f, v, x, _ in shapes]
+        # a cluster of two CPU types: its clock is its first CPU's, its
+        # ladder and node its last's
+        dbs[side].append(res.ResourceDB(
+            [res.PE(0, "A15", 0), res.PE(1, "A7", 0), res.PE(2, "A7", 1),
+             res.PE(3, "FFT_ACC", 2)], alt))
+    caps = [c for *_, c in shapes] + [{"A15": 1.4, "A7": 1.2}]
+    P = max(db.num_pes for db in dbs["torch"])
+    tapps = [tget_app(n) for n in APPS5]
+    japps = [jget_app(n) for n in APPS5]
+    if dynamic:
+        tgovs = [tdvfs.OndemandGovernor()] * len(caps)
+        jgovs = [jdvfs.OndemandGovernor()] * len(caps)
+    else:
+        tgovs = [tdvfs.UserspaceGovernor(c) for c in caps]
+        jgovs = [jdvfs.UserspaceGovernor(c) for c in caps]
+    fields, T, Pt = build_table_stack(dbs["torch"], tapps, tgovs,
+                                      freq_caps=caps if dynamic else None)
+    assert Pt == P
+    for d, (jdb, jgov, cap) in enumerate(zip(dbs["jax"], jgovs, caps)):
+        want = jbuild(jdb, japps, governor=jgov, pad_pes=P,
+                      freq_caps=cap if dynamic else None)
+        got = tables_from_numpy({k: v[d] for k, v in fields.items()}, T, P,
+                                "cpu")
+        assert_tables_bit_equal(got, want)
 
 
 def test_governor_transitions_equal_the_reference():

@@ -15,6 +15,7 @@ closer than four times those tolerances (asserted first), so no dominance
 can turn on the last bits.
 """
 import dataclasses
+import functools
 import warnings
 
 import numpy as np
@@ -33,6 +34,8 @@ from repro.scenario import run as jrun
 import repro_torch.dse as dse
 from repro_torch.core import get_application, poisson_trace, reports, thermal
 from repro_torch.core.applications import wifi_tx
+from repro_torch.core.dvfs import OndemandGovernor
+from repro_torch.core.simkernel_torch import ARRAY_FIELDS
 from repro_torch.dse import (DesignPoint, DesignSpace, EvalResult,
                              build_design_batch, crowding_distance, evaluate,
                              format_front, front_csv, non_dominated_sort,
@@ -430,3 +433,59 @@ def test_dse_simulate_design_batch_shim_warns_and_matches():
                axes={"design": points, "seed": [tscn.trace.seed]},
                device="cpu")
     assert out["avg_job_latency_us"][0, 0].item() == sr.avg_latency_us[0, 0]
+
+
+# ---------------------------------------------- the tables layer, whole grid
+
+APPS5 = ("wifi_tx", "wifi_rx", "single_carrier", "range_detection",
+         "pulse_doppler")
+GRID_CASES = ("grid-static", "lhs-ondemand")
+
+
+def _grid_points(case):
+    """The benchmark's design sets: every design of the hull under its own
+    caps, and the DTPM cells' 64 LHS designs under ondemand."""
+    if case == "grid-static":
+        return DesignSpace().grid(), None
+    return DesignSpace().sample_lhs(64, seed=0), OndemandGovernor
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_batches(case):
+    """The port's and the reference's ``build_design_batch`` of a set."""
+    (tapps, japps), (points, gov) = _apps(APPS5), _grid_points(case)
+    return (build_design_batch(points, tapps, device="cpu",
+                               governor=gov and gov()),
+            jdse.build_design_batch(
+                _jpoints(points), japps,
+                governor=gov and getattr(jcore.dvfs, gov.__name__)()))
+
+
+@pytest.mark.parametrize("field", ARRAY_FIELDS + ("batch.node_of_pe",))
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_design_batch_tables_equal_the_reference_bit_for_bit(case, field):
+    got, want = _grid_batches(case)
+    name = field.split(".")[-1]
+    got, want = ((b if field.startswith("batch.") else b.tables)
+                 for b in (got, want))
+    got, want = getattr(got, name), getattr(want, name)
+    if want is None:
+        assert got is None
+        return
+    got, want = got.numpy(), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes(), field
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_tables_counters_count_designs_and_kinds(case):
+    for name in (metrics.DESIGNS_BUILT, metrics.PE_KINDS):
+        metrics.counter(name).reset()
+    points, gov = _grid_points(case)
+    batch = build_design_batch(points, _apps(APPS5)[0], device="cpu",
+                               governor=gov and gov())
+    man = metrics.run_manifest(device="cpu")
+    assert man[metrics.DESIGNS_BUILT] == batch.num_designs \
+        == (1080 if case == "grid-static" else 64)
+    # A15 and A7 at two clocks (caps) each, three accelerators
+    assert man[metrics.PE_KINDS] == 7
