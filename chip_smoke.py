@@ -2710,7 +2710,7 @@ def phase_sweep(smi: str) -> dict:
     axes = {"design": SWEEP_DESIGNS, "rate": SWEEP_RATES}
     sr = main_path(mix, axes, {"epoch_scan": 1}, "sweep design x rate")
     assert_sweep_is_runs(sr, mix, axes, "sweep design x rate")
-    tables, _ = sweep_mod._design_lanes(mix, ["design"], designs, None, DEV)
+    tables = sweep_mod._design_lanes(mix, ["design"], designs, None, DEV)
     if tuple(tables.exec_us.shape[:1]) + (tables.num_pes,) != (3, 19):
         raise AssertionError(f"sweep design x rate: stacked tables "
                              f"{tuple(tables.exec_us.shape)}, expected D = 3, P = 19")
@@ -2723,7 +2723,7 @@ def phase_sweep(smi: str) -> dict:
     assert_sweep_is_runs(sr, one, axes, "sweep scheduler x rate")
     arr1, app1 = stack_traces([one.at_rate(r).job_trace() for r in SWEEP_RATES], DEV)
     for policy in axes["scheduler"]:
-        tb, _ = sweep_mod._design_lanes(one.replace(scheduler=policy), [], [()], None, DEV)
+        tb = sweep_mod._design_lanes(one.replace(scheduler=policy), [], [()], None, DEV)
         plain_lanes += grid_vs_plain(tb, policy, arr1, app1,
                                      what=f"sweep scheduler x rate ({policy})")
     small_lanes += sr.num_points
@@ -2734,8 +2734,8 @@ def phase_sweep(smi: str) -> dict:
         axes = {"governor_params": params, "design": SWEEP_DESIGNS}
         sr = main_path(base, axes, {"epoch_scan_dtpm": 1}, f"sweep {gov} params x design")
         assert_sweep_is_runs(sr, base, axes, f"sweep {gov} params x design")
-        tables, _ = sweep_mod._design_lanes(base.replace(governor_params=params[0]),
-                                            ["design"], designs, None, DEV)
+        tables = sweep_mod._design_lanes(base.replace(governor_params=params[0]),
+                                         ["design"], designs, None, DEV)
         pols = stack_policies([base.replace(governor_params=q).make_policy()
                                for q in params])
         arr0, app0 = stack_traces([mix.job_trace()], DEV)
@@ -2753,7 +2753,7 @@ def phase_sweep(smi: str) -> dict:
         name = "epoch_scan_dtpm_faults" if gov == "ondemand" else "epoch_scan_faults"
         sr = main_path(base, axes, {name: 2}, f"sweep {gov} faults x design x rate")
         assert_sweep_is_runs(sr, base, axes, f"sweep {gov} faults x design x rate")
-        tables, _ = sweep_mod._design_lanes(base, ["design"], designs, None, DEV)
+        tables = sweep_mod._design_lanes(base, ["design"], designs, None, DEV)
         plans, _ = stack_fault_plans(fault_sets, 8, width=tables.num_pes)
         pols = stack_policies([base.make_policy()]) if gov == "ondemand" else None
         for policy in ("etf", "met"):
@@ -2784,8 +2784,8 @@ def phase_sweep(smi: str) -> dict:
         the thermal grid, each with a synchronise after it."""
         rec = {"tables_s": 0.0, "grid_s": 0.0, "thermal_s": 0.0, "launches": []}
         orig = {"design_lanes": sweep_mod._design_lanes, "scan": k1.epoch_scan,
-                "grid": sweep_mod.simulate_grid,
-                "thermal": sweep_mod.peak_temperature_grid}
+                "grid": shardexec.simulate_grid,
+                "thermal": shardexec.peak_temperature_grid}
 
         def timed(key, fn):
             def call(*args, **kw):
@@ -2808,8 +2808,8 @@ def phase_sweep(smi: str) -> dict:
 
         importlib.import_module("repro_torch.scenario.run")._cached_tables.cache_clear()
         sweep_mod._design_lanes = timed("tables_s", orig["design_lanes"])
-        sweep_mod.simulate_grid = timed("grid_s", orig["grid"])
-        sweep_mod.peak_temperature_grid = timed("thermal_s", orig["thermal"])
+        shardexec.simulate_grid = timed("grid_s", orig["grid"])
+        shardexec.peak_temperature_grid = timed("thermal_s", orig["thermal"])
         k1.epoch_scan = scan
         try:
             torch.cuda.synchronize()
@@ -2821,8 +2821,8 @@ def phase_sweep(smi: str) -> dict:
             held = torch.cuda.max_memory_allocated() - held
         finally:
             sweep_mod._design_lanes = orig["design_lanes"]
-            sweep_mod.simulate_grid = orig["grid"]
-            sweep_mod.peak_temperature_grid = orig["thermal"]
+            shardexec.simulate_grid = orig["grid"]
+            shardexec.peak_temperature_grid = orig["thermal"]
             k1.epoch_scan = orig["scan"]
         for launch in rec["launches"]:
             launch["in_sweep_ms"] = launch["events"][0].elapsed_time(launch["events"][1])

@@ -101,7 +101,7 @@ DEFAULT_HOT_ROOTS = (
     "repro_torch.core.simkernel_torch:simulate_batch",
     "repro_torch.core.simkernel_torch:simulate_batch_dtpm",
     "repro_torch.dse.batch:simulate_grid",
-    "repro_torch.scenario.sweep:_sweep_grid",
+    "repro_torch.scenario.shardexec:grid_program",
     "repro_torch.dse.thermal_torch:peak_temperature_grid",
 )
 #: a kernel's plain version takes only CPU tensors (K1's ``_Windows`` is the

@@ -20,8 +20,8 @@ Design sweeps are one axis of ``repro_torch.scenario.sweep``:
 kept as a deprecation shim, as in the reference).
 """
 from ..core._deprecation import deprecated_entry_point as _deprecated_entry_point
-from .batch import (DesignBatch, build_design_batch, pad_node_map,
-                    stack_tables, stack_traces)
+from .batch import (DesignBatch, build_design_batch, stack_tables,
+                    stack_traces)
 from .batch import simulate_design_batch as _simulate_design_batch_impl
 from .pareto import (crowding_distance, non_dominated_sort, pareto_mask,
                      pareto_order)

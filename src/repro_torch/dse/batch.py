@@ -33,7 +33,6 @@ from ..core.jobgen import JobTrace
 from ..core.simkernel_torch import (ARRAY_FIELDS, SimTables,
                                     build_table_stack, simulate_batch,
                                     simulate_batch_dtpm, tables_from_numpy)
-from ..core.thermal import NODE_ACCEL, cluster_nodes
 from ..obs import metrics as _metrics
 from .space import DesignPoint
 
@@ -47,7 +46,9 @@ class DesignBatch:
     """
     points: Tuple[DesignPoint, ...]
     tables: SimTables                 # array fields carry a leading (D, …) axis
-    node_of_pe: torch.Tensor          # (D, P) i32 thermal node per PE slot
+    # (D, P) i32 thermal node per PE slot: ``tables.node_of_pe``, kept as
+    # the reference's field (the grid path reads the tables')
+    node_of_pe: torch.Tensor
 
     @property
     def num_designs(self) -> int:
@@ -90,15 +91,6 @@ def host_tensor(x: torch.Tensor, device) -> torch.Tensor:
     """``x`` on the CPU, pinned when it is to stream to a CUDA ``device``."""
     x = x.cpu()
     return x.pin_memory() if torch.device(device).type == "cuda" else x
-
-
-def pad_node_map(dbs, pad_pes: int, device="cuda") -> torch.Tensor:
-    """(D, P) thermal node per PE slot; padded slots are inert (zero-power)
-    and binned to the accel node by convention."""
-    nodes = np.full((len(dbs), pad_pes), NODE_ACCEL, dtype=np.int32)
-    for i, db in enumerate(dbs):
-        nodes[i, :db.num_pes] = cluster_nodes(db)
-    return torch.from_numpy(nodes).to(resolve_device(device))
 
 
 @_metrics.spanned(_metrics.ENTRY)

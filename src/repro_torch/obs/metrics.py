@@ -242,7 +242,6 @@ def wait(device, stream=None) -> None:
         if stream is not None:
             stream.synchronize()
         elif torch.device(device).type == "cuda":
-            # lint: waive TX001 -- live only: the wait the next copy makes anyway
             torch.cuda.synchronize(device)
 
 
@@ -253,6 +252,17 @@ DESIGNS_BUILT = "tables.designs_built"
 #: the PE kinds it computed latency and power for (a kind serves every slot
 #: of its profiles, type, clock and ladder, in every design of a build)
 PE_KINDS = "tables.pe_kinds"
+
+
+# -- the sweep's grid scans -----------------------------------------------------
+
+#: grid scans started by ``scenario.sweep``, by program (DTPM, FAULTS) as
+#: ``kernels.epoch_scan.variant_launches`` is keyed; their sum stands where
+#: the reference's ``compile_count`` stands (one per scheduler value and
+#: policy shape, and per block under ``chunk=`` or ``shard``; lanes add
+#: none).  Counted by ``scenario.shardexec.grid_program``.
+scan_calls = dict.fromkeys(((False, False), (True, False), (False, True),
+                            (True, True)), 0)
 
 
 # -- K1's live window ----------------------------------------------------------
@@ -281,14 +291,11 @@ def _read_k1_live() -> None:
     import torch
     for dev in {live.device for live, _ in _k1_live}:
         if dev.type == "cuda":
-            # lint: waive TX001 -- the manifest, after the run: K1's counts are final
             torch.cuda.synchronize(dev)
     while _k1_live:
         live, slots = _k1_live.pop(0)
         if live.numel():
-            # lint: waive TX001 -- the manifest, after the synchronise above
             counter(K1_LIVE_PEAK).at_least(int(live.max()))
-            # lint: waive TX001 -- the manifest, after the synchronise above
             counter(K1_OVERFLOW).inc(int((live > slots).sum()))
 
 
@@ -311,7 +318,7 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     CPU); ``k1_launches``, K1's launches by instantiation since the process
     started (``kernels.epoch_scan.variant_launches``, under the names of
     ``VARIANT_NAMES``), and ``scan_calls``, the grid scans ``sweep`` has
-    started (``scenario.sweep.scan_calls``, the same names), where the
+    started (:data:`scan_calls`, the same names), where the
     reference has ``jit_compile_count``; ``k1_live_jobs_peak`` and
     ``k1_overflow_lanes``, the most jobs a lane of K1 held and the lanes
     whose live jobs left the ring, over the card launches made while a
@@ -324,15 +331,11 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     when given, the scenario's label and hash and the backend.  ``extra``
     key-values (wall times, bench name, ...) are merged verbatim.
     """
-    import importlib
     from datetime import datetime, timezone
 
     import torch
 
     from ..kernels import epoch_scan
-    # the module (the scenario package's `sweep` attribute is the function)
-    scan_calls = importlib.import_module("..scenario.sweep",
-                                         __package__).scan_calls
     man = {
         "schema": MANIFEST_SCHEMA,
         "timestamp": datetime.now(timezone.utc).isoformat(timespec="seconds"),

@@ -22,14 +22,12 @@ import dataclasses
 import functools
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core import simkernel_ref as _refk
 from ..core import simkernel_torch as _torchk
 from ..core.simkernel_torch import SimTables
-from ..core.thermal import cluster_nodes
 from ..dse import thermal_torch as _thermal_torch
 from ..obs import metrics as _metrics
 from ..obs import telemetry as _obs_tel
@@ -75,13 +73,6 @@ def tables_for(scn: Scenario, pad_pes: Optional[int] = None,
     return _cached_tables(_tables_key(scn), pad_pes, resolve_device(device))
 
 
-@functools.lru_cache(maxsize=256)
-def _cached_nodes(design, device: torch.device) -> torch.Tensor:
-    """Thermal node per PE for a design (depends on the design alone)."""
-    return torch.as_tensor(np.asarray(cluster_nodes(design.to_db()), np.int32),
-                           device=device)
-
-
 def _peak_temp_single(out, nodes, p_act, p_idle, bins: int, repeats: int):
     """One schedule's RC peak temperature: ``peak_temperature_grid`` at one
     lane, the code path of every lane of a ``sweep``."""
@@ -92,7 +83,7 @@ def _peak_temp_single(out, nodes, p_act, p_idle, bins: int, repeats: int):
         repeats=repeats)[0, 0]
 
 
-# the scan outputs a telemetry replay reads
+# the scan outputs a telemetry replay reads (of one run or a sweep's grid)
 _TEL_KEYS = ("scheduled", "start", "finish", "onpe", "onopp", "makespan_us")
 
 
@@ -201,7 +192,7 @@ def run(scenario: Scenario, backend: str = "torch", *, device="cuda",
         out = _torchk.simulate_torch(tables, scenario.scheduler,
                                      trace.arrival_us, trace.app_index,
                                      faults=plan)
-        peak = _peak_temp_single(out, _cached_nodes(scenario.design, dev),
+        peak = _peak_temp_single(out, tables.node_of_pe,
                                  tables.power_active, tables.power_idle,
                                  bins=scenario.thermal.bins,
                                  repeats=scenario.thermal.repeats)

@@ -1,24 +1,28 @@
-"""Sharded and chunked lane execution for sweep grids, on PyTorch (DESIGN.md
-§13).
+"""The grid program and its lane executor, the one route from ``sweep`` to
+K1, the epilogue and the thermal grid, on PyTorch (DESIGN.md §13).
 
-The twin of ``src/repro/scenario/shardexec.py``.  A sweep's grid is
-embarrassingly parallel along its *lane* axis: the stacked design axis of
-``SimTables`` (static and fault sweeps) or, when the policy grid is the wide
-one, the stacked :class:`~repro_torch.core.dvfs.PolicyLanes` axis (dynamic
-DTPM sweeps).  This module scales that axis two ways, composably:
+The twin of ``src/repro/scenario/shardexec.py``.  :func:`grid_program` is
+one grid scan (one K1 launch, its epilogue, and K6 on a static grid);
+:func:`run_grid` runs it over a sweep's grid and brings back the outputs
+the sweep reads (:data:`KEPT_KEYS`), the schedules left on the device.
+Without ``chunk`` and a mesh that is one launch on the current stream.  A
+grid is embarrassingly parallel along its *lane* axis: the stacked design
+axis of ``SimTables`` (static and fault sweeps) or, when the policy grid
+is the wide one, the stacked :class:`~repro_torch.core.dvfs.PolicyLanes`
+axis (dynamic DTPM sweeps).  :func:`run_grid` scales that axis two ways,
+composably:
 
 * **lane sharding** — over a 1-D lane mesh (``repro_torch.sharding.
   lane_mesh``), each chunk of ``width`` lanes splits into one contiguous
   block of ``width / devices`` lanes a mesh device.  Every block is copied to
-  its device and launched there on a stream of its own (one K1 launch plus
-  its epilogue and thermal grid), all blocks of a chunk before any output
-  comes back; the outputs are then copied to the host in lane order.  The
-  mesh's devices are the process's CUDA cards, or one device N times under
-  ``sharding.virtual_lane_devices(N)`` (N blocks on N streams of one card,
-  or one after another on the CPU).  Lanes are independent, so every output
-  equals the unsharded sweep's bit for bit.
+  its device and launched there on a stream of its own, all blocks of a
+  chunk before any output comes back; the outputs are then copied to the
+  host in lane order.  The mesh's devices are the process's CUDA cards, or
+  one device N times under ``sharding.virtual_lane_devices(N)`` (N blocks
+  on N streams of one card, or one after another on the CPU).  Lanes are
+  independent, so every output equals the unsharded sweep's bit for bit.
 * **chunked streaming** — ``sweep(..., chunk=N)`` streams the lane axis
-  through the same grid programs in fixed-width chunks: the lane stacks stay
+  through the same grid program in fixed-width chunks: the lane stacks stay
   on the host (pinned for a CUDA device, ``dse.batch.stack_tables(
   host=True)``), and each chunk's outputs come back to the host before the
   next chunk goes in — so the device holds one chunk's tables, K1 scratch and
@@ -39,28 +43,29 @@ every block reads whole (the workload, the fault plans, and the whole table
 stack when policies stream) are copied once a device; a block's stream
 waits for them and holds them until it is done (``record_stream``).
 
-Telemetry (``sweep(..., telemetry=True)``): each block's lanes are replayed
-on its device and stream right after its launch, before its outputs go back
+Telemetry (``sweep(..., telemetry=True)``): each launch's lanes are
+replayed on its device and stream right after it, before its outputs go back
 (``telemetry``, the sweep's replay callable), so the timelines equal the
 unsharded sweep's bit for bit: a lane's replay reads only that lane.
 
 Observability: ``scenario.shard.devices`` (lane-mesh width of the most
 recent streamed grid), ``scenario.shard.pad_lanes`` (pad lanes added) and
 ``scenario.sweep.chunks`` (chunks streamed, not blocks) in the
-``obs.metrics`` registry.
+``obs.metrics`` registry; ``obs.metrics.scan_calls`` (grid scans run).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.dvfs import PolicyLanes
 from ..core.simkernel_torch import ARRAY_FIELDS, SimTables
-from ..dse.batch import host_tensor
+from ..dse.batch import host_tensor, simulate_grid
+from ..dse.thermal_torch import peak_temperature_grid
 from ..obs import metrics as _metrics
 from ..sharding import lane_count, lane_mesh
 
@@ -68,8 +73,12 @@ from ..sharding import lane_count, lane_mesh
 shard_devices = _metrics.counter("scenario.shard.devices")
 # cumulative pad lanes added for chunk/device-count divisibility
 shard_pad_lanes = _metrics.counter("scenario.shard.pad_lanes")
-# cumulative fixed-width chunks streamed through the grid programs
+# cumulative fixed-width chunks streamed through the grid program
 sweep_chunks = _metrics.counter("scenario.sweep.chunks")
+
+# the grid outputs a sweep reads, the only ones copied back to the host
+KEPT_KEYS = ("avg_job_latency_us", "makespan_us", "energy_j",
+             "busy_per_pe_us", "peak_temp_c", "telemetry")
 
 
 def padded_width(lanes: int, chunk: Optional[int], quantum: int) -> int:
@@ -168,7 +177,7 @@ def _stream(lane_tree, lanes: int, chunk: Optional[int], mesh,
     block_device, inputs)``: ``block`` on the host, ``inputs`` the tree
     ``shared`` on the block's device.  Every block of a chunk is launched
     (on its own stream of a CUDA device, when sharded) before any output is
-    copied back; returns the blocks' output dicts on the host in lane order,
+    copied back; returns the blocks' :func:`_fetch` dicts in lane order,
     pad lanes still attached (callers slice after concatenating)."""
     quantum = lane_count(mesh)
     devices = (device,) if mesh is None else mesh.devices
@@ -203,111 +212,101 @@ def _stream(lane_tree, lanes: int, chunk: Optional[int], mesh,
         for d, s, out in zip(devices, streams, issued):
             with _on_shard(d, s):          # the copy waits for s's work only
                 _metrics.wait(d, s)
-                outs.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
-                             for k, v in out.items()})
+                outs.append(_fetch(out))
     return outs
 
 
 def _concat_out(chunks: List[Dict], lanes: int, axis: int = 0) -> Dict:
-    """Concatenate per-block output dicts (tensors, or the telemetry's
-    object arrays) on the streamed axis and drop the pad lanes."""
-    out = {}
-    for k in chunks[0]:
-        parts = [c[k] for c in chunks]
-        if isinstance(parts[0], np.ndarray):
-            out[k] = np.concatenate(parts, axis=axis).take(range(lanes),
-                                                           axis=axis)
-        else:
-            out[k] = torch.cat(parts, dim=axis).narrow(axis, 0, lanes)
+    """Concatenate per-block host outputs on the streamed axis and drop the
+    pad lanes."""
+    return {k: np.concatenate([c[k] for c in chunks], axis=axis).take(
+        range(lanes), axis=axis) for k in chunks[0]}
+
+
+def grid_program(tables: SimTables, arrival: torch.Tensor,
+                 app_idx: torch.Tensor, *, policy: str,
+                 gov: Optional[PolicyLanes] = None,
+                 fplans: Optional[torch.Tensor] = None, bins: int,
+                 repeats: int) -> Dict:
+    """One grid scan: ONE K1 launch and its epilogue over [F fault plans ×]
+    D designs × [G policies ×] S traces (``dse.batch.simulate_grid``), with
+    ``peak_temp_c`` in its outputs.  A static grid (``gov`` None) takes it
+    from the thermal grid (K6: ``bins``, ``repeats``, the node map and the
+    powers of ``tables``); a DTPM grid from K1's inline RC loop, the one its
+    throttle feedback integrates.  Counts ``scan_calls[DTPM, FAULTS]``."""
+    _metrics.scan_calls[gov is not None, fplans is not None] += 1
+    out = simulate_grid(tables, policy, arrival, app_idx, gov=gov,
+                        fplans=fplans)
+    if gov is None:
+        out["peak_temp_c"] = peak_temperature_grid(
+            out, tables.node_of_pe, tables.power_active, tables.power_idle,
+            bins=bins, repeats=repeats)
     return out
 
 
-def run_static_grid(tables: SimTables, node_of_pe: torch.Tensor,
-                    arrival: torch.Tensor, app_idx: torch.Tensor, *,
-                    policy: str, bins: int, repeats: int,
-                    chunk: Optional[int] = None, mesh=None,
-                    fplans: Optional[torch.Tensor] = None,
-                    telemetry: Optional[Callable] = None
-                    ) -> Tuple[Dict, torch.Tensor]:
-    """The sharded and chunked twin of ``sweep._sweep_grid``: (D, S) lanes
-    with the design axis streamed over ``mesh`` (the device of ``arrival``
-    alone when None); returns host outputs with exactly D designs, each
-    equal to the unsharded grid's.
+def _fetch(out: Dict) -> Dict:
+    """The outputs a sweep reads, on the host: the sums in float64 (widened
+    on the device, as the sweep has always read them) and the telemetry's
+    object array; the schedules stay behind."""
+    return {k: v if isinstance(v, np.ndarray) else v.double().cpu().numpy()
+            for k, v in out.items() if k in KEPT_KEYS}
 
-    ``fplans`` (F, P) switches to the fail-stop grid: outputs gain a leading
-    (F,) fault-lane axis and the design axis (still the streamed one) moves
-    to position 1 (DESIGN.md §14).  ``telemetry`` (the sweep's replay,
-    ``(tables, out, gov, design_ids) -> object array``) adds the lanes'
-    timelines under ``"telemetry"``, shaped like the grid."""
-    from .sweep import _sweep_grid, _sweep_grid_faults  # sweep imports us
+
+def run_grid(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
+             *, policy: str, gov: Optional[PolicyLanes] = None,
+             fplans: Optional[torch.Tensor] = None, bins: int, repeats: int,
+             chunk: Optional[int] = None, mesh=None,
+             telemetry: Optional[Callable] = None) -> Dict:
+    """:func:`grid_program` over the grid's lanes, its :data:`KEPT_KEYS` on
+    the host as float64 arrays shaped ([F,] D, [G,] S, ...).
+
+    Without ``chunk`` and ``mesh`` it is one launch on the current stream
+    over the inputs where they are.  Otherwise the lanes stream over
+    ``mesh`` (the device of ``arrival`` alone when None) in ``chunk``-wide
+    chunks: the designs of a static grid; of a DTPM grid whichever of the
+    designs (D) and policies (G) is wider — the ``PolicyLanes`` rows are as
+    much a lane stack as the ``SimTables`` ones (DESIGN.md §10) — the other
+    axis going whole into every block (policies stay on the host: K1's
+    wrapper copies a launch's lanes).  Every output equals the unstreamed
+    grid's bit for bit.  ``fplans`` (F, P) adds the leading fault-lane axis
+    (DESIGN.md §14).  ``telemetry`` (the sweep's replay, ``(tables, out,
+    gov, design_ids) -> object array``) adds each launch's timelines under
+    ``"telemetry"``, shaped like the grid; ``design_ids`` index the
+    launch's designs into the grid's."""
     dev = arrival.device
-    lanes = int(tables.exec_us.shape[0])
-    # each block carries its designs' indices (a pad lane repeats lane 0's)
-    lane_tree = (host_tables(tables, dev), host_tensor(node_of_pe, dev),
-                 torch.arange(lanes))
+    D = int(tables.exec_us.shape[0])
 
-    def launch(block, d, inputs):
-        tb, nodes, ids = _to_device(block, d)
+    def launch(tb, g, ids, inputs):
         arr, app, fp = inputs
-        if fp is not None:
-            out, temps = _sweep_grid_faults(tb, nodes, fp, arr, app, policy,
-                                            bins=bins, repeats=repeats)
-        else:
-            out, temps = _sweep_grid(tb, nodes, arr, app, policy, bins=bins,
-                                     repeats=repeats)
+        out = grid_program(tb, arr, app, policy=policy, gov=g, fplans=fp,
+                           bins=bins, repeats=repeats)
         if telemetry is not None:
-            out["telemetry"] = telemetry(tb, out, None, ids)
-        return {**out, "_peak_temp_scan_c": temps}
-
-    out = _concat_out(_stream(lane_tree, lanes, chunk, mesh, launch, dev,
-                              (arrival, app_idx, fplans)),
-                      lanes, axis=1 if fplans is not None else 0)
-    return out, out.pop("_peak_temp_scan_c")
-
-
-def run_dtpm_grid(tables: SimTables, gov: PolicyLanes, arrival: torch.Tensor,
-                  app_idx: torch.Tensor, *, policy: str,
-                  chunk: Optional[int] = None, mesh=None,
-                  fplans: Optional[torch.Tensor] = None,
-                  telemetry: Optional[Callable] = None) -> Dict:
-    """The sharded and chunked twin of ``sweep._sweep_grid_dtpm``: (D, G, S)
-    lanes, streaming whichever of the design (D) and policy (G) axes is
-    wider over ``mesh`` — the ``PolicyLanes`` rows are as much a lane stack
-    as the ``SimTables`` ones (DESIGN.md §10); the other axis goes whole into
-    every block (policies stay on the host: K1's wrapper copies a launch's
-    lanes).  ``fplans`` switches to the fail-stop grid: outputs gain a
-    leading (F,) axis and the streamed axis shifts one position right
-    (DESIGN.md §14).  ``telemetry`` as :func:`run_static_grid`'s."""
-    from .sweep import _sweep_grid_dtpm, _sweep_grid_dtpm_faults
-    dev = arrival.device
-    D, G = int(tables.exec_us.shape[0]), gov.lanes
-    faulted = fplans is not None
-
-    def grid(tb, g, inputs):
-        arr, app, fp = inputs
-        if faulted:
-            out = _sweep_grid_dtpm_faults(tb, g, fp, arr, app, policy)
-        else:
-            out = _sweep_grid_dtpm(tb, g, arr, app, policy)
-        if telemetry is not None:
-            out["telemetry"] = telemetry(tb, out, g, None)
+            out["telemetry"] = telemetry(tb, out, g, ids)
         return out
 
     shared = (arrival, app_idx, fplans)
-    if D >= G:                               # stream designs, reuse policies
-        out = _stream(host_tables(tables, dev), D, chunk, mesh,
-                      lambda tb, d, inputs: grid(_to_device(tb, d), gov,
-                                                 inputs),
-                      dev, shared)
-        return _concat_out(out, D, axis=1 if faulted else 0)
+    if chunk is None and mesh is None:
+        out = launch(tables, gov, torch.arange(D), shared)
+        _metrics.wait(dev)
+        return _fetch(out)
+    axis = int(fplans is not None)
+    if gov is None or D >= gov.lanes:        # stream designs, reuse policies
+        # each block carries its designs' indices (a pad lane repeats
+        # lane 0's)
+        blocks = _stream(
+            (host_tables(tables, dev), torch.arange(D)), D, chunk, mesh,
+            lambda b, d, inputs: launch(_to_device(b[0], d), gov, b[1],
+                                        inputs), dev, shared)
+        return _concat_out(blocks, D, axis)
     # stream policies: the whole table stack is an input of every block,
     # each block under a table object of its own, so that K1's per-table
     # preparation (``epoch_scan._prepare``) is made on the block's stream
-    out = _stream(gov, G, chunk, mesh,
-                  lambda g, d, inputs: grid(dataclasses.replace(inputs[1]), g,
-                                            inputs[0]),
-                  dev, (shared, tables))
-    return _concat_out(out, G, axis=2 if faulted else 1)
+    blocks = _stream(
+        gov, gov.lanes, chunk, mesh,
+        lambda g, d, inputs: launch(dataclasses.replace(inputs[1]), g,
+                                    torch.arange(D), inputs[0]),
+        dev, (shared, tables))
+    return _concat_out(blocks, gov.lanes, axis + 1)
 
 
 def resolve_mesh(shard: Optional[bool],

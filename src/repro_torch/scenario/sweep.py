@@ -30,15 +30,18 @@ is inert; a lane of a launch equals a launch of that lane), the sums and the
 RC peak within their reduction order.  ``backend="ref"`` sweeps the same
 cross-product through the event-heap oracle lane by lane.
 
-:data:`scan_calls` stands where the reference's ``compile_count`` stands: the
-grid scans sweeps have started, keyed by program (DTPM, FAULTS) as
-``kernels.epoch_scan.variant_launches`` is — one per scheduler value and
-policy shape, on either device; lanes add none.  ``chunk=N`` streams the
-lanes through the same programs in fixed-width chunks, and ``shard`` splits
-each chunk over the lane devices (``shardexec``): one scan a block, blocks x
-chunks a scheduler value.  ``telemetry=True`` replays each scan's lanes once,
-after it (``obs.telemetry``), block by block under ``chunk=`` or ``shard``;
-it starts no scan.
+Each scheduler value is one ``shardexec.run_grid`` call: its grid program
+is K1, the epilogue and (static grids) the thermal grid.  :data:`scan_calls`
+(``obs.metrics.scan_calls``, re-exported) stands where the reference's
+``compile_count`` stands: the grid scans sweeps have started, keyed by
+program (DTPM, FAULTS) as ``kernels.epoch_scan.variant_launches`` is — one
+per scheduler value and policy shape, on either device; lanes add none.
+``chunk=N`` streams the lanes through the same program in fixed-width
+chunks, and ``shard`` splits each chunk over the lane devices
+(``shardexec``): one scan a block, blocks x chunks a scheduler value.
+``telemetry=True`` replays each scan's lanes once, after it
+(``obs.telemetry``), block by block under ``chunk=`` or ``shard``; it
+starts no scan.
 """
 from __future__ import annotations
 
@@ -52,11 +55,10 @@ import torch
 from .. import resolve_device
 from ..core.dvfs import stack_policies
 from ..core.jobgen import JobTrace
-from ..dse.batch import (host_tensor, pad_node_map, simulate_grid,
-                         stack_tables, stack_traces, to_design_major)
+from ..dse.batch import stack_tables, stack_traces, to_design_major
 from ..dse.space import DesignPoint
-from ..dse.thermal_torch import peak_temperature_grid
 from ..obs import metrics as _metrics
+from ..obs.metrics import scan_calls  # noqa: F401  (re-exported)
 from ..obs import telemetry as _obs_tel
 from ..sharding import lane_devices
 from . import faults as _faults
@@ -64,7 +66,7 @@ from . import shardexec
 from .config import Scenario, TraceSpec
 from .errors import BackendCapabilityError, LaneAxisError, ScenarioError
 from .result import SweepResult
-from .run import run, tables_for
+from .run import _TEL_KEYS, run, tables_for
 
 AXIS_ALIASES = {
     "rate": "trace.rate_jobs_per_ms",
@@ -75,13 +77,6 @@ AXIS_ALIASES = {
 
 _DESIGN_FIELDS = {f.name for f in dataclasses.fields(DesignPoint)}
 _TRACE_FIELDS = {f.name for f in dataclasses.fields(TraceSpec)}
-
-# grid scans started by sweep(), by program (DTPM, FAULTS); their sum stands
-# where the reference's compile_count stands (one per scheduler value and
-# policy shape, and per block under chunk= or shard; lanes add none)
-scan_calls = dict.fromkeys(((False, False), (True, False), (False, True),
-                            (True, True)), 0)
-
 
 def _canon(name: str) -> str:
     return AXIS_ALIASES.get(name, name)
@@ -134,67 +129,23 @@ def _lane_trace(scn: Scenario, names: Sequence[str],
     return scn.job_trace()
 
 
-# The four grid programs, one per K1 instantiation: each starts ONE scan.
-
-def _sweep_grid(tables, node_of_pe, arrival, app_idx, policy, bins, repeats):
-    """Schedule simulation + thermal scan for (D, S) lanes."""
-    scan_calls[False, False] += 1
-    out = simulate_grid(tables, policy, arrival, app_idx)
-    temps = peak_temperature_grid(out, node_of_pe, tables.power_active,
-                                  tables.power_idle, bins=bins,
-                                  repeats=repeats)
-    return out, temps
-
-
-def _sweep_grid_dtpm(tables, gov, arrival, app_idx, policy):
-    """Closed-loop DTPM lanes: (D designs, G policies, S traces).  Peak
-    temperature comes from the scan's inline RC loop (the one the throttle
-    feedback integrates), so no post-hoc thermal scan."""
-    scan_calls[True, False] += 1
-    return simulate_grid(tables, policy, arrival, app_idx, gov=gov)
-
-
-def _sweep_grid_faults(tables, node_of_pe, fplans, arrival, app_idx, policy,
-                       bins, repeats):
-    """Fail-stop lanes (F fault plans, D designs, S traces); the thermal
-    scan takes the (F, D, S) grid with the designs' tables (DESIGN.md
-    §14)."""
-    scan_calls[False, True] += 1
-    out = simulate_grid(tables, policy, arrival, app_idx, fplans=fplans)
-    temps = peak_temperature_grid(out, node_of_pe, tables.power_active,
-                                  tables.power_idle, bins=bins,
-                                  repeats=repeats)
-    return out, temps
-
-
-def _sweep_grid_dtpm_faults(tables, gov, fplans, arrival, app_idx, policy):
-    """Fail-stop DTPM lanes: (F fault plans, D designs, G policies,
-    S traces) through the closed-loop program."""
-    scan_calls[True, True] += 1
-    return simulate_grid(tables, policy, arrival, app_idx, gov=gov,
-                         fplans=fplans)
-
-
 @_metrics.spanned(_metrics.TABLES)
 def _design_lanes(base: Scenario, design_axes: List[str],
                   combos: List[Tuple], pad_pes: Optional[int], device,
                   host: bool = False):
-    """Padded+stacked tables and thermal-node map for the design lanes: each
-    design's tables built (and cached) on the host, stacked, and moved to
-    ``device`` once.  ``host=True`` keeps both stacks on the host (pinned
-    for a CUDA ``device``): the chunked executor's streaming source."""
+    """Padded+stacked tables of the design lanes (the thermal node map
+    among them): each design's tables built (and cached) on the host,
+    stacked, and moved to ``device`` once.  ``host=True`` keeps the stack
+    on the host (pinned for a CUDA ``device``): the chunked executor's
+    streaming source."""
     scns = [_apply_axes(base, design_axes, c) for c in combos]
-    dbs = [s.soc() for s in scns]
-    P = max(db.num_pes for db in dbs)
+    P = max(s.design.num_pes for s in scns)
     if pad_pes is not None:
         if pad_pes < P:
             raise ValueError(f"pad_pes={pad_pes} < widest design {P}")
         P = pad_pes
-    tables = stack_tables([tables_for(s, pad_pes=P, device="cpu")
-                           for s in scns], host=host, device=device)
-    if host:
-        return tables, host_tensor(pad_node_map(dbs, P, "cpu"), device)
-    return tables, pad_node_map(dbs, P, device)
+    return stack_tables([tables_for(s, pad_pes=P, device="cpu")
+                         for s in scns], host=host, device=device)
 
 
 @_metrics.spanned(_metrics.ENTRY)
@@ -218,7 +169,7 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     the event-heap oracle lane by lane; ``device`` is not read.
 
     ``chunk=N`` (torch backend only, DESIGN.md §13) streams the design or
-    policy lane axis through the same grid programs in fixed-width N-lane
+    policy lane axis through the same grid program in fixed-width N-lane
     chunks from host-resident (pinned) stacks (``scenario.shardexec``):
     the device holds one chunk at a time, and every output equals the
     unchunked sweep's lane for lane.  ``shard`` splits each chunk (the
@@ -367,7 +318,7 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
                 != len(scenario.applications()):
             raise ValueError("design_batch was built for a different "
                              "application list than the scenario's")
-        tables, node_of_pe = design_batch.tables, design_batch.node_of_pe
+        tables = design_batch.tables
         if tables.device != dev:
             raise ValueError(f"design_batch lives on {tables.device}, the "
                              f"sweep runs on {dev}")
@@ -386,9 +337,8 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
                    "fallback needs the runtime schedulers (met/etf)")
     rebuild_per_combo = design_batch is None and any_table
     if design_batch is None and not rebuild_per_combo:
-        tables, node_of_pe = _design_lanes(lane_base, design_axes,
-                                           design_combos, pad_pes, dev,
-                                           host=lane_exec)
+        tables = _design_lanes(lane_base, design_axes, design_combos,
+                               pad_pes, dev, host=lane_exec)
 
     gov_stack = stack_policies(policies) if dynamic else None
 
@@ -408,65 +358,27 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
     for sc in static_combos:
         s_scn = _apply_axes(lane_base, static_axes, sc)
         if rebuild_per_combo:
-            tables, node_of_pe = _design_lanes(s_scn, design_axes,
-                                               design_combos, pad_pes, dev,
-                                               host=lane_exec)
+            tables = _design_lanes(s_scn, design_axes, design_combos,
+                                   pad_pes, dev, host=lane_exec)
         replay = (_telemetry_replay(s_scn, design_axes, design_combos,
                                     app_idx, dynamic, plans is not None)
                   if want_tel else None)
-        if dynamic:
-            if lane_exec:
-                out = shardexec.run_dtpm_grid(
-                    tables, gov_stack, arrival, app_idx,
-                    policy=s_scn.scheduler, chunk=chunk, mesh=mesh,
-                    fplans=plans, telemetry=replay)
-            elif plans is not None:
-                out = _sweep_grid_dtpm_faults(tables, gov_stack, plans,
-                                              arrival, app_idx,
-                                              s_scn.scheduler)
-            else:
-                out = _sweep_grid_dtpm(tables, gov_stack, arrival, app_idx,
-                                       s_scn.scheduler)
-            temps = out["peak_temp_c"]
-        elif lane_exec:
-            out, temps = shardexec.run_static_grid(
-                tables, node_of_pe, arrival, app_idx,
-                policy=s_scn.scheduler, bins=s_scn.thermal.bins,
-                repeats=s_scn.thermal.repeats, chunk=chunk, mesh=mesh,
-                fplans=plans, telemetry=replay)
-        elif plans is not None:
-            out, temps = _sweep_grid_faults(
-                tables, node_of_pe, plans, arrival, app_idx,
-                s_scn.scheduler, bins=s_scn.thermal.bins,
-                repeats=s_scn.thermal.repeats)
-        else:
-            out, temps = _sweep_grid(tables, node_of_pe, arrival, app_idx,
-                                     s_scn.scheduler, bins=s_scn.thermal.bins,
-                                     repeats=s_scn.thermal.repeats)
-        tel = out.pop("telemetry", None)            # replayed block by block
-        if replay is not None and not lane_exec:
-            tel = replay(tables, out, gov_stack,
-                         torch.arange(len(design_combos)))
+        out = shardexec.run_grid(
+            tables, arrival, app_idx, policy=s_scn.scheduler, gov=gov_stack,
+            fplans=plans, bins=s_scn.thermal.bins,
+            repeats=s_scn.thermal.repeats, chunk=chunk, mesh=mesh,
+            telemetry=replay)
         if plans is not None and not fault_axes:
             # base-scenario faults, no fault axis: drop the F=1 lane axis so
             # the grid keeps its fault-free shape
             out = {k: v[0] for k, v in out.items()}
-            temps = temps[0]
-            tel = None if tel is None else tel[0]
-        _metrics.wait(dev)
-        entry = {name: out[key].double().cpu().numpy() for name, key in (
-            ("avg_latency_us", "avg_job_latency_us"),
-            ("makespan_us", "makespan_us"), ("energy_j", "energy_j"),
-            ("busy_per_pe_us", "busy_per_pe_us"))}
-        entry["peak_temp_c"] = temps.double().cpu().numpy()
-        if tel is not None:
-            entry["telemetry"] = tel
+        out["avg_latency_us"] = out.pop("avg_job_latency_us")
         if fault_axes and plans is None:
             # every fault lane is a no-op: the fault-free program ran once
             # and its results tile verbatim across the fault axis
-            entry = {k: np.repeat(v[None], len(fault_sets), axis=0)
-                     for k, v in entry.items()}
-        per_static.append(entry)
+            out = {k: np.repeat(v[None], len(fault_sets), axis=0)
+                   for k, v in out.items()}
+        per_static.append(out)
 
     # assemble: (static..., faults..., design..., policy..., trace..., extra)
     # then the user's axes-dict order
@@ -498,10 +410,6 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence],
         peak_temp_c=_assemble("peak_temp_c"),
         busy_per_pe_us=_assemble("busy_per_pe_us"),
         telemetry=_assemble("telemetry") if want_tel else None)
-
-
-# the grid outputs a telemetry replay reads
-_TEL_KEYS = ("scheduled", "start", "finish", "onpe", "onopp", "makespan_us")
 
 
 def _telemetry_replay(s_scn: Scenario, design_axes: List[str],

@@ -671,7 +671,7 @@ def test_repo_hot_set_covers_kernels(repo_report):
             ("repro_torch.serving.engine", "ServeEngine.step"),
             ("repro_torch.core.simkernel_torch", "simulate_batch_dtpm"),
             ("repro_torch.dse.batch", "simulate_grid"),
-            ("repro_torch.scenario.sweep", "_sweep_grid"),
+            ("repro_torch.scenario.shardexec", "grid_program"),
             ("repro_torch.dse.thermal_torch", "peak_temperature_grid"),
             # callees across modules: the decode path below decode_step
             ("repro_torch.models.transformer", "decode_stack"),

@@ -16,6 +16,7 @@ can turn on the last bits.
 """
 import dataclasses
 import functools
+import importlib
 import warnings
 
 import numpy as np
@@ -43,7 +44,11 @@ from repro_torch.dse import (DesignPoint, DesignSpace, EvalResult,
                              successive_halving, thermal_torch,
                              transient_trace)
 from repro_torch.obs import metrics
-from repro_torch.scenario import FaultSpec, Scenario, TraceSpec, run, sweep
+from repro_torch.scenario import (FaultSpec, Scenario, TraceSpec, run, sweep,
+                                  tables_for)
+
+# the module (the package's `sweep` attribute is the function)
+sweep_mod = importlib.import_module("repro_torch.scenario.sweep")
 
 torch.set_num_threads(1)
 
@@ -489,3 +494,46 @@ def test_tables_counters_count_designs_and_kinds(case):
         == (1080 if case == "grid-static" else 64)
     # A15 and A7 at two clocks (caps) each, three accelerators
     assert man[metrics.PE_KINDS] == 7
+
+
+# ------------------------------------------ the thermal node map, in the tables
+
+TABLE2 = DesignPoint(4, 4, 2, 4, 1)
+NODE_DESIGNS = {"table2": TABLE2, "2pe": DesignPoint(1, 0, 0, 0, 1),
+                "19pe": DesignPoint(4, 8, 2, 4, 1)}
+LANE_POINTS = [TABLE2, NODE_DESIGNS["2pe"]] + DesignSpace().sample_lhs(
+    6, seed=1)
+
+
+def _node_maps(case):
+    """(the port's ``tables.node_of_pe``, the reference's padded node map
+    ``repro.dse.build_design_batch(...).node_of_pe``) of one case."""
+    if case == "grid":
+        got, want = _grid_batches("grid-static")
+        return got.tables.node_of_pe, want.node_of_pe
+    tscn, _ = pair(MIX, governor="design")
+    japps = _apps(MIX["apps"])[1]
+    if case.startswith("sweep-lanes"):
+        tables = sweep_mod._design_lanes(
+            tscn, ["design"], [(p,) for p in LANE_POINTS], 19,
+            torch.device("cpu"), host=case.endswith("host"))
+        return tables.node_of_pe, jdse.build_design_batch(
+            _jpoints(LANE_POINTS), japps, pad_pes=19).node_of_pe
+    point = NODE_DESIGNS[case.split("-")[1]]
+    return (tables_for(tscn.replace(design=point), device="cpu").node_of_pe,
+            jdse.build_design_batch(_jpoints([point]), japps).node_of_pe[0])
+
+
+@pytest.mark.parametrize("case", ["grid", "sweep-lanes-19",
+                                  "sweep-lanes-19-host", "one-table2",
+                                  "one-2pe", "one-19pe"])
+def test_tables_node_map_equals_the_reference_padded_map(case):
+    """The thermal node map K6 reads is the tables' own: every design's
+    ``node_of_pe`` (the 1,080-design grid's stack, a sweep's design lanes
+    padded to 19 PEs, one design's tables unpadded) equals the reference's
+    padded map, padded slots on the accel node, bit for bit."""
+    got, want = _node_maps(case)
+    want = np.asarray(want)
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    assert got.numpy().dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)

@@ -20,6 +20,7 @@ from repro.scenario import Scenario as JScenario
 from repro.scenario import ThermalSpec as JThermalSpec
 from repro.scenario import TraceSpec as JTraceSpec
 from repro.scenario import run as jrun
+from repro_torch.core.thermal import cluster_nodes
 from repro_torch.dse import DesignPoint
 from repro_torch.dse import thermal_torch as tthermal
 from repro_torch.scenario import (BackendCapabilityError, FaultSpec, Result,
@@ -177,6 +178,28 @@ def test_run_torch_takes_a_noop_fault_spec_and_rejects_unknown_backends():
         run(Scenario(), backend="jax", device="cpu")
     assert run(Scenario(), backend="ref", telemetry=True).telemetry \
         .num_windows > 0
+
+
+@pytest.mark.parametrize("faults", [(), ((0, 200.0), (5, 400.0))],
+                         ids=["static", "faults"])
+def test_run_peak_temperature_reads_the_tables_node_map(faults):
+    """``run``'s RC peak takes the thermal node map from its tables: the
+    same bits as the thermal grid at one lane over the PEs' own cluster
+    nodes (``core.thermal.cluster_nodes`` of the scenario's SoC), fault-free
+    and with PEs failing mid-run, and the JAX package's peak within 1e-5."""
+    tscn, jscn = pair(MIX, faults=faults)
+    res = run(tscn, backend="torch", device="cpu")
+    tables = tables_for(tscn, device="cpu")
+    nodes = torch.as_tensor(cluster_nodes(tscn.soc()), dtype=torch.int32)
+    one = {k: res.raw[k][None, None] for k in ("start", "finish", "onpe",
+                                                "scheduled", "makespan_us")}
+    want = tthermal.peak_temperature_grid(
+        one, nodes[None], tables.power_active[None], tables.power_idle[None],
+        bins=tscn.thermal.bins, repeats=tscn.thermal.repeats)[0, 0]
+    assert res.peak_temp_c == float(want)
+    np.testing.assert_allclose(res.peak_temp_c,
+                               jrun(jscn, backend="jax").peak_temp_c,
+                               rtol=1e-5)
 
 
 def test_binned_power_trace_and_peak_temperature_equal_thermal_jax():

@@ -31,7 +31,7 @@ from repro.scenario import sweep as jsweep
 from repro_torch.core.dvfs import stack_policies
 from repro_torch.core.simkernel_torch import ARRAY_FIELDS
 from repro_torch.dse import (DesignPoint, DesignSpace, build_design_batch,
-                             evaluate, stack_tables)
+                             evaluate, stack_tables, stack_traces)
 from repro_torch.obs import metrics
 from repro_torch.scenario import (BackendCapabilityError, FaultSpec, Scenario,
                                   TraceSpec, sweep, tables_for)
@@ -124,9 +124,10 @@ def test_host_stacks_stay_on_the_cpu():
         if getattr(dev, name) is not None:
             x = getattr(host, name)
             assert x.device.type == "cpu" and torch.equal(x, getattr(dev, name))
-    tb, nodes = sweep_mod._design_lanes(SCN, ["design"], [(p,) for p in POINTS],
-                                        None, torch.device("cpu"), host=True)
-    assert tb.device.type == "cpu" and nodes.shape == (5, SCN.design.num_pes)
+    tb = sweep_mod._design_lanes(SCN, ["design"], [(p,) for p in POINTS],
+                                 None, torch.device("cpu"), host=True)
+    assert tb.device.type == "cpu"
+    assert tb.node_of_pe.shape == (5, SCN.design.num_pes)
     assert shardexec.host_tables(tb, torch.device("cpu")) is tb
 
 
@@ -240,19 +241,67 @@ def test_every_chunk_launches_at_the_pinned_width(monkeypatch):
     """Every chunk's scan gets the same lane count (pad lanes included),
     whatever the grid's design count: one table shape a chunk width."""
     widths = []
-    grid = sweep_mod.simulate_grid
+    grid = shardexec.simulate_grid
 
     def record(tables, *args, **kw):
         widths.append(int(tables.exec_us.shape[0]))
         return grid(tables, *args, **kw)
 
-    monkeypatch.setattr(sweep_mod, "simulate_grid", record)
+    monkeypatch.setattr(shardexec, "simulate_grid", record)
     n0 = sum(sweep_mod.scan_calls.values())
     sweep(SCN, axes={"design": POINTS, "seed": [0]}, device="cpu", chunk=2)
     sweep(SCN, axes={"design": POINTS[:3], "seed": [0]}, device="cpu",
           chunk=2)
     assert widths == [2] * 5
     assert sum(sweep_mod.scan_calls.values()) - n0 == 5   # a scan a chunk
+
+
+# what comes back to the host: the sums a sweep reads, never the schedules
+SUMS = {"avg_job_latency_us", "makespan_us", "energy_j", "busy_per_pe_us",
+        "peak_temp_c"}
+
+
+@pytest.mark.parametrize("telemetry", [False, True], ids=["sums", "tel"])
+@pytest.mark.parametrize("governor,chunk,devices", [
+    ("design", None, None), ("design", 2, None), ("design", None, 2),
+    ("ondemand", None, None), ("ondemand", 2, None)],
+    ids=["static", "static-chunked", "static-sharded", "dtpm",
+         "dtpm-chunked"])
+def test_run_grid_copies_back_only_the_kept_keys(governor, chunk, devices,
+                                                 telemetry):
+    """``run_grid`` returns the outputs a sweep reads and nothing else,
+    streamed or not: float64 host arrays shaped like the grid (and the
+    telemetry's object array when a replay is given), no schedule."""
+    scn = SCN.replace(governor=governor)
+    combos = [(p,) for p in POINTS[:3]]
+    gov = (stack_policies([scn.make_policy()] * 2)
+           if governor == "ondemand" else None)
+    lanes = (3, 2) if gov is not None else (3,)
+    arrival, app_idx = stack_traces(
+        [scn.at_rate(r).job_trace() for r in (10.0, 40.0)], "cpu")
+
+    def replay(tables, out, g, ids):
+        return np.empty(tuple(out["makespan_us"].shape), object)
+
+    with (sharding.virtual_lane_devices(devices) if devices
+          else contextlib.nullcontext()):
+        mesh = shardexec.resolve_mesh(None, sharding.lane_devices(
+            torch.device("cpu")))
+        tables = sweep_mod._design_lanes(scn, ["design"], combos, None,
+                                         torch.device("cpu"),
+                                         host=chunk is not None)
+        out = shardexec.run_grid(tables, arrival, app_idx, policy="etf",
+                                 gov=gov, bins=8, repeats=1, chunk=chunk,
+                                 mesh=mesh,
+                                 telemetry=replay if telemetry else None)
+    assert (mesh is None) == (devices is None)
+    assert set(out) == SUMS | ({"telemetry"} if telemetry else set())
+    for key in SUMS:
+        assert isinstance(out[key], np.ndarray) and out[key].dtype == np.float64
+        assert out[key].shape[:len(lanes) + 1] == lanes + (2,), key
+    assert out["busy_per_pe_us"].shape[-1] == SCN.design.num_pes
+    if telemetry:
+        assert out["telemetry"].shape == lanes + (2,)
 
 
 def test_evaluate_chunked_equals_plain():
