@@ -19,7 +19,8 @@ as DTensors over a fake process group), and ``sweep(shard=)`` over virtual
 shards of the card (blocks of lanes on streams of their own).  Needs one
 CUDA device;
 without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src/`` beside this file), never
-``jax`` or ``repro``.  Phases:
+``jax`` or ``repro``, and the case generators of K6's and K7's tests
+(``tests/thermal_schedules.py``, ``tests/epilogue_cases.py``).  Phases:
 
 1. card    the ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build   the kernels, from the sources in this checkout (seconds printed);
@@ -44,6 +45,13 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            cases (bins filled in part; a period that heats and cools, each
            shown to be so by the plain version first) 2e-5 relative, no
            local memory, its plain version's time that of one eager call;
+           K7 epilogue at a static scan's shape (1,024 lanes x 1,000 jobs
+           on the Table-2 SoC's 15 PEs), the seconds cell's (1,024 x 40,000,
+           DTPM) and a DSE grid's (1,080 designs padded to 19 PEs x 4 lanes
+           x 1,000 jobs: the 32-slot instantiation) on random schedules
+           (tests/epilogue_cases.py's generator) with NaN in the invalid
+           cells, every output bit for bit with its plain version, no local
+           memory, the memory each takes beyond its inputs;
            device times from CUDA-graph replays timed by CUDA events (and the
            time of one eager call from Python beside them); for K2/K3 one
            library call (``scaled_dot_product_attention``, softcap off, a
@@ -141,7 +149,7 @@ without one it exits non-zero at once.  Imports ``repro_torch`` only (from ``src
            exact, by instantiation (10, 3, 18, 1, 2, 6, 36, 12, 2 + 2, 72, 2);
 7. sweep   ``repro_torch.scenario.sweep`` as a user calls it, one K1 launch
            per scheduler over design-major lanes (the designs are K1's D
-           axis): (a) small sweeps of 80 jobs — {3 designs of 8, 13 and 19
+           axis) and one K7 launch per K1 launch: (a) small sweeps of 80 jobs — {3 designs of 8, 13 and 19
            PEs} x {2, 20, 60 jobs/ms} (wifi_tx+wifi_rx), {etf, met, table} x
            rate (wifi_tx), 9 ondemand and 9 throttle parameterisations x the
            3 designs, 4 fault sets x the 3 designs x {20, 60 jobs/ms} x {etf,
@@ -418,7 +426,8 @@ from torch.utils._pytree import tree_flatten  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, reduced  # noqa: E402
 from repro_torch.core import simkernel_ref, simkernel_torch  # noqa: E402
-from repro_torch.core.applications import _chain, wifi_tx  # noqa: E402
+from repro_torch.core.applications import (_chain, get_application,  # noqa: E402
+                                           wifi_tx)
 from repro_torch.core.dvfs import (GovernorPolicy, OndemandGovernor,  # noqa: E402
                                    policy_lanes, stack_policies)
 from repro_torch.core.jobgen import deterministic_trace, poisson_trace  # noqa: E402
@@ -432,6 +441,7 @@ from repro_torch.dse import batch as dse_batch  # noqa: E402
 from repro_torch.dse import thermal_torch as tthermal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as k3  # noqa: E402
+from repro_torch.kernels import epilogue as k7  # noqa: E402
 from repro_torch.kernels import epoch_scan as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import rg_lru as k5  # noqa: E402
@@ -1235,6 +1245,107 @@ def phase_thermal():
     return entry
 
 
+# K7 at the cells' shapes, on random schedules with NaN in the invalid cells:
+# name -> (DTPM, lanes, jobs, designs or None for the Table-2 SoC).  The
+# Table-2 SoC is the cells' (with its Viterbi PE: 15 PEs, 16 slots); the
+# DSE grid is dse-grid-evaluate's call (1,080 designs padded to 19 PEs x 4
+# lanes: 4,320 lanes, 32 slots)
+EPILOGUE_SHAPES = {"static_scan": (False, 1024, 1000, None),
+                   "seconds_call": (True, 1024, 40_000, None),
+                   "dse_grid": (False, 4320, 1000, "grid")}
+
+
+def epilogue_bound_ms(L, J, T, P, dtpm):
+    """K7's byte bound: start, finish and PE of every cell (and its OPP
+    under DTPM) read once, a lane's arrival and app index and job_finish
+    a job, 4 sums and P busy times a lane, at the data sheet's rate."""
+    cell = 16 if dtpm else 12
+    return (cell * J * T + 12 * J + 4 * (4 + P)) * L / PEAK_BYTES_S * 1e3
+
+
+def phase_epilogue():
+    """K7 vs its plain version, every output bit for bit, at a static
+    scan's, a seconds call's and a DSE grid's shape.  Returns the `kernels` entry: kernel
+    ms (CUDA-graph replay), the plain version's (one eager call: ~300
+    launches), the byte bound, geometry and peak memory of each."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:      # the generator tests/test_torch_epilogue*.py use too
+        cases = importlib.import_module("epilogue_cases")
+    finally:
+        sys.path.pop(0)
+    apps = [get_application(n) for n in
+            ("wifi_tx", "wifi_rx", "range_detection", "single_carrier",
+             "pulse_doppler")]
+    entry = {}
+    for name, (dtpm, L, J, designs) in EPILOGUE_SHAPES.items():
+        gov = OndemandGovernor() if dtpm else None
+        if designs is None:
+            tables = simkernel_torch.build_tables(
+                make_soc_table2(with_viterbi=True), apps, governor=gov,
+                device=DEV)
+        else:
+            tables = dse_batch.build_design_batch(
+                DesignSpace().grid(), apps, pad_pes=19, device=DEV).tables
+        if L % max(k1.designs(tables), 1):
+            raise AssertionError(f"epilogue {name}: {L} lanes over "
+                                 f"{k1.designs(tables)} designs")
+        gen = torch.Generator(device=DEV).manual_seed(J)
+        arrival, app_idx, sched = cases.synthetic(gen, tables, L, J, dtpm)
+        T, P = sched[1].shape[-1], tables.num_pes
+        what = f"epilogue {name} L={L} J={J} T={T} P={P}" + \
+            (" dtpm" if dtpm else "") + \
+            (f" D={k1.designs(tables)}" if designs else "")
+        got = k7.epilogue(tables, arrival, app_idx, *sched)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = k7.epilogue_plain(tables, arrival, app_idx, *sched)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated() - base
+        for key in ("job_finish", "makespan_us", "avg_job_latency_us",
+                    "energy_j", "busy_per_pe_us"):
+            if not torch.equal(got[key].view(torch.int32),
+                               want[key].view(torch.int32)):
+                raise AssertionError(f"{what}: {key} differs from the plain "
+                                     "version's bits")
+        del want
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k7.epilogue(tables, arrival, app_idx, *sched)
+        torch.cuda.synchronize()
+        k7_peak = torch.cuda.max_memory_allocated() - base
+        ms = device_ms([lambda: k7.epilogue(tables, arrival, app_idx, *sched)])
+        plain_ms = eager_ms(lambda: k7.epilogue_plain(tables, arrival, app_idx,
+                                                      *sched), iters=3, warm=1)
+        bound = epilogue_bound_ms(L, J, T, P, dtpm)
+        info = k7.kernel_info(J, T, len(apps), P,
+                              tables.power_active_opp.shape[-1] if dtpm
+                              else None, DEV)
+        if info["local_bytes"]:
+            raise AssertionError(f"{what}: {info['local_bytes']} local bytes "
+                                 "a thread")
+        log(f"[kernels] {what}: bit for bit, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms (one eager call), bound {bound:.5f} ms (bytes, "
+            f"{100 * bound / ms:.0f}% of it), library n/a; {info['threads']} "
+            f"threads, {info['shared_bytes']} B shared, {info['blocks_per_sm']} "
+            f"blocks an SM, {info['registers']} registers, 0 local bytes, "
+            f"{info['slots']} slots; memory beyond the inputs: kernel "
+            f"{k7_peak / 2 ** 20:.1f} MiB, plain {plain_peak / 2 ** 20:.1f} MiB")
+        part = {"shape": what.split(" ", 2)[2],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes", "geometry": info,
+                "kernel_bytes_beyond_inputs": k7_peak,
+                "plain_bytes_beyond_inputs": plain_peak}
+        if not entry:
+            entry = dict(part, library_ms=None,
+                         library_note="no single PyTorch call sums a schedule")
+        else:
+            entry[name] = part
+        del arrival, app_idx, sched, got
+        torch.cuda.empty_cache()
+    return entry
+
+
 # ------------------------------------------------------------------ phase 4
 
 def greedy_reference(model, params, prompt, n_new):
@@ -1583,6 +1694,7 @@ def counts_zero():
     for key in k1.variant_launches:
         k1.variant_launches[key] = 0
     metrics.counter("thermal_launches").reset()
+    metrics.counter(k7.LAUNCHES).reset()
 
 
 def counts():
@@ -2672,7 +2784,8 @@ def phase_sweep(smi: str) -> dict:
     (b)-(d) with their sweeps' arguments (phase 16 holds the sharded sweeps
     to them)."""
     t_phase = time.perf_counter()
-    launches = dict.fromkeys(list(K1_VARIANTS.values()) + ["thermal_grid"], 0)
+    launches = dict.fromkeys(list(K1_VARIANTS.values())
+                             + ["thermal_grid", "epilogue"], 0)
     measured, kept = {}, {}
 
     def main_path(base, axes, want: dict, what: str):
@@ -2692,9 +2805,15 @@ def phase_sweep(smi: str) -> dict:
             raise AssertionError(f"{what}: K6 launched "
                                  f"{metrics.counter('thermal_launches').value} "
                                  f"times, expected {thermal}")
+        # K7 once a scan of any kind
+        if metrics.counter(k7.LAUNCHES).value != sum(want.values()):
+            raise AssertionError(f"{what}: K7 launched "
+                                 f"{metrics.counter(k7.LAUNCHES).value} "
+                                 f"times, expected {sum(want.values())}")
         for name, n in want.items():
             launches[name] += n
         launches["thermal_grid"] += thermal
+        launches["epilogue"] += sum(want.values())
         return sr
 
     # -- (a) small sweeps: every lane = run(), = ref within phase 6's
@@ -5018,7 +5137,8 @@ def main():
                 "decode_attention": phase_decode(gen),
                 "ssd_scan": phase_ssd(gen, args.profile),
                 "rg_lru": phase_rglru(gen),
-                "thermal_grid": phase_thermal()}
+                "thermal_grid": phase_thermal(),
+                "epilogue": phase_epilogue()}
     for name, entries in phase_nocap_kernels(gen).items():
         measured[name]["no_softcap_shapes"] = entries
     torch.cuda.empty_cache()
@@ -5026,7 +5146,8 @@ def main():
         phase_reduced(arch)
     for arch in PROMPT_LENS:
         phase_reduced_bf16(arch)
-    launches = {name: 0 for name in KERNELS} | {"thermal_grid": 0}
+    launches = {name: 0 for name in KERNELS} | {"thermal_grid": 0,
+                                                "epilogue": 0}
     for arch in PROMPT_LENS:
         for name, n in phase_full(arch, smi, args.profile).items():
             launches[name] += n
@@ -5068,7 +5189,9 @@ def main():
                "ssd_scan": "src/repro/kernels/ssd_scan.py:66",
                "rg_lru": "src/repro/kernels/rg_lru.py:42",
                # no Pallas kernel: jnp under vmap
-               "thermal_grid": "src/repro/dse/thermal_jax.py:145"}
+               "thermal_grid": "src/repro/dse/thermal_jax.py:145",
+               # no Pallas kernel: XLA arithmetic after the scan
+               "epilogue": "src/repro/core/simkernel_jax.py:533"}
     # K1's four instantiations, one source
     sources.update(dict.fromkeys(K1_VARIANTS.values(),
                                  "src/repro/core/simkernel_jax.py:321"))

@@ -23,9 +23,9 @@ schedulers route around dead PEs (not ``table``, which raises).
   tables of D designs stacked on a leading axis (``dse.batch.stack_tables``)
   with (D*S, J) lanes, design-major: lane l runs on design l // S.
 * :func:`_epilogue` derives latency, energy and per-PE busy time from the
-  scan's schedule (under DTPM the energy at each task's latched OPP), each
-  sum a fixed tree per lane (:func:`tree_sum`); both routes share it, so
-  they differ only in the scan.
+  scan's schedule (under DTPM at each task's latched OPP), each sum a fixed
+  tree per lane: K7 (``kernels/epilogue.py``), one launch on a CUDA tensor,
+  its plain version on a CPU tensor; both routes share it.
 """
 from __future__ import annotations
 
@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import epilogue as _k7
 from ..kernels import ops as _ops
-from ..kernels.epoch_scan import (epoch_scan_plain, lane_designs, per_design,
-                                  tree_sum)
+from ..kernels.epoch_scan import epoch_scan_plain
 from ..obs import metrics as _metrics
 from .applications import Application
 from .dvfs import (Governor, MAX_OPP_LEVELS, PerformanceGovernor,
@@ -277,43 +277,15 @@ def _epilogue(tables: SimTables, arrival: torch.Tensor, app_idx: torch.Tensor,
               onopp=None) -> Dict[str, torch.Tensor]:
     """Latency, energy and per-PE busy time of (L, J, T) schedules: the
     reference's post-scan arithmetic (``simkernel_jax.py:533-571``), lanes
-    first.  Every sum is a :func:`tree_sum` over the lane's own (J·T) cells,
-    jobs or PEs, so a lane gets the same bits in any call: alone, in a sweep
-    or in a chunk of one (XLA sums in its own order: tolerance in the
-    tests); the schedule arrays pass through as they are.  ``onopp`` (DTPM)
-    prices each task's busy time at its latched OPP's active power.  Each
-    lane reads its own design's tables (stacked tables: lane l, design
-    l // S)."""
-    L = app_idx.shape[0]
-    design = lane_designs(tables, L, app_idx.device)                    # (L,)
-    valid_j = per_design(tables, "valid")[design[:, None], app_idx.long()]  # (L, J, T)
-    busy = torch.where(valid_j, finish - start, 0.0)
-    fin_valid = torch.where(valid_j, finish, 0.0)
-    makespan = fin_valid.amax(dim=(1, 2))                               # (L,)
-    job_finish = fin_valid.amax(dim=2)                                  # (L, J)
-    avg_latency = tree_sum(job_finish - arrival) / job_finish.shape[1]
-    # energy: active while busy + idle leakage elsewhere  (uJ = W * us).
-    # busy · power of its PE is the reference's busy · onehot · power (the
-    # one-hot factor is exactly 1 or 0); per-PE sums one PE at a time keep
-    # memory at (L, J·T) without an (L, J·T, P) one-hot
-    cell_pe = onpe.long().flatten(1)                                    # (L, J*T)
-    if onopp is None:
-        p_task = per_design(tables, "power_active")[design].gather(1, cell_pe)
-    else:
-        K = tables.power_active_opp.shape[-1]
-        p_task = per_design(tables, "power_active_opp")[design].flatten(1) \
-            .gather(1, cell_pe * K + onopp.long().flatten(1))
-    busy_cells = busy.flatten(1)                                        # (L, J*T)
-    e_active = tree_sum(busy_cells * p_task)
-    busy_per_pe = torch.stack([tree_sum(torch.where(cell_pe == pe, busy_cells, 0.0))
-                               for pe in range(tables.num_pes)], dim=1)  # (L, P)
-    e_idle = tree_sum(per_design(tables, "power_idle")[design]
-                      * torch.clamp(makespan[:, None] - busy_per_pe, min=0.0))
-    energy_j = (e_active + e_idle) * 1e-6                               # W·us -> J
-    return dict(finish=finish, start=start, onpe=onpe, scheduled=scheduled,
-                job_finish=job_finish, makespan_us=makespan,
-                avg_job_latency_us=avg_latency, energy_j=energy_j,
-                busy_per_pe_us=busy_per_pe)
+    first, as K7 (``kernels/epilogue.py``: one launch on a CUDA tensor, the
+    plain version on a CPU tensor).  Every sum is a ``tree_sum`` over the
+    lane's own (J·T) cells, jobs or PEs, so a lane gets the same bits in any
+    call: alone, in a sweep or in a chunk of one (XLA sums in its own order:
+    tolerance in the tests).  The schedule passes through; ``onopp`` (DTPM)
+    prices each task at its latched OPP's active power.  Each lane reads its
+    own design's tables (stacked tables: lane l, design l // S)."""
+    return _k7.epilogue(tables, arrival, app_idx, scheduled, start, finish,
+                        onpe, onopp)
 
 
 def _lanes(tables: SimTables, arrival, app_idx):

@@ -323,8 +323,9 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     ``k1_overflow_lanes``, the most jobs a lane of K1 held and the lanes
     whose live jobs left the ring, over the card launches made while a
     profiler recorded (:func:`k1_live`, read here after a synchronise of
-    each card; 0 otherwise); ``thermal_launches``,
-    the thermal grid's kernel launches (the registry counter of that name);
+    each card; 0 otherwise); ``thermal_launches`` and ``epilogue_launches``,
+    the thermal grid's and the epilogue's kernel launches (the registry
+    counters of those names);
     ``tables.designs_built`` and ``tables.pe_kinds``, the designs the tables
     builder built and the PE kinds it computed them from; the
     counter/timer snapshot; and,
@@ -367,6 +368,7 @@ def run_manifest(scenario=None, backend: Optional[str] = None, *,
     man[K1_OVERFLOW] = counter(K1_OVERFLOW).value
     man["scan_calls"] = {names[k]: n for k, n in scan_calls.items()}
     man["thermal_launches"] = counter("thermal_launches").value
+    man["epilogue_launches"] = counter("epilogue_launches").value
     for name in (DESIGNS_BUILT, PE_KINDS):
         man[name] = counter(name).value
     man["metrics"] = snapshot()

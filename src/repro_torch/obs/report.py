@@ -40,7 +40,8 @@ def _print_manifest(man: dict) -> None:
             "device_platform", "device_kind", "device_count", "torch_version",
             "cuda_version", "k1_launches", "k1_live_jobs_peak",
             "k1_overflow_lanes", "scan_calls", "thermal_launches",
-            "tables.designs_built", "tables.pe_kinds", "wall_s")
+            "epilogue_launches", "tables.designs_built", "tables.pe_kinds",
+            "wall_s")
     print("manifest:")
     for k in keys:
         if k in man:

@@ -223,7 +223,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_cuda_sources_ship_with_the_package_and_are_the_only_kernels():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "epoch_scan.cu",
+    assert names == ["decode_attention.cu", "epilogue.cu", "epoch_scan.cu",
                      "epoch_scan_faults.cu", "flash_attention.cu", "rg_lru.cu",
                      "ssd_scan.cu", "thermal_grid.cu"]
     for src in _build.sources():
