@@ -2,8 +2,8 @@
 drawn from the seed, against the plain reference (``ds3bench/reference``).
 
 Each lane is simulated again by the reference from its design point,
-scheduler, governor and job trace alone, and each answer the call returned
-for it is compared.  The numbers compared are the widest gaps over the
+scheduler, governor, fail-stop faults and job trace alone, and each answer
+the call returned for it is compared.  The numbers compared are the widest gaps over the
 sample:
 
 * ``latency``: |program - reference| / reference, average job latency;
@@ -45,7 +45,7 @@ def reference(config: dict, lane: Lane, trace, precision: str = "float32"):
                          trace.arrival_us, trace.app_index, lane.scheduler,
                          lane.governor, lane.params,
                          bins=th.get("bins", 32), repeats=th.get("repeats", 3),
-                         precision=precision)
+                         precision=precision, faults=lane.faults)
 
 
 def answers_of(res) -> Dict[str, np.ndarray]:

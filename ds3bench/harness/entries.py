@@ -4,17 +4,21 @@ Two entries, the ways DS3's users call the port: ``sweep`` (a
 ``repro_torch.scenario.sweep`` over the traffic's axes) and ``evaluate``
 (``repro_torch.dse.evaluate`` of a design set over the call's traces).  An
 axis takes a literal list of values, or ``"traces"`` (the call's job
-traces), ``"designs"`` (the configuration's design set the traffic names) or
-``"policies"`` (the configuration's governor parameters).
+traces), ``"designs"`` (the configuration's design set the traffic names),
+``"policies"`` (the configuration's governor parameters) or ``"faults"``
+(the configuration's fault sets under the traffic's ``"fault_sets"`` key:
+each a list of ``[pe_id, fail_time_us]`` pairs, PEs in the reference's
+order big, LITTLE, scrambler, FFT, Viterbi; an empty list is no fault).
 
-Each entry also says what a call's lanes are (design, scheduler, governor
-and trace of every answer, for the reference), the answers of a lane, and
-the shapes of the epoch-scan launches a call makes (for the roofline).
+Each entry also says what a call's lanes are (design, scheduler, governor,
+faults and trace of every answer, for the reference), the answers of a lane,
+and the shapes of the epoch-scan launches a call makes (for the roofline).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +34,7 @@ class Lane:
     governor: str
     params: Optional[Dict[str, float]]
     trace: int               # index into the call's traces
+    faults: Tuple = ()       # fail-stop (pe_id, fail_time_us) pairs
 
 
 def _design_rows(config: dict, traffic: dict) -> List[Tuple]:
@@ -44,6 +49,15 @@ def _max_tasks(config: dict) -> int:
     return int(tasks_per_job(config["apps"]).max())
 
 
+def _fault_sets(config: dict, traffic: dict) -> List[Tuple]:
+    return [tuple((int(p), float(t)) for p, t in fs)
+            for fs in config["fault_sets"][traffic["fault_sets"]]]
+
+
+def _fires(fault_set: Sequence) -> bool:
+    return any(math.isfinite(t) for _, t in fault_set)
+
+
 class Sweep:
     """``sweep(scenario, axes)``: the answers are the result's arrays,
     shaped like the axes."""
@@ -54,6 +68,10 @@ class Sweep:
         self.governor = config["governors"][traffic["designs"]]
         self.axes = [(name, src) for name, src in traffic["axes"]]
         names = [n for n, _ in self.axes]
+        self.fault_axis = next((n for n, s in self.axes if s == "faults"),
+                               None)
+        self.fault_sets = (_fault_sets(config, traffic)
+                           if self.fault_axis else None)
         self.base_scheduler = traffic.get("scheduler", "etf")
         self.design_axis = "design" in names
         self.policy_axis = "governor_params" in names
@@ -67,6 +85,8 @@ class Sweep:
             return self.rows
         if src == "policies":
             return [dict(p) for p in self.config["policies"]]
+        if src == "faults":
+            return self.fault_sets
         return list(src)
 
     def shape(self, traces) -> Tuple[int, ...]:
@@ -82,28 +102,34 @@ class Sweep:
                 scheduler=kv.get("scheduler", self.base_scheduler),
                 governor=self.governor,
                 params=kv.get("governor_params"),
-                trace=kv["trace"]))
+                trace=kv["trace"],
+                faults=kv.get(self.fault_axis, ())))
         return out
 
     def launches(self, traces) -> List[Launch]:
-        """One epoch scan per scheduler value over every other axis."""
+        """One epoch scan per scheduler value over every other axis; a fault
+        axis none of whose sets fires runs the fault-free scan once over the
+        other axes."""
         vals = {n: self._values(s, traces) for n, s in self.axes}
         n_sched = len(vals.get("scheduler", [None]))
         D = len(vals["design"]) if self.design_axis else 1
+        faults = bool(self.fault_axis) and any(map(_fires, self.fault_sets))
         lanes = int(np.prod([len(v) for n, v in vals.items()
-                             if n != "scheduler"]))
+                             if n != "scheduler"
+                             and (n != self.fault_axis or faults)]))
         rows = vals.get("design", self.rows)
         return [Launch(dtpm=self.governor == "ondemand", D=D, L=lanes,
                        J=len(traces[0].arrival_us),
                        A=len(self.config["apps"]),
                        T=_max_tasks(self.config),
-                       P=max(_num_pes(r) for r in rows))] * n_sched
+                       P=max(_num_pes(r) for r in rows),
+                       faults=faults)] * n_sched
 
     def build(self):
         """Program objects made once in set-up: the base scenario and the
-        design and policy axes."""
+        design, policy and fault axes."""
         from repro_torch.dse.space import DesignPoint
-        from repro_torch.scenario import Scenario, ThermalSpec
+        from repro_torch.scenario import FaultSpec, Scenario, ThermalSpec
         th = self.config.get("thermal", {})
         self.scenario = Scenario(
             design=DesignPoint(*self.rows[0]), apps=tuple(self.config["apps"]),
@@ -113,6 +139,9 @@ class Sweep:
         self.policies = [tuple(sorted(p.items()))
                          for p in self.config["policies"]] \
             if self.policy_axis else None
+        self.faults = [tuple(FaultSpec(pe_id=p, fail_time_us=t)
+                             for p, t in fs)
+                       for fs in self.fault_sets] if self.fault_axis else None
 
     def call(self, job_traces, span=None) -> Dict[str, np.ndarray]:
         from repro_torch.scenario import sweep
@@ -124,6 +153,8 @@ class Sweep:
                 axes[name] = self.points
             elif src == "policies":
                 axes[name] = self.policies
+            elif src == "faults":
+                axes[name] = self.faults
             else:
                 axes[name] = list(src)
         sr = sweep(self.scenario, axes, device=self.device)

@@ -6,7 +6,9 @@ tables of the D stacked designs and the (L, J) lanes read once, the
 (L, J, T) schedule written once (bool, f32 start, f32 finish, i32 PE);
 under DTPM also the OPP-indexed tables, each lane's policy (window,
 threshold, cap, the 4x4 RC matrices, two exponents) and the latched OPPs,
-final OPPs and peaks written once.  The count is a frozen copy of the
+final OPPs and peaks written once; with fail-stop faults also the (L, P)
+fault plans read once, the (L, J, T) ready-time floor and the (L, 2) step
+and commit counts written once.  The count is a frozen copy of the
 program's own ``scan_bound_ms`` arithmetic, taken over shapes alone.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Launch:
     P: int      # PEs of the widest design (the padded width)
     C: int = DOMAINS
     K: int = MAX_OPP_LEVELS
+    faults: bool = False    # the fail-stop program
 
     @property
     def bytes(self) -> int:
@@ -41,6 +44,8 @@ class Launch:
         if self.dtpm:
             n += 4 * (D * (A * T * P * (K - 1) + P * K + C * K + 3 * C + 4 * P)
                       + 37 * L + L * J * T + L * C + L)
+        if self.faults:
+            n += 4 * (L * P + L * J * T + 2 * L)
         return n
 
     @property

@@ -3,7 +3,8 @@ plain Python and NumPy, which imports nothing of the program under test.
 
 :func:`simulate_lane` runs one lane (one design, one scheduler, one
 governor, one job trace) from the design point and the application names
-alone, rebuilding every latency, transfer and power figure itself.
+alone, rebuilding every latency, transfer and power figure itself, under
+fail-stop faults where the lane has them.
 """
 from __future__ import annotations
 
@@ -32,11 +33,14 @@ def simulate_lane(design: Design, apps: Sequence[str],
                   scheduler: str, governor: str,
                   governor_params: Optional[Dict[str, float]] = None,
                   bins: int = 32, repeats: int = 3,
-                  precision: str = "float32") -> LaneResult:
+                  precision: str = "float32",
+                  faults: Sequence[Tuple[int, float]] = ()) -> LaneResult:
     """One lane of a sweep or an evaluation.  ``governor`` is
     "performance", "design" (the design's frequency caps) or "ondemand"
     (``governor_params``: ``up_threshold``, ``sample_window_us`` and
-    optionally ``thermal_dt_s``; the ladder capped at the design's caps)."""
+    optionally ``thermal_dt_s``; the ladder capped at the design's caps).
+    ``faults``: fail-stop ``(pe, fail_time_us)`` pairs, PEs numbered in the
+    design's order (big, LITTLE, scrambler, FFT, Viterbi)."""
     params = dict(governor_params or {})
     gov = Governor(kind=governor, caps=design.freq_caps(),
                    up_threshold=params.get("up_threshold", 0.8),
@@ -48,4 +52,4 @@ def simulate_lane(design: Design, apps: Sequence[str],
                     np.asarray(arrival_us, np.float32),
                     np.asarray(app_index, np.int64), scheduler, gov,
                     table=table, bins=bins, repeats=repeats,
-                    precision=precision)
+                    precision=precision, faults=faults)

@@ -1,10 +1,10 @@
 """The plain reference simulator: DS3's discrete-event loop over a heap of
 decision epochs, one lane at a time, in plain Python and NumPy.
 
-A frozen copy of the simulator's event-heap oracle (without fail-stop
-faults and telemetry, which no cell of this benchmark drives) with its MET,
-ETF and offline-table schedulers, the ondemand governor and the RC thermal
-loop.  Semantics (DS3, arXiv:2003.09016, section 2):
+A frozen copy of the simulator's event-heap oracle (without telemetry,
+which no cell of this benchmark drives) with its MET, ETF and
+offline-table schedulers, fail-stop faults, the ondemand governor and the
+RC thermal loop.  Semantics (DS3, arXiv:2003.09016, section 2):
 
 * a task reaches its decision epoch when its job has arrived and every
   predecessor has been committed, at ``max(arrival, max finish of preds)``;
@@ -16,7 +16,18 @@ loop.  Semantics (DS3, arXiv:2003.09016, section 2):
 * under ondemand, every sampling window each CPU cluster's utilisation
   sets its next clock, and the window's realised power advances the RC
   network by its exact update; the peak is the hottest node over the
-  windows, drained to the makespan.
+  windows, drained to the makespan;
+* a fail-stop fault ``(pe, fail_time_us)`` (the time rounded to float32;
+  the last of a PE's wins) fires at the first decision epoch at or past
+  its time, under any governor: every task committed to the dead PE that
+  finishes after the fail time, and the committed descendants of those
+  tasks, are rolled back; the closure's roots are ready no earlier than
+  the fail time, the others wait for their predecessors again; the queues
+  drain at the surviving finishes (recomputed only when a task was lost);
+  MET and ETF never pick a dead PE.  The heap's entries are versioned
+  ``(ready, job, task, version)`` and a stale pop is skipped, so a lane
+  without faults is taken in the same order as before.  Rolled-back work
+  is lost: the answers are those of the final schedule.
 
 Every stored time is rounded to the run's precision (``precision.py``).
 """
@@ -177,14 +188,30 @@ def solve_table(soc: SoC, app: App,
 # one lane
 # --------------------------------------------------------------------------
 
+def _fail_times(faults: Sequence[Tuple[int, float]]) -> Dict[int, float]:
+    """Each PE's fail time from ``(pe, fail_time_us)`` pairs, rounded to
+    float32, the last of a PE's winning; times that never come (``inf``)
+    are left out."""
+    out: Dict[int, float] = {}
+    for pe, t in faults:
+        out[int(pe)] = float(np.float32(t))
+    return {pe: t for pe, t in out.items() if math.isfinite(t)}
+
+
 def simulate(soc: SoC, apps: Sequence[App], arrival_us: np.ndarray,
              app_index: np.ndarray, scheduler: str, governor: Governor,
              table: Optional[Dict[Tuple[str, int], int]] = None,
              bins: int = 32, repeats: int = 3,
-             precision: str = "float32") -> LaneResult:
+             precision: str = "float32",
+             faults: Sequence[Tuple[int, float]] = ()) -> LaneResult:
     """One lane: the schedule, its latency, energy, busy time per PE and
     peak temperature (the binned RC peak under a static governor, the
-    in-loop RC peak under ondemand)."""
+    in-loop RC peak under ondemand), under the fail-stop ``faults``
+    (``(pe, fail_time_us)`` pairs)."""
+    pending = _fail_times(faults)
+    if pending and scheduler == "table":
+        raise ValueError("fail-stop faults need a scheduler that routes "
+                         "around a dead PE (met or etf), not the table")
     q, q_arr = rounding(precision)
     transfer = _transfers(soc, q)
     n = soc.num_pes
@@ -269,20 +296,79 @@ def simulate(soc: SoC, apps: Sequence[App], arrival_us: np.ndarray,
     finish: Dict[Tuple[int, int], float] = {}
     on_pe: Dict[Tuple[int, int], int] = {}
     done_preds: Dict[Tuple[int, int], int] = {}
-    heap: List[Tuple[float, int, int]] = []
+    # (ready, job, task, version): a rollback bumps the version of a task
+    # whose entry it outdates; without faults each task is pushed once
+    heap: List[Tuple[float, int, int, int]] = []
+    version: Dict[Tuple[int, int], int] = {}
+
+    def push(ready: float, jid: int, tid: int) -> None:
+        v = version[jid, tid] = version.get((jid, tid), 0) + 1
+        heapq.heappush(heap, (ready, jid, tid, v))
+
     for jid, app in enumerate(job_apps):
         for t in app.tasks:
             done_preds[jid, t.task_id] = 0
             if not t.predecessors:
-                heapq.heappush(heap, (float(arrival_us[jid]), jid, t.task_id))
+                push(float(arrival_us[jid]), jid, t.task_id)
+
+    dead = np.zeros(n, bool)
+
+    def fail(pe_id: int, f_time: float) -> None:
+        """PE ``pe_id`` dies at ``f_time``: its tasks that finish later and
+        their committed descendants are rolled back and queued again."""
+        dead[pe_id] = True
+        lost = {(r[0], r[1]) for r in records
+                if r[2] == pe_id and r[4] > f_time}
+        grow = list(lost)
+        while grow:
+            jid, tid = grow.pop()
+            for c in children[job_apps[jid].name][tid]:
+                if (jid, c) in finish and (jid, c) not in lost:
+                    lost.add((jid, c))
+                    grow.append((jid, c))
+        if not lost:
+            return
+        records[:] = [r for r in records if (r[0], r[1]) not in lost]
+        for k, queue in enumerate(queues):
+            queues[k] = collections.deque(
+                r for r in queue if (r[0], r[1]) not in lost)
+        for key in lost:
+            del finish[key], on_pe[key]
+        pe_free[:] = 0.0
+        for r in records:
+            pe_free[r[2]] = max(pe_free[r[2]], r[4])
+        pe_free[pe_id] = np.inf
+        for jid in {j for j, _ in lost}:
+            for t in job_apps[jid].tasks:
+                key = (jid, t.task_id)
+                if key in finish:
+                    continue
+                preds = t.predecessors
+                done_preds[key] = sum((jid, p) in finish for p in preds)
+                if any((jid, p) in lost for p in preds):
+                    version[key] = version.get(key, 0) + 1   # stale
+                elif key in lost:          # a root: all its preds stand
+                    push(max([float(arrival_us[jid]), f_time]
+                             + [finish[jid, p] for p in preds]), jid,
+                         t.task_id)
 
     records = []
     while heap:
-        ready, jid, tid = heapq.heappop(heap)
+        ready, jid, tid, ver = heapq.heappop(heap)
+        if ver != version[jid, tid]:
+            continue
+        due = sorted((t, pe) for pe, t in pending.items() if t <= ready)
+        for t, pe in due:
+            del pending[pe]
+            fail(pe, t)
+        if due and ver != version[jid, tid]:
+            continue                       # a pred of it was rolled back
         advance(ready)
         app = job_apps[jid]
         task = app.tasks[tid]
         ex = exec_vec(task.name)
+        if dead.any():
+            ex = np.where(dead, np.float32(np.inf), ex)
         preds = task.predecessors
         pf = [finish[jid, p] for p in preds]
         pp = [on_pe[jid, p] for p in preds]
@@ -322,9 +408,8 @@ def simulate(soc: SoC, apps: Sequence[App], arrival_us: np.ndarray,
             done_preds[jid, c] += 1
             cpreds = app.tasks[c].predecessors
             if done_preds[jid, c] == len(cpreds):
-                r = max(float(arrival_us[jid]),
-                        max(finish[jid, p] for p in cpreds))
-                heapq.heappush(heap, (r, jid, c))
+                push(max(float(arrival_us[jid]),
+                         max(finish[jid, p] for p in cpreds)), jid, c)
 
     job_finish = np.zeros(len(job_apps), np.float64)
     for r in records:

@@ -42,6 +42,10 @@ def main(argv=None) -> int:
     use_checkout_caches()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
+    # The client is one process on one host thread: an intra-op pool of a
+    # thread a core waits at every parallel region for its slowest thread,
+    # so a core that another tenant of the host holds stalls the call.
+    torch.set_num_threads(1)
     from ds3bench.harness import spec
     bench = spec.read_json(ROOT / "BENCHMARK.json")
     chips = {w["name"]: int(w["chips"]) for w in bench["workloads"]}

@@ -1,6 +1,6 @@
 """Tiny cells for the CPU tests: each real cell's configuration, entry and
-limits at a size the CPU holds, added as data files alone beside a copy of
-the benchmark's files."""
+limits at a size the CPU holds, and fail-stop fault sweeps on the Table-2
+SoC, added as data files alone beside a copy of the benchmark's files."""
 from __future__ import annotations
 
 import json
@@ -16,6 +16,19 @@ TINY = {
     "tiny-policy-sweep": "dtpm-policy-sweep",
     "tiny-grid-evaluate": "dse-grid-evaluate",
 }
+
+# (tiny fault cell, (configuration it copies, limits it copies, the axes
+# before the fault axis)): the Table-2 SoC with none, PE 0 (big), an FFT
+# (PE 10) or the Viterbi (PE 14) lost at 1 ms, inside the ~3 ms of
+# arrivals of the cell's traces of 60 jobs at 20 jobs/ms
+FAULTS = {
+    "tiny-fault-sweep": ("ds3-soc-static", "static-rate-sweep",
+                         [["scheduler", ["etf", "met"]]]),
+    "tiny-fault-policy-sweep": ("ds3-soc-dtpm-seconds", "dtpm-policy-sweep",
+                                [["governor_params", "policies"]]),
+}
+FAULT_SETS = [[], [[0, 1000.0]], [[10, 1000.0]], [[14, 1000.0]]]
+CELLS = sorted(TINY) + sorted(FAULTS)
 
 
 def _read(path: Path) -> dict:
@@ -60,6 +73,29 @@ def make_root(tmp: Path, check_lanes: int = 64) -> Path:
                               per_rate=2 if len(rates) == 1 else 1, jobs=40))
         _write(root / "ds3bench" / "traffic" / f"{tiny}.json", tr)
         shutil.copy(BENCH / "limits" / f"{real}.json",
+                    root / "ds3bench" / "limits" / f"{tiny}.json")
+    for tiny, (config, limits, axes) in FAULTS.items():
+        bench["workloads"].append(dict(
+            name=tiny, config=f"{tiny}-config", traffic=tiny, chips=1,
+            why="fail-stop lanes on the CPU"))
+        cfg = _read(ROOT / configs[config]["file"])
+        cfg = dict(cfg, name=f"{tiny}-config",
+                   designs={"table2": cfg["designs"]["table2"]},
+                   governors={"table2": cfg["governors"]["table2"]},
+                   fault_sets={"pe_loss": FAULT_SETS})
+        if "policies" in cfg:
+            cfg["policies"] = [cfg["policies"][0], cfg["policies"][-1]]
+        path = f"ds3bench/configs/{tiny}-config.json"
+        _write(root / path, cfg)
+        bench["configs"].append(dict(configs[config], name=f"{tiny}-config",
+                                     file=path))
+        _write(root / "ds3bench" / "traffic" / f"{tiny}.json", dict(
+            about="fail-stop PE loss on the Table-2 SoC", entry="sweep",
+            designs="table2", scheduler="etf", fault_sets="pe_loss",
+            axes=axes + [["faults", "faults"], ["trace", "traces"]],
+            traces={"rates_jobs_per_ms": [20.0], "per_rate": 3, "jobs": 60},
+            pool=2, check_lanes=check_lanes, trace_calls=1))
+        shutil.copy(BENCH / "limits" / f"{limits}.json",
                     root / "ds3bench" / "limits" / f"{tiny}.json")
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:

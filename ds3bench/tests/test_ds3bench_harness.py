@@ -189,11 +189,36 @@ def test_k1_bytes_match_the_kernel_table():
         pytest.approx(0.04441, abs=5e-6)
     assert 1e3 * Launch(False, 1080, 4320, 1000, 5, 8, 19).bound_s == \
         pytest.approx(0.14640, abs=5e-6)
+    # the fail-stop rows: 16 fault sets x 1,024 traces, static and DTPM
+    assert 1e3 * Launch(False, 1, 16384, 1000, 5, 8, 15,
+                        faults=True).bound_s == pytest.approx(0.70460,
+                                                              abs=5e-6)
+    assert 1e3 * Launch(True, 1, 16384, 1000, 5, 8, 15,
+                        faults=True).bound_s == pytest.approx(0.86191,
+                                                              abs=5e-6)
+    # the five cells' launches, fault-free: the bytes they had before the
+    # count took faults
+    was = {"static-rate-sweep": [114_692_928] * 3,
+           "dtpm-policy-sweep": [148_780_288],
+           "dse-grid-evaluate": [490_440_960],
+           "dtpm-seconds-sweep": [5_898_423_100],
+           "dtpm-policy-sweep-met": [148_780_288]}
+    for cell, want in was.items():
+        c = spec.load_cell(ROOT, cell)
+        tr = c.traffic["traces"]
+        jobs = int(tr["jobs"])
+        trace = inputs.Trace(np.zeros(jobs, np.float32),
+                             np.zeros(jobs, np.int32), 20.0)
+        n = len(inputs.rates(tr["rates_jobs_per_ms"])) * int(tr["per_rate"])
+        got = runner.entries.make(c.config, c.traffic, "cpu").launches(
+            [trace] * n)
+        assert [l.bytes for l in got] == want, cell
+        assert not any(l.faults for l in got)
 
 
 # ------------------------------------------------------------ whole runs
 
-@pytest.mark.parametrize("cell", sorted(ds3bench_tiny.TINY))
+@pytest.mark.parametrize("cell", ds3bench_tiny.CELLS)
 def test_a_cell_added_as_data_alone_runs_and_is_correct(tiny_root, cell):
     """The tiny cells are data files alone (configuration, traffic,
     limits, BENCHMARK.json entries); each runs on the port's CPU path,
@@ -212,7 +237,7 @@ def test_a_cell_added_as_data_alone_runs_and_is_correct(tiny_root, cell):
             assert "setup_s" in res["metrics"]
 
 
-@pytest.mark.parametrize("cell", sorted(ds3bench_tiny.TINY))
+@pytest.mark.parametrize("cell", ds3bench_tiny.CELLS)
 def test_the_reference_equals_the_port_on_the_cpu(tiny_root, cell):
     """Every lane of a tiny call of each entry (static sweep, DTPM sweep,
     evaluate) on the port's CPU path against the reference: the same
@@ -269,7 +294,7 @@ def _unchanged(orig):
 
 
 @pytest.mark.parametrize("fault", ["half_mean", "altered", "unchanged"])
-@pytest.mark.parametrize("cell", sorted(ds3bench_tiny.TINY))
+@pytest.mark.parametrize("cell", ds3bench_tiny.CELLS)
 def test_a_broken_timed_path_reads_not_correct(tiny_root, monkeypatch,
                                                cell, fault):
     """The run with the program broken underneath (its scan or epilogue)
@@ -285,7 +310,7 @@ def test_a_broken_timed_path_reads_not_correct(tiny_root, monkeypatch,
     assert rc == 0 and res["correct"] is False, err
 
 
-@pytest.mark.parametrize("cell", sorted(ds3bench_tiny.TINY))
+@pytest.mark.parametrize("cell", ds3bench_tiny.CELLS)
 def test_the_control_fails_the_limits(tiny_root, cell):
     """The reference computed in bfloat16 times, in the program's place,
     fails the cell's limits; the program passes them on the same lanes."""
